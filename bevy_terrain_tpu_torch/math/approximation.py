@@ -102,25 +102,27 @@ class TerrainModelApproximation:
         t = uv[:, 1]  # (6,)
 
         # u(s) = (2s-1)/sqrt(1-4Cs(s-1)), v(t) likewise
-        # (reference terrain_model.rs:279-302)
-        u_denom = np.sqrt(1.0 - 4.0 * C_SQR * s * (s - 1.0))
-        u = (2.0 * s - 1.0) / u_denom
-        u_ds = 2.0 * (C_SQR + 1.0) / u_denom**3
-        u_dss = 12.0 * C_SQR * (C_SQR + 1.0) * (2.0 * s - 1.0) / u_denom**5
+        # (reference terrain_model.rs:279-302). Powers are repeated
+        # products, as the JAX package's native runtime computes them.
+        ud = np.sqrt(1.0 - 4.0 * C_SQR * s * (s - 1.0))
+        u = (2.0 * s - 1.0) / ud
+        u_ds = 2.0 * (C_SQR + 1.0) / (ud * ud * ud)
+        u_dss = 12.0 * C_SQR * (C_SQR + 1.0) * (2.0 * s - 1.0) / (ud * ud * ud * ud * ud)
 
-        v_denom = np.sqrt(1.0 - 4.0 * C_SQR * t * (t - 1.0))
-        v = (2.0 * t - 1.0) / v_denom
-        v_dt = 2.0 * (C_SQR + 1.0) / v_denom**3
-        v_dtt = 12.0 * C_SQR * (C_SQR + 1.0) * (2.0 * t - 1.0) / v_denom**5
+        vd = np.sqrt(1.0 - 4.0 * C_SQR * t * (t - 1.0))
+        v = (2.0 * t - 1.0) / vd
+        v_dt = 2.0 * (C_SQR + 1.0) / (vd * vd * vd)
+        v_dtt = 12.0 * C_SQR * (C_SQR + 1.0) * (2.0 * t - 1.0) / (vd * vd * vd * vd * vd)
 
         # l(s,t) = sqrt(1 + u^2 + v^2) and derivatives
         # (reference terrain_model.rs:304-309)
         l = np.sqrt(1.0 + u * u + v * v)
+        l3 = l * l * l
         l_ds = u * u_ds / l
         l_dt = v * v_dt / l
-        l_dss = (u * u_dss * l * l + (v * v + 1.0) * u_ds * u_ds) / l**3
-        l_dst = -(u * v * u_ds * v_dt) / l**3
-        l_dtt = (v * v_dtt * l * l + (u * u + 1.0) * v_dt * v_dt) / l**3
+        l_dss = (u * u_dss * l * l + (v * v + 1.0) * u_ds * u_ds) / l3
+        l_dst = -(u * v * u_ds * v_dt) / l3
+        l_dtt = (v * v_dtt * l * l + (u * u + 1.0) * v_dt * v_dt) / l3
 
         # quotient-rule chains for a=1/l, b=u/l, c=v/l scaled by powers of l
         # (reference terrain_model.rs:311-330)
@@ -146,28 +148,35 @@ class TerrainModelApproximation:
         c_dst = 2.0 * v * l_ds * l_dt - l * (v_dt * l_ds + v * l_dst)
         c_dtt = 2.0 * v * l_dt * l_dt - l * (2.0 * v_dt * l_dt + v * l_dtt) + v_dtt * l * l
 
-        m = model.world_from_local
-        m3 = np.asarray(m, np.float64)[:3, :3]
+        # per side: rotate (a, b, c) into cube xyz, scale by 1/l^power, map
+        # to world. Written as the JAX package's native runtime writes it
+        # (terrain_runtime.cpp tr_taylor_spherical: explicit 3-term sums,
+        # 1/l^power by repeated division, c = w + (translation - view)), so
+        # the f32 coefficients match it bit for bit, signs of zero included
+        m = np.asarray(model.world_from_local, np.float64)[:3, :4]
+        view = view_world_position
 
-        def tp(vec, power):
-            # (6, 3): per-side rotation, 1/l^power scaling, world rotation
-            rotated = np.einsum("sij,sj->si", SIDE_MATRICES, vec)
-            return (rotated / l[:, None] ** power) @ m3.T
-
-        p = tp(np.stack([a, b, c], axis=-1), 1) + np.asarray(m, np.float64)[:3, 3]
-        p_ds = tp(np.stack([a_ds, b_ds, c_ds], axis=-1), 2)
-        p_dt = tp(np.stack([a_dt, b_dt, c_dt], axis=-1), 2)
-        p_dss = tp(np.stack([a_dss, b_dss, c_dss], axis=-1), 3)
-        p_dst = tp(np.stack([a_dst, b_dst, c_dst], axis=-1), 3)
-        p_dtt = tp(np.stack([a_dtt, b_dtt, c_dtt], axis=-1), 3)
+        def tp(vec, power, scale=1.0, translate=False):
+            M = SIDE_MATRICES
+            rot = (M[:, :, 0] * vec[:, None, 0] + M[:, :, 1] * vec[:, None, 1]
+                   + M[:, :, 2] * vec[:, None, 2])  # (6, 3)
+            inv = np.ones_like(l)
+            for _ in range(power):
+                inv = inv / l
+            rot = rot * inv[:, None]
+            w = (m[None, :, 0] * rot[:, 0:1] + m[None, :, 1] * rot[:, 1:2]
+                 + m[None, :, 2] * rot[:, 2:3])  # (6, 3)
+            if translate:
+                w = w + (m[:, 3] - view)
+            return (scale * w).astype(np.float32)
 
         coeffs = {
-            "c": (p - view_world_position).astype(np.float32),
-            "c_s": p_ds.astype(np.float32),
-            "c_t": p_dt.astype(np.float32),
-            "c_ss": (p_dss / 2.0).astype(np.float32),
-            "c_st": p_dst.astype(np.float32),
-            "c_tt": (p_dtt / 2.0).astype(np.float32),
+            "c": tp(np.stack([a, b, c], axis=-1), 1, translate=True),
+            "c_s": tp(np.stack([a_ds, b_ds, c_ds], axis=-1), 2),
+            "c_t": tp(np.stack([a_dt, b_dt, c_dt], axis=-1), 2),
+            "c_ss": tp(np.stack([a_dss, b_dss, c_dss], axis=-1), 3, 0.5),
+            "c_st": tp(np.stack([a_dst, b_dst, c_dst], axis=-1), 3),
+            "c_tt": tp(np.stack([a_dtt, b_dtt, c_dtt], axis=-1), 3, 0.5),
         }
 
         return TerrainModelApproximation(

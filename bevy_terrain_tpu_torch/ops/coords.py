@@ -11,8 +11,9 @@ uv) tensors:
 * ``xy``   int32 (..., 2)    tile index at that lod
 * ``uv``   f32  (..., 2)     position within the tile, [0, 1]
 
-Only the planar frame is ported so far: the spherical branches raise
-``NotImplementedError``.
+Every 3-vector norm is written out as ``sqrt(x*x + y*y + z*z)``, summed
+left to right as the JAX package's reductions sum: node selection at
+planetary scale turns on single ulps.
 """
 
 from __future__ import annotations
@@ -20,9 +21,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bevy_terrain_tpu_torch.math.coordinate import C_SQR, SIDE_LOCAL_MATRICES
 from bevy_terrain_tpu_torch.ops.params import FrameUniforms, StaticTerrainConfig, TaylorParams
 
-_SPHERICAL = "the spherical frame is not ported to the torch package yet"
+# per-side cube placement (signed permutations: exact in f32)
+SIDE_MATS = np.asarray(SIDE_LOCAL_MATRICES, np.float32)  # (6, 3, 3)
+_SIDE_MATS_DEV: dict = {}
+
+
+def side_mats(device) -> torch.Tensor:
+    """:data:`SIDE_MATS` as a (6, 3, 3) f32 tensor on ``device``, copied
+    there once."""
+    key = str(device)
+    if key not in _SIDE_MATS_DEV:
+        _SIDE_MATS_DEV[key] = torch.from_numpy(SIDE_MATS).to(device)
+    return _SIDE_MATS_DEV[key]
 
 
 def tile_count(lod: torch.Tensor) -> torch.Tensor:
@@ -35,6 +48,58 @@ def take_side_rows(table: torch.Tensor, side: torch.Tensor, side_count: int = 6)
     if side_count == 1:
         return table[0].expand(side.shape + table.shape[1:])
     return table[side.long()]
+
+
+def norm3(v: torch.Tensor) -> torch.Tensor:
+    """|v| over the last axis of (..., 3), summed x, y, z in order."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return torch.sqrt(x * x + y * y + z * z)
+
+
+def _apply_mat3(m, v):
+    """Elementwise 3x3 matrix-vector product for batched 3-vectors (no
+    matmul library call, whose precision a global TF32 flag can lower)."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return torch.stack(
+        [
+            m[0, 0] * x + m[0, 1] * y + m[0, 2] * z,
+            m[1, 0] * x + m[1, 1] * y + m[1, 2] * z,
+            m[2, 0] * x + m[2, 1] * y + m[2, 2] * z,
+        ],
+        dim=-1,
+    )
+
+
+def compute_local_position(side, lod, xy, uv, spherical: bool):
+    """Coordinate -> unit local position (functions.wgsl:73-96), (..., 3) f32."""
+    uv01 = (xy.to(torch.float32) + uv) / tile_count(lod)[..., None]
+    if not spherical:
+        return torch.stack(
+            [uv01[..., 0] - 0.5, torch.zeros_like(uv01[..., 0]), uv01[..., 1] - 0.5],
+            dim=-1,
+        )
+    w = (uv01 - 0.5) / 0.5
+    p = w / torch.sqrt(1.0 + C_SQR - C_SQR * w * w)
+    mats = take_side_rows(side_mats(uv.device), side)  # (..., 3, 3)
+    # signed permutation rows: each product is exact, so the sum is too
+    px, py = p[..., 0:1], p[..., 1:2]
+    cube = mats[..., 0] * px + mats[..., 1] * py + mats[..., 2]
+    return cube / norm3(cube)[..., None]
+
+
+def position_local_to_world(local_position, world_from_local):
+    """Affine transform (functions.wgsl:26-29). ``world_from_local`` is (3,4) f32."""
+    return _apply_mat3(world_from_local, local_position) + world_from_local[:, 3]
+
+
+def normal_local_to_world(local_position, normal_matrix, spherical: bool):
+    """Surface normal (functions.wgsl:14-24): the local normal is the local
+    position for spheres, +Y for planes, mapped by the inverse-transpose."""
+    if spherical:
+        n = _apply_mat3(normal_matrix, local_position)
+    else:
+        n = normal_matrix[:, 1].expand(local_position.shape)
+    return n / norm3(n)[..., None]
 
 
 def coordinate_change_lod(lod, xy, uv, new_lod):
@@ -86,13 +151,54 @@ def planar_view_distance(lod, xy, uv, uniforms: FrameUniforms):
     return torch.sqrt(dx * dx + dy * dy + dz * dz)
 
 
+def compute_relative_position(side, lod, xy, uv, taylor: TaylorParams, origin_lod: int,
+                              side_count: int = 6):
+    """Taylor-series view-relative position (functions.wgsl:98-115).
+
+    Returns (..., 3) f32 positions relative to the view world position.
+    """
+    _, oxy, ouv = coordinate_change_lod(lod, xy, uv, origin_lod)
+    origin_xy = take_side_rows(taylor.origin_xy, side, side_count)  # (..., 2)
+    origin_uv = take_side_rows(taylor.origin_uv, side, side_count)
+    origin_count = float(2.0 ** origin_lod)
+    rel_st = ((oxy - origin_xy).to(torch.float32) + (ouv - origin_uv)) / origin_count
+    s = rel_st[..., 0:1]
+    t = rel_st[..., 1:2]
+
+    def row(tbl):
+        return take_side_rows(tbl, side, side_count)
+
+    return (
+        row(taylor.c)
+        + row(taylor.c_s) * s
+        + row(taylor.c_t) * t
+        + row(taylor.c_ss) * s * s
+        + row(taylor.c_st) * s * t
+        + row(taylor.c_tt) * t * t
+    )
+
+
 def approximate_view_distance(side, lod, xy, uv, uniforms: FrameUniforms,
                               cfg: StaticTerrainConfig):
     """View distance of a coordinate at the approximate terrain height
-    (functions.wgsl:117-131)."""
-    if cfg.spherical or cfg.high_precision:
-        raise NotImplementedError(_SPHERICAL)
-    return planar_view_distance(lod, xy, uv, uniforms)
+    (functions.wgsl:117-131), with the HIGH_PRECISION Taylor fallback
+    below ``precision_threshold_distance``."""
+    if not cfg.spherical and not cfg.high_precision:
+        return planar_view_distance(lod, xy, uv, uniforms)
+    local = compute_local_position(side, lod, xy, uv, cfg.spherical)
+    world = position_local_to_world(local, uniforms.world_from_local)
+    normal = normal_local_to_world(local, uniforms.normal_matrix, cfg.spherical)
+    sample = world + uniforms.approximate_height * normal
+    view_distance = norm3(sample - uniforms.view_world_position)
+    if cfg.high_precision:
+        relative = compute_relative_position(
+            side, lod, xy, uv, uniforms.taylor, cfg.origin_lod, cfg.side_count
+        )
+        hp_distance = norm3(relative + uniforms.approximate_height * normal)
+        view_distance = torch.where(
+            view_distance < uniforms.precision_threshold_distance, hp_distance, view_distance
+        )
+    return view_distance
 
 
 def compute_subdivision_coordinate(side, lod, xy, taylor: TaylorParams,
@@ -132,18 +238,37 @@ def compute_blend(view_distance, uniforms: FrameUniforms, cfg: StaticTerrainConf
 
 
 def tile_visible(side, lod, xy, uniforms: FrameUniforms, cfg: StaticTerrainConfig):
-    """Conservative frustum test of a planar tile's bounding box.
+    """Conservative frustum test of a tile's bounding volume.
 
     Planar tiles are exact parallelepipeds (affine image of rect x height),
     so max-over-corners equals the box support function:
-    d_max = p . center + sum |p . half_axis|. Returns (...,) bool.
+    d_max = p . center + sum |p . half_axis|. A cube-sphere tile gets one
+    bounding sphere: centred on the tile-centre surface point at the middle
+    height, with radius the arc over the tile's angular span (1.2x covers
+    the C_SQR warp's stretch) plus the height range. Returns (...,) bool.
     """
-    if cfg.spherical:
-        raise NotImplementedError(_SPHERICAL)
     planes = uniforms.culling_planes  # (5, 4)
     zero = torch.zeros((), dtype=torch.float32, device=planes.device)
     hmin = torch.minimum(uniforms.min_height, zero)
     hmax = torch.maximum(uniforms.max_height, zero)
+    if cfg.spherical:
+        center_uv = torch.full(xy.shape, 0.5, dtype=torch.float32, device=xy.device)
+        local = compute_local_position(side, lod, xy, center_uv, True)
+        world = position_local_to_world(local, uniforms.world_from_local)
+        normal = normal_local_to_world(local, uniforms.normal_matrix, True)
+        hmid = 0.5 * (hmin + hmax)
+        p = world + hmid * normal
+        d = (
+            p[..., 0, None] * planes[:, 0]
+            + p[..., 1, None] * planes[:, 1]
+            + p[..., 2, None] * planes[:, 2]
+            + planes[:, 3]
+        )  # (..., 5)
+        # f32(1.2 * pi / 2) and f32(pi), as the JAX package rounds them
+        theta = torch.clamp(1.2 * (np.pi / 2.0) * torch.exp2(-lod.to(torch.float32)),
+                            max=float(np.float32(np.pi)))
+        r = (uniforms.terrain_scale + torch.abs(hmax)) * theta + (hmax - hmin)
+        return torch.all(d + r[..., None] >= 0.0, dim=-1)
     m = uniforms.world_from_local  # (3, 4)
     inv_count = torch.exp2(-lod.to(torch.float32))
     n_up = uniforms.normal_matrix[:, 1]

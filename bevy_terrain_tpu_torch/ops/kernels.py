@@ -28,6 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from bevy_terrain_tpu_torch.math.coordinate import C_SQR
 from bevy_terrain_tpu_torch.ops.params import FrameUniforms, StaticTerrainConfig
 
 GV = 17  # vertices per tile axis (grid_size 16)
@@ -35,6 +36,7 @@ K = 33  # half-grid points per axis
 P = 64  # patch extent in texels
 OUT_CH = 6  # [height, pos x, pos y, pos z, morphed u, morphed v]
 FS_LEN = 48
+TILES_PER_STEP = 64  # the high-precision flag covers 64 tiles (the JAX kernel's step)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -94,14 +96,15 @@ def pack_mesh_scalars(uniforms: FrameUniforms, cfg: StaticTerrainConfig,
 # ---------------------------------------------------------------------------
 
 
-def _check_mesh_args(block_array, ids, geom, tile_params, fs, tile_count) -> int:
+def _check_mesh_args(block_array, ids, geom, tile_params, fs, tile_count,
+                     n_params: int = 4) -> int:
     dev = block_array.device
     n = ids.shape[0] if ids.dim() == 1 else -1
     checks = (
         (block_array, torch.int32, (block_array.shape[0], 32, 128), "block_array"),
         (ids, torch.int32, (n,), "ids"),
         (geom, torch.float32, (n, 8), "geom"),
-        (tile_params, torch.float32, (n, 4), "tile_params"),
+        (tile_params, torch.float32, (n, n_params), "tile_params"),
         (fs, torch.float32, (FS_LEN,), "fs"),
     )
     for x, dtype, shape, name in checks:
@@ -181,20 +184,19 @@ def _smooth_matrix(device) -> torch.Tensor:
     return torch.from_numpy(A).to(device)
 
 
-def mesh_fused_planar_reference(block_array: torch.Tensor, ids: torch.Tensor,
-                                geom: torch.Tensor, tile_params: torch.Tensor,
-                                fs: torch.Tensor, tile_count: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`mesh_fused_planar` (same arguments,
-    same result), batched over tiles on any device."""
+def _halfgrids(block_array, ids, geom):
+    """Phases 1-3 of both mesh kernels, batched over tiles: the mean-centred
+    tent resample of each tile's quad to the 33x33 half-grid, H, and its
+    1-2-1 smoothed copy, Hs (both (n, 33, 33), natural order), in geom's
+    dtype."""
     dev = block_array.device
-    f32 = torch.float32
-    n = ids.shape[0]
-    q = block_array[ids.long()].to(f32)  # (n, 32, 128)
+    dt = geom.dtype
+    q = block_array[ids.long()].to(dt)  # (n, 32, 128)
     patch = torch.cat([q[:, :, :P], q[:, :, P:]], dim=1)  # (n, 64, 64)
     c = patch.mean(dim=(1, 2))[:, None, None]
 
-    k = torch.arange(K, dtype=f32, device=dev)
-    r = torch.arange(P, dtype=f32, device=dev)
+    k = torch.arange(K, dtype=dt, device=dev)
+    r = torch.arange(P, dtype=dt, device=dev)
     dp = geom[:, 2:3]
 
     def tents(p0):  # (n, K, P)
@@ -204,14 +206,79 @@ def mesh_fused_planar_reference(block_array: torch.Tensor, ids: torch.Tensor,
     wx, wy = tents(geom[:, 0]), tents(geom[:, 1])
     rows = torch.einsum("nkr,nrc->nkc", wy, patch - c)
     H = torch.einsum("nkc,nlc->nkl", rows, wx) + c  # (n, 33, 33) natural order
-    A = _smooth_matrix(dev)
+    A = _smooth_matrix(dev).to(dt)
     Hs = torch.einsum("nkl,ml->nkm", torch.einsum("ij,njl->nil", A, H), A)
+    return H, Hs
 
-    gi = torch.arange(GV, device=dev)
-    i = gi.view(1, GV, 1)  # vertex row (v)
-    j = gi.view(1, 1, GV)  # vertex column (u)
-    u = j.to(f32) * (1.0 / (GV - 1.0))
-    v = i.to(f32) * (1.0 / (GV - 1.0))
+
+def _vertex_grid(device, dtype):
+    """Vertex indices and uvs: (gi (17,), i (1, 17, 1) rows = v,
+    j (1, 1, 17) columns = u, u, v)."""
+    gi = torch.arange(GV, device=device)
+    i = gi.view(1, GV, 1)
+    j = gi.view(1, 1, GV)
+    u = j.to(dtype) * (1.0 / (GV - 1.0))
+    v = i.to(dtype) * (1.0 / (GV - 1.0))
+    return gi, i, j, u, v
+
+
+def _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs, gi, i, j, u, v):
+    """The per-vertex stage both kernels share: CDLOD morph toward the even
+    grid, 3x3 tent window of the fine and smoothed half-grids at the
+    morphed uv, per-vertex blend, height. Returns (height, mu, mv)."""
+    n = H.shape[0]
+    dt = H.dtype
+    target_lod = fs[43] - log2_dist
+    mr = ((lodf + fs[19] - target_lod) * (1.0 / fs[19])).clamp(0.0, 1.0)
+    mr = torch.where(lodf == 0.0, 0.0, mr) * fs[24]
+    even_u = (j & ~1).to(dt) * (1.0 / (GV - 1.0))
+    even_v = (i & ~1).to(dt) * (1.0 / (GV - 1.0))
+    mu = u + (even_u - u) * mr
+    mv = v + (even_v - v) * mr
+
+    lxw = mu * (2.0 * (GV - 1.0)) - (2 * j - 2).clamp(min=0).to(dt)
+    lyw = mv * (2.0 * (GV - 1.0)) - (2 * i - 2).clamp(min=0).to(dt)
+    wyb = [(1.0 - torch.abs(lyw - b)).clamp(min=0.0) for b in range(3)]
+    wxa = [(1.0 - torch.abs(lxw - a)).clamp(min=0.0) for a in range(3)]
+
+    def tap(idx, b):  # natural half-grid index of window tap b of vertex idx
+        return torch.where(idx == 0, 0, 2 * idx - 2 + b)
+
+    def interp9(S):
+        h = torch.zeros((n, GV, GV), dtype=dt, device=H.device)
+        for b in range(3):
+            rows_b = S[:, tap(gi, b)]  # (n, 17, 33)
+            for a in range(3):
+                h = h + wyb[b] * wxa[a] * rows_b[:, :, tap(gi, a)]
+        return h
+
+    h_fine = interp9(H)
+    h_smooth = interp9(Hs)
+
+    btarget = torch.minimum(fs[44] - log2_dist, fs[26])
+    blod = btarget.clamp(min=0.0).to(torch.int32).to(dt)
+    bratio = torch.where(
+        blod == 0.0, 0.0, ((blod + fs[21] - btarget) * (1.0 / fs[21])).clamp(0.0, 1.0)
+    ) * fs[25]
+    h_norm = (h_fine + (h_smooth - h_fine) * bratio) * valid
+    height = (fs[22] + fs[23] * h_norm) * live
+    return height, mu, mv
+
+
+def _dead_to_zero(out, tile_count):
+    n = out.shape[0]
+    alive = torch.arange(n, device=out.device) < tile_count.reshape(())
+    return torch.where(alive.view(n, 1, 1, 1), out, 0.0)
+
+
+def mesh_fused_planar_reference(block_array: torch.Tensor, ids: torch.Tensor,
+                                geom: torch.Tensor, tile_params: torch.Tensor,
+                                fs: torch.Tensor, tile_count: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`mesh_fused_planar` (same arguments,
+    same result), batched over tiles on any device."""
+    n = ids.shape[0]
+    H, Hs = _halfgrids(block_array, ids, geom)
+    gi, i, j, u, v = _vertex_grid(block_array.device, geom.dtype)
     live, lodf, xf, yf = (tile_params[:, s].view(n, 1, 1) for s in range(4))
     valid = geom[:, 3].view(n, 1, 1)
     inv_count = torch.exp2(-lodf)
@@ -223,41 +290,8 @@ def mesh_fused_planar_reference(block_array: torch.Tensor, ids: torch.Tensor,
     dz = fs[8] * lx + fs[10] * lz + fs[14]
     d2 = dx * dx + dy * dy + dz * dz
     log2_dist = 0.5 * torch.log2(d2)
-
-    target_lod = fs[43] - log2_dist
-    mr = ((lodf + fs[19] - target_lod) * (1.0 / fs[19])).clamp(0.0, 1.0)
-    mr = torch.where(lodf == 0.0, 0.0, mr) * fs[24]
-    even_u = (j & ~1).to(f32) * (1.0 / (GV - 1.0))
-    even_v = (i & ~1).to(f32) * (1.0 / (GV - 1.0))
-    mu = u + (even_u - u) * mr
-    mv = v + (even_v - v) * mr
-
-    lxw = mu * (2.0 * (GV - 1.0)) - (2 * j - 2).clamp(min=0).to(f32)
-    lyw = mv * (2.0 * (GV - 1.0)) - (2 * i - 2).clamp(min=0).to(f32)
-    wyb = [(1.0 - torch.abs(lyw - b)).clamp(min=0.0) for b in range(3)]
-    wxa = [(1.0 - torch.abs(lxw - a)).clamp(min=0.0) for a in range(3)]
-
-    def tap(idx, b):  # natural half-grid index of window tap b of vertex idx
-        return torch.where(idx == 0, 0, 2 * idx - 2 + b)
-
-    def interp9(S):
-        h = torch.zeros((n, GV, GV), dtype=f32, device=dev)
-        for b in range(3):
-            rows_b = S[:, tap(gi, b)]  # (n, 17, 33)
-            for a in range(3):
-                h = h + wyb[b] * wxa[a] * rows_b[:, :, tap(gi, a)]
-        return h
-
-    h_fine = interp9(H)
-    h_smooth = interp9(Hs)
-
-    btarget = torch.minimum(fs[44] - log2_dist, fs[26])
-    blod = btarget.clamp(min=0.0).to(torch.int32).to(f32)
-    bratio = torch.where(
-        blod == 0.0, 0.0, ((blod + fs[21] - btarget) * (1.0 / fs[21])).clamp(0.0, 1.0)
-    ) * fs[25]
-    h_norm = (h_fine + (h_smooth - h_fine) * bratio) * valid
-    height = (fs[22] + fs[23] * h_norm) * live
+    height, mu, mv = _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs,
+                                          gi, i, j, u, v)
 
     mlx = (xf + mu) * inv_count - 0.5
     mlz = (yf + mv) * inv_count - 0.5
@@ -266,8 +300,203 @@ def mesh_fused_planar_reference(block_array: torch.Tensor, ids: torch.Tensor,
     pz = fs[8] * mlx + fs[10] * mlz + fs[11] + height * fs[17]
 
     out = torch.stack([height, px * live, py * live, pz * live, mu * live, mv * live], dim=1)
-    alive = torch.arange(n, device=dev) < tile_count.reshape(())
-    return torch.where(alive.view(n, 1, 1, 1), out, 0.0)
+    return _dead_to_zero(out, tile_count)
+
+
+# ---------------------------------------------------------------------------
+# Spherical fused mesh kernel (cube sphere / ellipsoid, Taylor near field)
+# ---------------------------------------------------------------------------
+
+# tile_params columns of the spherical kernel (meshgen.fused_kernel_args):
+# [live, lod, x, y, side, Taylor c c_s c_t c_ss c_st c_tt (xyz each),
+#  origin_xy (2), origin_uv (2), WM (3x3 row-major), NM (3x3 row-major)]
+SPH_PARAMS = 45
+_TAYLOR, _OXY, _OUV, _WM, _NM = 5, 23, 25, 27, 36
+SPH_CH = 9  # [height, pos xyz, morphed uv, normal xyz]
+
+
+def rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """1 / sqrt(x) as two correctly rounded f32 ops: the CUDA kernel's
+    ``1.0f / sqrtf(x)`` (not ``rsqrtf``, which is within 2 ulp only)."""
+    return torch.sqrt(x).reciprocal()
+
+
+def _check_spherical_args(block_array, ids, geom, tile_params, fs, hp_steps, tile_count,
+                          origin_lod) -> int:
+    n = _check_mesh_args(block_array, ids, geom, tile_params, fs, tile_count, SPH_PARAMS)
+    if n % TILES_PER_STEP:
+        raise ValueError(f"the tile count {n} is not a multiple of {TILES_PER_STEP}")
+    if (hp_steps.device != block_array.device or hp_steps.dtype != torch.int32
+            or tuple(hp_steps.shape) != (n // TILES_PER_STEP,) or not hp_steps.is_contiguous()):
+        raise ValueError(f"hp_steps: want int32 ({n // TILES_PER_STEP},) on the blocks' "
+                         f"device, got {hp_steps.dtype} {tuple(hp_steps.shape)}")
+    if not 0 <= origin_lod < 31:
+        raise ValueError(f"origin_lod {origin_lod} out of range")
+    return n
+
+
+def mesh_fused_spherical(block_array: torch.Tensor, ids: torch.Tensor, geom: torch.Tensor,
+                         tile_params: torch.Tensor, fs: torch.Tensor, hp_steps: torch.Tensor,
+                         tile_count: torch.Tensor, origin_lod: int,
+                         ellipsoidal: bool) -> torch.Tensor:
+    """The spherical vertex stage of one frame: the planar kernel's quad
+    fetch, resample, smoothing, morph, window and blend, with cube-sphere
+    world positions and unit normals, and on high-precision steps the
+    Taylor view-relative position near the view.
+
+    Args:
+      block_array, ids, geom, fs, tile_count: as :func:`mesh_fused_planar`.
+      tile_params: (Fp, 45) f32 per tile, columns as :data:`SPH_PARAMS`
+        documents (meshgen.fused_kernel_args builds it).
+      hp_steps: (Fp / 64,) int32 flag per 64-tile step: 0 dead, 1 live,
+        2 live and possibly inside the precision threshold (the Taylor
+        near field is taken only on steps flagged 2).
+      origin_lod: the Taylor origin lod (``fs[28]`` is ``2^-origin_lod``).
+      ellipsoidal: normals from the normal matrix (NM columns) instead of
+        the sphere's position / radius.
+
+    Returns (Fp, 9, 17, 17) f32: per tile, channels [height, pos x, pos y,
+    pos z, morphed u, morphed v, normal x, normal y, normal z].
+
+    On a CUDA tensor this launches ``csrc/mesh_fused.cu`` (and raises if it
+    cannot); on a CPU tensor it returns the plain version.
+    """
+    n = _check_spherical_args(block_array, ids, geom, tile_params, fs, hp_steps, tile_count,
+                              origin_lod)
+    if block_array.device.type == "cpu":
+        return mesh_fused_spherical_reference(block_array, ids, geom, tile_params, fs,
+                                              hp_steps, tile_count, origin_lod, ellipsoidal)
+    if block_array.device.type != "cuda":
+        raise ValueError(f"unsupported device {block_array.device}")
+    if block_array.data_ptr() % 16:
+        raise ValueError("block_array must be 16-byte aligned")
+    out = torch.empty((n, SPH_CH, GV, GV), dtype=torch.float32, device=block_array.device)
+    if n == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(block_array.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mesh_fused_spherical_launch(
+            block_array.data_ptr(), block_array.shape[0], ids.data_ptr(),
+            geom.data_ptr(), tile_params.data_ptr(), fs.data_ptr(), hp_steps.data_ptr(),
+            tile_count.data_ptr(), out.data_ptr(), n, int(origin_lod), int(bool(ellipsoidal)),
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"mesh_fused_spherical launch failed: cudaError {rc}")
+    mesh_fused_spherical.launches += 1
+    return out
+
+
+mesh_fused_spherical.launches = 0
+
+
+def mesh_fused_spherical_reference(block_array: torch.Tensor, ids: torch.Tensor,
+                                   geom: torch.Tensor, tile_params: torch.Tensor,
+                                   fs: torch.Tensor, hp_steps: torch.Tensor,
+                                   tile_count: torch.Tensor, origin_lod: int,
+                                   ellipsoidal: bool) -> torch.Tensor:
+    """Plain PyTorch version of :func:`mesh_fused_spherical` (same
+    arguments, same result), batched over tiles on any device, in the
+    kernel's operation order. It computes in the dtype of ``geom``,
+    ``tile_params`` and ``fs``: float32 is the kernel's function; float64
+    evaluates the same arithmetic nearly exactly (the tests' referee)."""
+    n = ids.shape[0]
+    dev = block_array.device
+    dt, i32 = geom.dtype, torch.int32
+    H, Hs = _halfgrids(block_array, ids, geom)
+    gi, i, j, u, v = _vertex_grid(dev, dt)
+
+    def col(c):
+        return tile_params[:, c].view(n, 1, 1)
+
+    live, lodf, xf, yf = col(0), col(1), col(2), col(3)
+    valid = geom[:, 3].view(n, 1, 1)
+    inv_count = torch.exp2(-lodf)
+    wm = [col(_WM + r) for r in range(9)]
+    nm = [col(_NM + r) for r in range(9)]
+
+    def far_geom(uu, vv):
+        """Cube-sphere world position + unit world normal at tile uv."""
+        wxp = 2.0 * ((xf + uu) * inv_count) - 1.0
+        wyp = 2.0 * ((yf + vv) * inv_count) - 1.0
+        # the warp constant as the JAX kernel rounds it: f32(C_SQR) and
+        # f32(1 + C_SQR), each rounded once from the double
+        pxs = wxp * rsqrt((1.0 + C_SQR) - C_SQR * wxp * wxp)
+        pys = wyp * rsqrt((1.0 + C_SQR) - C_SQR * wyp * wyp)
+        inv_n = rsqrt(1.0 + pxs * pxs + pys * pys)
+        pxn = pxs * inv_n
+        pyn = pys * inv_n
+        sx = wm[0] * pxn + wm[1] * pyn + wm[2] * inv_n
+        sy = wm[3] * pxn + wm[4] * pyn + wm[5] * inv_n
+        sz = wm[6] * pxn + wm[7] * pyn + wm[8] * inv_n
+        w = (sx + fs[3], sy + fs[7], sz + fs[11])
+        if ellipsoidal:
+            nx = nm[0] * pxs + nm[1] * pys + nm[2]
+            ny = nm[3] * pxs + nm[4] * pys + nm[5]
+            nz = nm[6] * pxs + nm[7] * pys + nm[8]
+            ninv = rsqrt(nx * nx + ny * ny + nz * nz)
+            return w, (nx * ninv, ny * ninv, nz * ninv)
+        return w, (sx * fs[42], sy * fs[42], sz * fs[42])
+
+    xi, yi, lodi = xf.to(i32), yf.to(i32), lodf.to(i32)
+    down = (lodi - origin_lod).clamp(min=0)
+    up = (origin_lod - lodi).clamp(min=0)
+    is_dn = lodi >= origin_lod
+    scale_dn = torch.exp2(-down.to(dt))
+    scale_up = torch.exp2(up.to(dt))
+    oxy = (col(_OXY).to(i32), col(_OXY + 1).to(i32))
+    ouv = (col(_OUV), col(_OUV + 1))
+    taylor = [col(_TAYLOR + r) for r in range(18)]
+
+    def taylor_rel(uu, vv):
+        """Taylor view-relative position: re-anchor at origin_lod with exact
+        integer cancellation, then the second-order polynomial."""
+        st = []
+        for a, (ci, cc) in enumerate(((xi, uu), (yi, vv))):
+            o_dn = ci >> down
+            ou_dn = ((ci & ((1 << down) - 1)).to(dt) + cc) * scale_dn
+            su = cc * scale_up
+            fu = torch.floor(su)
+            o_up = (ci << up) + fu.to(i32)
+            oi = torch.where(is_dn, o_dn, o_up)
+            ou = torch.where(is_dn, ou_dn, su - fu)
+            st.append(((oi - oxy[a]).to(dt) + (ou - ouv[a])) * fs[28])
+        s, t = st
+        return tuple(
+            taylor[c] + taylor[3 + c] * s + taylor[6 + c] * t + taylor[9 + c] * s * s
+            + taylor[12 + c] * s * t + taylor[15 + c] * t * t
+            for c in range(3)
+        )
+
+    hp_on = (hp_steps == 2).repeat_interleave(TILES_PER_STEP).view(n, 1, 1)
+    (wx0, wy0, wz0), (nx0, ny0, nz0) = far_geom(u, v)
+    dwx = wx0 + fs[29] * nx0 - fs[39]
+    dwy = wy0 + fs[29] * ny0 - fs[40]
+    dwz = wz0 + fs[29] * nz0 - fs[41]
+    d2_w0 = dwx * dwx + dwy * dwy + dwz * dwz
+    rx0, ry0, rz0 = taylor_rel(u, v)
+    dhx = rx0 + fs[29] * nx0
+    dhy = ry0 + fs[29] * ny0
+    dhz = rz0 + fs[29] * nz0
+    near = (d2_w0 < fs[45]) & hp_on
+    d2 = torch.where(near, dhx * dhx + dhy * dhy + dhz * dhz, d2_w0)
+    log2_dist = 0.5 * torch.log2(d2)
+    height, mu, mv = _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs,
+                                          gi, i, j, u, v)
+
+    (wxm, wym, wzm), (nxm, nym, nzm) = far_geom(mu, mv)
+    rxm, rym, rzm = taylor_rel(mu, mv)
+    nx_f = torch.where(near, nx0, nxm)
+    ny_f = torch.where(near, ny0, nym)
+    nz_f = torch.where(near, nz0, nzm)
+    px = torch.where(near, fs[39] + rxm, wxm) + height * nx_f
+    py = torch.where(near, fs[40] + rym, wym) + height * ny_f
+    pz = torch.where(near, fs[41] + rzm, wzm) + height * nz_f
+
+    out = torch.stack([height, px * live, py * live, pz * live, mu * live, mv * live,
+                       nx_f * live, ny_f * live, nz_f * live], dim=1)
+    return _dead_to_zero(out, tile_count)
 
 
 # ---------------------------------------------------------------------------
@@ -325,5 +554,10 @@ def _library() -> ctypes.CDLL:
             vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ctypes.c_int, vp,
         ]
         lib.mesh_fused_planar_launch.restype = ctypes.c_int
+        lib.mesh_fused_spherical_launch.argtypes = [
+            vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, vp,
+        ]
+        lib.mesh_fused_spherical_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB

@@ -1,20 +1,23 @@
 """The per-frame terrain pipeline: host prologue + the device frame stage.
 
-Torch twin of the fused planar branch of the JAX package's ``render/pipeline.py``:
+Torch twin of the fused branch of the JAX package's ``render/pipeline.py``:
 
 1. a host prologue per view (f64 numpy): request scan, residency update,
    best-tile entries, approximate height, Taylor approximation, and ONE
    packed int32 uniform blob;
 2. the device stage, eager torch on the atlas's device: unpack the blob,
    refine the tile list, plan the patch fetches, and run the fused mesh
-   kernel (``ops/kernels.mesh_fused_planar``).
+   kernel (``ops/kernels.mesh_fused_planar`` for planar terrains,
+   ``ops/kernels.mesh_fused_spherical`` for spheres and ellipsoids, with
+   the Taylor high-precision path).
 
-The device stage never reads a device value on the host, so PyTorch's
-asynchronous launches let the next frame's host prologue overlap it.
+The device stage reads no device value on the host except the refinement
+spill loop's queue count, so PyTorch's asynchronous launches let the next
+frame's host prologue overlap most of it.
 
-Only the planar, height-only frame at grid size 16 is ported. A spherical
-model, another grid size, an attachment without a usable patch plan, and
-shading raise ``NotImplementedError``.
+Only the height-only frame at grid size 16 is ported. Another grid size, a
+sphere without the high-precision path, an attachment without a usable
+patch plan, and shading raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 from bevy_terrain_tpu_torch import interop
 from bevy_terrain_tpu_torch.config import TerrainConfig, TerrainViewConfig
 from bevy_terrain_tpu_torch.math.approximation import TerrainModelApproximation
-from bevy_terrain_tpu_torch.ops import kernels, meshgen, refinement
+from bevy_terrain_tpu_torch.ops import meshgen, refinement
 from bevy_terrain_tpu_torch.ops.params import (
     StaticTerrainConfig,
     pack_frame_uniforms,
@@ -55,9 +58,11 @@ class TerrainFrameOutput:
 
     @property
     def raw_mesh(self) -> torch.Tensor:
-        """The fused kernel's product: (Fp, 6, 17, 17) f32, per tile the
-        channels [height, pos x, pos y, pos z, morphed u, morphed v] on the
-        (row = v, column = u) vertex grid, rows paired with ``tiles``."""
+        """The fused kernel's product, rows paired with ``tiles``, on the
+        (row = v, column = u) vertex grid: (Fp, 6, 17, 17) f32 for a planar
+        terrain, per tile the channels [height, pos x, pos y, pos z,
+        morphed u, morphed v]; (Fp, 9, 17, 17) for a sphere or ellipsoid,
+        which adds the unit world normal [n x, n y, n z]."""
         return self._raw
 
     @property
@@ -80,17 +85,14 @@ class TerrainFrameOutput:
 class Terrain:
     """A terrain with its atlas and per-view tile trees::
 
-        terrain = Terrain(config, device="cuda")
+        terrain = Terrain(config)  # on the CUDA card; device="cpu" asks for the CPU
         terrain.add_view("camera", TerrainViewConfig())
         outputs = terrain.update({"camera": view_position})
     """
 
-    def __init__(self, config: TerrainConfig, device, shading_fn=None):
+    def __init__(self, config: TerrainConfig, device="cuda", shading_fn=None):
         if config.model is None:
             raise ValueError("TerrainConfig.model is required")
-        if config.model.is_spherical:
-            raise NotImplementedError(
-                "the spherical frame is not ported to the torch package yet")
         if shading_fn is not None:
             raise NotImplementedError("shading is not ported to the torch package yet")
         if not config.attachments:
@@ -163,7 +165,7 @@ class Terrain:
         tiles, _, args = meshgen.fused_kernel_args(
             tiles, block_array, uniforms, cfg, plan, max_value
         )
-        return tiles, kernels.mesh_fused_planar(*args), args
+        return tiles, meshgen.mesh_kernel(cfg)(*args), args
 
     # -- per-frame orchestration (reference plugin.rs:46-56 Last schedule) --
 

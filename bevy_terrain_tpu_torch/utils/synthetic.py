@@ -2,7 +2,9 @@
 
 Writes reference-format tile payloads (raw ``.bin`` + ``config.tc``) for an
 analytic height function, so the streaming/rendering stack can be exercised
-and golden-tested without real imagery. The payload layout matches the
+and golden-tested without real imagery: a planar terrain
+(:func:`generate_planar_dataset`) or a cube sphere, six sides
+(:func:`generate_spherical_dataset`). The payload layout matches the
 reference's disk format exactly (SURVEY.md section 2 "Tile payload files").
 """
 
@@ -15,7 +17,7 @@ import numpy as np
 
 from bevy_terrain_tpu_torch.config import AttachmentConfig
 from bevy_terrain_tpu_torch.formats.tc import TC
-from bevy_terrain_tpu_torch.math.coordinate import TileCoordinate
+from bevy_terrain_tpu_torch.math.coordinate import TileCoordinate, local_position_from_side_uv
 from bevy_terrain_tpu_torch.terrain_data.attachment import data_to_bytes
 
 
@@ -30,12 +32,17 @@ def default_height_fn(u: np.ndarray, v: np.ndarray) -> np.ndarray:
     return np.clip(h, 0.02, 1.0)  # keep away from 0 (nodata sentinel)
 
 
-def tile_payload(
-    coordinate: TileCoordinate,
-    attachment: AttachmentConfig,
-    height_fn: Callable[[np.ndarray, np.ndarray], np.ndarray] = default_height_fn,
-) -> np.ndarray:
-    """Evaluate the analytic field over one tile incl. its border texels."""
+def default_sphere_height_fn(p: np.ndarray) -> np.ndarray:
+    """Smooth analytic normalized height in [0, 1] of a unit cube-sphere
+    local position (..., 3): continuous across the six sides."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    h = 0.5 + 0.3 * np.sin(3 * x + 1) * np.cos(2 * z) + 0.15 * np.sin(7 * y + 2)
+    return np.clip(h, 0.05, 1.0)  # keep away from 0 (nodata sentinel)
+
+
+def _texel_uv(coordinate: TileCoordinate, attachment: AttachmentConfig):
+    """(u, v) grids (row = v, column = u) of one tile's texel centres in
+    side uv, border texels included, clamped to the side."""
     size = attachment.texture_size
     b = attachment.border_size
     center = attachment.center_size
@@ -46,10 +53,32 @@ def tile_payload(
     tu = (p - b + 0.5) / center
     u = np.clip((coordinate.x + tu) / count, 0.0, 1.0)
     v = np.clip((coordinate.y + tu) / count, 0.0, 1.0)
-    uu, vv = np.meshgrid(u, v, indexing="xy")  # row=v(y), col=u(x)
-    h = height_fn(uu, vv)
-    max_value = attachment.format.max_value
-    return (h * max_value).astype(attachment.format.dtype)[..., None]
+    return np.meshgrid(u, v, indexing="xy")  # row=v(y), col=u(x)
+
+
+def _to_payload(h: np.ndarray, attachment: AttachmentConfig) -> np.ndarray:
+    return (h * attachment.format.max_value).astype(attachment.format.dtype)[..., None]
+
+
+def tile_payload(
+    coordinate: TileCoordinate,
+    attachment: AttachmentConfig,
+    height_fn: Callable[[np.ndarray, np.ndarray], np.ndarray] = default_height_fn,
+) -> np.ndarray:
+    """Evaluate the analytic field over one tile incl. its border texels."""
+    return _to_payload(height_fn(*_texel_uv(coordinate, attachment)), attachment)
+
+
+def spherical_tile_payload(
+    coordinate: TileCoordinate,
+    attachment: AttachmentConfig,
+    height_fn: Callable[[np.ndarray], np.ndarray] = default_sphere_height_fn,
+) -> np.ndarray:
+    """Evaluate an analytic field of the unit cube-sphere position over one
+    tile of a side, incl. its border texels (clamped to the side)."""
+    uu, vv = _texel_uv(coordinate, attachment)
+    local = local_position_from_side_uv(coordinate.side, np.stack([uu, vv], axis=-1))
+    return _to_payload(height_fn(local), attachment)
 
 
 def generate_planar_dataset(
@@ -75,5 +104,32 @@ def generate_planar_dataset(
                 payload = tile_payload(c, attachment, height_fn)
                 (data_dir / f"{c}.bin").write_bytes(data_to_bytes(payload))
                 tiles.append(c)
+    TC(sorted(tiles)).save_file(Path(root) / path / "config.tc")
+    return tiles
+
+
+def generate_spherical_dataset(
+    path: str,
+    lod_count: int,
+    attachment: AttachmentConfig,
+    height_fn: Callable[[np.ndarray], np.ndarray] = default_sphere_height_fn,
+    root: str = "assets",
+) -> list[TileCoordinate]:
+    """Write all tiles of the six cube-sphere sides for lods 0..lod_count-1,
+    in :func:`generate_planar_dataset`'s layout; heights are
+    ``height_fn`` of the unit cube-sphere position (a test fixture: real
+    planets come from the preprocessor)."""
+    data_dir = Path(root) / path / "data" / attachment.name
+    data_dir.mkdir(parents=True, exist_ok=True)
+    tiles = []
+    for side in range(6):
+        for lod in range(lod_count):
+            count = TileCoordinate.count(lod)
+            for y in range(count):
+                for x in range(count):
+                    c = TileCoordinate(side, lod, x, y)
+                    payload = spherical_tile_payload(c, attachment, height_fn)
+                    (data_dir / f"{c}.bin").write_bytes(data_to_bytes(payload))
+                    tiles.append(c)
     TC(sorted(tiles)).save_file(Path(root) / path / "config.tc")
     return tiles

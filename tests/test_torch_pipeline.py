@@ -193,7 +193,8 @@ def test_interop_carries_jax_atlas(dataset, port_frame, jax_terrain):
 @pytest.mark.parametrize("case", ["spherical", "grid_size", "small_attachment", "shading"])
 def test_unported_configurations_raise(tmp_path, case):
     """Configurations outside the ported slice raise NotImplementedError
-    instead of silently taking another path."""
+    instead of silently taking another path. A sphere is ported with the
+    Taylor high-precision path only (the JAX fused kernel's own rule)."""
     att = AttachmentConfig(**ATT)
     model = TerrainModel.planar(np.zeros(3), 1000.0, 0.0, 100.0)
     if case == "spherical":
@@ -204,7 +205,9 @@ def test_unported_configurations_raise(tmp_path, case):
                            **{**TERRAIN, "atlas_size": 4})
     with pytest.raises(NotImplementedError):
         terrain = Terrain(config, device="cpu")
-        if case == "grid_size":
+        if case == "spherical":
+            terrain.add_view("cam", TerrainViewConfig(), high_precision=False)
+        elif case == "grid_size":
             terrain.add_view("cam", TerrainViewConfig(grid_size=8))
         elif case == "shading":
             terrain.set_shading()
