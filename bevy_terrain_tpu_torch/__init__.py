@@ -8,9 +8,13 @@ the host modules it shares with the JAX package are carried as copies
 (importing any module of the JAX package runs its ``__init__``, which
 imports jax).
 
-Ported so far: the planar, height-only frame — host prologue, packed
-uniforms, refinement, patch plan and the fused mesh kernel
-(``csrc/mesh_fused.cu``).
+Ported so far: the planar and the spherical frame (host prologue, packed
+uniforms, refinement, patch plan and the fused mesh kernels,
+``csrc/mesh_fused.cu``), and the material frame: packed Rgba8 / Rg16
+attachments, ``render/material.py``, the attachment samplers
+(``csrc/attach_sample.cu``) and, for a planar StandardMaterial over a
+packed albedo with the height's patch plan, the albedo and PBR shade fused
+into the mesh kernel.
 """
 
 from bevy_terrain_tpu_torch.config import (
@@ -25,6 +29,14 @@ from bevy_terrain_tpu_torch.math import (
     TerrainModelApproximation,
     TileCoordinate,
 )
+from bevy_terrain_tpu_torch.render.material import (
+    DirectionalLight,
+    PointLight,
+    SpotLight,
+    StandardMaterial,
+    albedo_material,
+    gradient_material,
+)
 from bevy_terrain_tpu_torch.render.pipeline import Terrain, TerrainFrameOutput
 from bevy_terrain_tpu_torch.terrain_data import TileAtlas, TileTree
 
@@ -32,6 +44,10 @@ __all__ = [
     "AttachmentConfig",
     "AttachmentFormat",
     "Coordinate",
+    "DirectionalLight",
+    "PointLight",
+    "SpotLight",
+    "StandardMaterial",
     "Terrain",
     "TerrainConfig",
     "TerrainFrameOutput",
@@ -41,4 +57,6 @@ __all__ = [
     "TileAtlas",
     "TileCoordinate",
     "TileTree",
+    "albedo_material",
+    "gradient_material",
 ]

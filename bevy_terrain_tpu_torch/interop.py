@@ -33,7 +33,10 @@ def atlas_from_numpy(atlas: TileAtlas, block_arrays, host_data, tile_states) -> 
 
     Args:
       block_arrays: per attachment, the (N, 32, 128) int32 block-quad array
-        (e.g. ``np.asarray(jax_atlas.attachments[0].block_array)``) or None.
+        (e.g. ``np.asarray(jax_atlas.attachments[0].block_array)``), or the
+        JAX attachment's ``block_arrays`` list, or None. A multi-channel
+        attachment (Rgba8, Rg16) has one array of packed words in both
+        packages.
       host_data: per attachment, the list of resident mip-0 payloads per
         atlas slot (None where empty).
       tile_states: mapping ``(side, lod, x, y) -> (atlas_index, requests,
@@ -42,6 +45,11 @@ def atlas_from_numpy(atlas: TileAtlas, block_arrays, host_data, tile_states) -> 
     Pending loads and staged uploads are dropped. Returns ``atlas``.
     """
     for att, blocks, data in zip(atlas.attachments, block_arrays, host_data):
+        if isinstance(blocks, (list, tuple)):
+            if len(blocks) != 1:
+                raise ValueError(f"attachment {att.name!r} stores one block array, "
+                                 f"got {len(blocks)}")
+            blocks = blocks[0]
         if blocks is not None:
             if att.block_array is None or tuple(blocks.shape) != tuple(att.block_array.shape):
                 raise ValueError(

@@ -310,3 +310,33 @@ def lookup_entries(entries, side, lod, xy, cfg: StaticTerrainConfig):
     lod_c = lod.clamp(0, cfg.lod_count - 1).long()
     e = entries[side.long(), lod_c, xy[..., 0].long(), xy[..., 1].long()]
     return e[..., 0], e[..., 1]
+
+
+def lookup_tile_tree_entry(entries, side, lod, xy, cfg: StaticTerrainConfig):
+    """Wrapping-modulo tile tree entry gather (functions.wgsl:198-206).
+
+    ``entries`` is (sides, lods, tree, tree, 2) int32; returns
+    (atlas_index, atlas_lod) int32 tensors of the coordinates' shape.
+    """
+    tree_xy = (xy % cfg.tree_size).long()
+    lod_c = lod.clamp(0, cfg.lod_count - 1).long()
+    entry = entries[side.long(), lod_c, tree_xy[..., 0], tree_xy[..., 1]]
+    return entry[..., 0], entry[..., 1]
+
+
+def lookup_tile(entries, side, lod, xy, uv, blend_lod, cfg: StaticTerrainConfig,
+                lod_offset: int = 0):
+    """The best-loaded atlas tile of a coordinate at the blend lod
+    (functions.wgsl:232-246, the path without TILE_TREE_LOD).
+
+    Returns (atlas_index i32, atlas_lod i32, atlas_xy i32, atlas_uv f32);
+    atlas_index is -1 where nothing is loaded.
+    """
+    target = (blend_lod - lod_offset).clamp(min=0)
+    t_lod, t_xy, t_uv = coordinate_change_lod(lod, xy, uv, target)
+    atlas_index, atlas_lod = lookup_tile_tree_entry(entries, side, t_lod, t_xy, cfg)
+    # invalid entries carry atlas_lod -1: keep the lod change in range, the
+    # caller masks on atlas_index < 0
+    safe_lod = torch.where(atlas_lod < 0, t_lod, atlas_lod)
+    a_lod, a_xy, a_uv = coordinate_change_lod(t_lod, t_xy, t_uv, safe_lod)
+    return atlas_index, a_lod, a_xy, a_uv

@@ -24,6 +24,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -97,15 +98,25 @@ def pack_mesh_scalars(uniforms: FrameUniforms, cfg: StaticTerrainConfig,
 
 
 def _check_mesh_args(block_array, ids, geom, tile_params, fs, tile_count,
-                     n_params: int = 4) -> int:
+                     n_params: int = 4, quad_rows: int = 32) -> int:
+    n = ids.shape[0] if ids.dim() == 1 else -1
+    return _check_args(block_array, ids, geom, tile_count, quad_rows, (
+        (tile_params, torch.float32, (n, n_params), "tile_params"),
+        (fs, torch.float32, (FS_LEN,), "fs"),
+    ))
+
+
+def _check_args(block_array, ids, geom, tile_count, quad_rows: int, more) -> int:
+    """Check the quads, ids, geom and tile_count of a kernel call and
+    ``more`` (tensor, dtype, shape, name) entries: one device, dtypes,
+    shapes, contiguity, alignment. Returns the tile count n."""
     dev = block_array.device
     n = ids.shape[0] if ids.dim() == 1 else -1
     checks = (
-        (block_array, torch.int32, (block_array.shape[0], 32, 128), "block_array"),
+        (block_array, torch.int32, (block_array.shape[0], quad_rows, 128), "block_array"),
         (ids, torch.int32, (n,), "ids"),
         (geom, torch.float32, (n, 8), "geom"),
-        (tile_params, torch.float32, (n, n_params), "tile_params"),
-        (fs, torch.float32, (FS_LEN,), "fs"),
+        *more,
     )
     for x, dtype, shape, name in checks:
         if x.device != dev:
@@ -120,6 +131,10 @@ def _check_mesh_args(block_array, ids, geom, tile_params, fs, tile_count,
         raise ValueError("tile_count must be one int32 on the blocks' device")
     if n < 0:
         raise ValueError("ids must be 1-d")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and block_array.data_ptr() % 16:
+        raise ValueError("block_array must be 16-byte aligned")
     return n
 
 
@@ -150,24 +165,12 @@ def mesh_fused_planar(block_array: torch.Tensor, ids: torch.Tensor,
     if block_array.device.type == "cpu":
         return mesh_fused_planar_reference(block_array, ids, geom, tile_params, fs,
                                            tile_count)
-    if block_array.device.type != "cuda":
-        raise ValueError(f"unsupported device {block_array.device}")
-    if block_array.data_ptr() % 16:
-        raise ValueError("block_array must be 16-byte aligned")
     out = torch.empty((n, OUT_CH, GV, GV), dtype=torch.float32, device=block_array.device)
     if n == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(block_array.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mesh_fused_planar_launch(
-            block_array.data_ptr(), block_array.shape[0], ids.data_ptr(),
-            geom.data_ptr(), tile_params.data_ptr(), fs.data_ptr(),
-            tile_count.data_ptr(), out.data_ptr(), n, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"mesh_fused_planar launch failed: cudaError {rc}")
-    mesh_fused_planar.launches += 1
+    _launch(mesh_fused_planar, block_array.device, "mesh_fused_planar_launch",
+            block_array.data_ptr(), block_array.shape[0], ids.data_ptr(), geom.data_ptr(),
+            tile_params.data_ptr(), fs.data_ptr(), tile_count.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -184,31 +187,79 @@ def _smooth_matrix(device) -> torch.Tensor:
     return torch.from_numpy(A).to(device)
 
 
+def _patch(quads: torch.Tensor) -> torch.Tensor:
+    """(n, 32, 128) quads -> (n, 64, 64) patches in natural texel order."""
+    return torch.cat([quads[:, :, :P], quads[:, :, P:]], dim=1)
+
+
+def _tents(geom):
+    """The x and y tent weights of each tile's 33 half-grid positions
+    clip(p0 + k * dp, 0, 63) over the 64 patch texels: (wx, wy), (n, 33, 64)
+    each, in geom's dtype."""
+    dt, dev = geom.dtype, geom.device
+    k = torch.arange(K, dtype=dt, device=dev)
+    r = torch.arange(P, dtype=dt, device=dev)
+    dp = geom[:, 2:3]
+
+    def tents(p0):
+        p = (p0[:, None] + k[None, :] * dp).clamp(0.0, P - 1.0)
+        return (1.0 - torch.abs(p[..., None] - r)).clamp(min=0.0)
+
+    return tents(geom[:, 0]), tents(geom[:, 1])
+
+
 def _halfgrids(block_array, ids, geom):
     """Phases 1-3 of both mesh kernels, batched over tiles: the mean-centred
     tent resample of each tile's quad to the 33x33 half-grid, H, and its
     1-2-1 smoothed copy, Hs (both (n, 33, 33), natural order), in geom's
     dtype."""
-    dev = block_array.device
     dt = geom.dtype
-    q = block_array[ids.long()].to(dt)  # (n, 32, 128)
-    patch = torch.cat([q[:, :, :P], q[:, :, P:]], dim=1)  # (n, 64, 64)
+    patch = _patch(block_array[ids.long()].to(dt))  # (n, 64, 64)
     c = patch.mean(dim=(1, 2))[:, None, None]
-
-    k = torch.arange(K, dtype=dt, device=dev)
-    r = torch.arange(P, dtype=dt, device=dev)
-    dp = geom[:, 2:3]
-
-    def tents(p0):  # (n, K, P)
-        p = (p0[:, None] + k[None, :] * dp).clamp(0.0, P - 1.0)
-        return (1.0 - torch.abs(p[..., None] - r)).clamp(min=0.0)
-
-    wx, wy = tents(geom[:, 0]), tents(geom[:, 1])
+    wx, wy = _tents(geom)
     rows = torch.einsum("nkr,nrc->nkc", wy, patch - c)
     H = torch.einsum("nkc,nlc->nkl", rows, wx) + c  # (n, 33, 33) natural order
-    A = _smooth_matrix(dev).to(dt)
+    A = _smooth_matrix(block_array.device).to(dt)
     Hs = torch.einsum("nkl,ml->nkm", torch.einsum("ij,njl->nil", A, H), A)
     return H, Hs
+
+
+def _unpack(words: torch.Tensor, c: int, bits: int) -> torch.Tensor:
+    """Channel ``c`` of packed int32 words (``bits`` per channel, channel c
+    in bits [c * bits, (c + 1) * bits)); ``bits`` 0 is the raw word. The
+    mask after torch's arithmetic shift makes it a logical one."""
+    if bits == 0:
+        return words
+    return (words >> (bits * c)) & ((1 << bits) - 1)
+
+
+def _channel_halfgrids(words, geom, channels: int, bits: int, fast: bool):
+    """The 33x33 half-grids of ``channels`` packed channels of each tile's
+    quad of words (n, 32, 128), resampled with the tile's tents: (n, C, 33,
+    33) raw texel values in geom's dtype.
+
+    Exact (``fast`` False): per channel the mean-centred f32 resample, the
+    mean an exact integer sum. Fast (the JAX kernel's bf16 MXU path): tent
+    weights rounded to bf16, no centring, the y contraction summed in f32
+    and rounded to bf16, then the x contraction in f32."""
+    dt = geom.dtype
+    q = _patch(words)
+    wx, wy = _tents(geom)
+    if fast:
+        wx, wy = (w.to(torch.bfloat16).to(dt) for w in (wx, wy))
+    grids = []
+    for c in range(channels):
+        t = _unpack(q, c, bits)
+        tf = t.to(dt)
+        if fast:
+            rows = torch.einsum("nkr,nrc->nkc", wy, tf).to(torch.bfloat16).to(dt)
+            grids.append(torch.einsum("nkc,nlc->nkl", rows, wx))
+        else:
+            total = t.sum(dim=(1, 2), dtype=torch.int64).to(torch.float64)
+            m = (total / (P * P)).to(dt)[:, None, None]
+            rows = torch.einsum("nkr,nrc->nkc", wy, tf - m)
+            grids.append(torch.einsum("nkc,nlc->nkl", rows, wx) + m)
+    return torch.stack(grids, dim=1)
 
 
 def _vertex_grid(device, dtype):
@@ -222,20 +273,11 @@ def _vertex_grid(device, dtype):
     return gi, i, j, u, v
 
 
-def _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs, gi, i, j, u, v):
-    """The per-vertex stage both kernels share: CDLOD morph toward the even
-    grid, 3x3 tent window of the fine and smoothed half-grids at the
-    morphed uv, per-vertex blend, height. Returns (height, mu, mv)."""
-    n = H.shape[0]
-    dt = H.dtype
-    target_lod = fs[43] - log2_dist
-    mr = ((lodf + fs[19] - target_lod) * (1.0 / fs[19])).clamp(0.0, 1.0)
-    mr = torch.where(lodf == 0.0, 0.0, mr) * fs[24]
-    even_u = (j & ~1).to(dt) * (1.0 / (GV - 1.0))
-    even_v = (i & ~1).to(dt) * (1.0 / (GV - 1.0))
-    mu = u + (even_u - u) * mr
-    mv = v + (even_v - v) * mr
-
+def _window(mu, mv, gi, i, j):
+    """The 3x3 tent window at per-vertex uvs (mu, mv), (n, 17, 17) each.
+    Returns ``interp9(S)``: the window applied to half-grids S (n, 33, 33),
+    (n, 17, 17) values."""
+    dt = mu.dtype
     lxw = mu * (2.0 * (GV - 1.0)) - (2 * j - 2).clamp(min=0).to(dt)
     lyw = mv * (2.0 * (GV - 1.0)) - (2 * i - 2).clamp(min=0).to(dt)
     wyb = [(1.0 - torch.abs(lyw - b)).clamp(min=0.0) for b in range(3)]
@@ -245,12 +287,30 @@ def _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs, gi, i, j, u, v
         return torch.where(idx == 0, 0, 2 * idx - 2 + b)
 
     def interp9(S):
-        h = torch.zeros((n, GV, GV), dtype=dt, device=H.device)
+        h = torch.zeros((S.shape[0], GV, GV), dtype=dt, device=S.device)
         for b in range(3):
             rows_b = S[:, tap(gi, b)]  # (n, 17, 33)
             for a in range(3):
                 h = h + wyb[b] * wxa[a] * rows_b[:, :, tap(gi, a)]
         return h
+
+    return interp9
+
+
+def _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs, gi, i, j, u, v):
+    """The per-vertex stage both kernels share: CDLOD morph toward the even
+    grid, 3x3 tent window of the fine and smoothed half-grids at the
+    morphed uv, per-vertex blend, height. Returns (height, mu, mv, interp9),
+    ``interp9`` the window at the morphed uv (:func:`_window`)."""
+    dt = H.dtype
+    target_lod = fs[43] - log2_dist
+    mr = ((lodf + fs[19] - target_lod) * (1.0 / fs[19])).clamp(0.0, 1.0)
+    mr = torch.where(lodf == 0.0, 0.0, mr) * fs[24]
+    even_u = (j & ~1).to(dt) * (1.0 / (GV - 1.0))
+    even_v = (i & ~1).to(dt) * (1.0 / (GV - 1.0))
+    mu = u + (even_u - u) * mr
+    mv = v + (even_v - v) * mr
+    interp9 = _window(mu, mv, gi, i, j)
 
     h_fine = interp9(H)
     h_smooth = interp9(Hs)
@@ -262,7 +322,7 @@ def _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs, gi, i, j, u, v
     ) * fs[25]
     h_norm = (h_fine + (h_smooth - h_fine) * bratio) * valid
     height = (fs[22] + fs[23] * h_norm) * live
-    return height, mu, mv
+    return height, mu, mv, interp9
 
 
 def _dead_to_zero(out, tile_count):
@@ -271,11 +331,30 @@ def _dead_to_zero(out, tile_count):
     return torch.where(alive.view(n, 1, 1, 1), out, 0.0)
 
 
-def mesh_fused_planar_reference(block_array: torch.Tensor, ids: torch.Tensor,
-                                geom: torch.Tensor, tile_params: torch.Tensor,
-                                fs: torch.Tensor, tile_count: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`mesh_fused_planar` (same arguments,
-    same result), batched over tiles on any device."""
+class _PlanarStage(NamedTuple):
+    """The planar kernel's per-vertex values, (n, 17, 17) each (``valid``,
+    ``live`` and ``lodf`` (n, 1, 1)), before the live and dead-tile masks
+    of the output."""
+
+    height: torch.Tensor
+    px: torch.Tensor
+    py: torch.Tensor
+    pz: torch.Tensor
+    mu: torch.Tensor
+    mv: torch.Tensor
+    interp9: Callable
+    valid: torch.Tensor
+    live: torch.Tensor
+    lodf: torch.Tensor
+
+    def mesh_rows(self) -> torch.Tensor:
+        """(n, 6, 17, 17): [height, pos x, pos y, pos z, morphed u, morphed v]."""
+        live = self.live
+        return torch.stack([self.height, self.px * live, self.py * live, self.pz * live,
+                            self.mu * live, self.mv * live], dim=1)
+
+
+def _planar_stage(block_array, ids, geom, tile_params, fs) -> _PlanarStage:
     n = ids.shape[0]
     H, Hs = _halfgrids(block_array, ids, geom)
     gi, i, j, u, v = _vertex_grid(block_array.device, geom.dtype)
@@ -290,17 +369,24 @@ def mesh_fused_planar_reference(block_array: torch.Tensor, ids: torch.Tensor,
     dz = fs[8] * lx + fs[10] * lz + fs[14]
     d2 = dx * dx + dy * dy + dz * dz
     log2_dist = 0.5 * torch.log2(d2)
-    height, mu, mv = _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs,
-                                          gi, i, j, u, v)
+    height, mu, mv, interp9 = _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs,
+                                                   gi, i, j, u, v)
 
     mlx = (xf + mu) * inv_count - 0.5
     mlz = (yf + mv) * inv_count - 0.5
     px = fs[0] * mlx + fs[2] * mlz + fs[3] + height * fs[15]
     py = fs[4] * mlx + fs[6] * mlz + fs[7] + height * fs[16]
     pz = fs[8] * mlx + fs[10] * mlz + fs[11] + height * fs[17]
+    return _PlanarStage(height, px, py, pz, mu, mv, interp9, valid, live, lodf)
 
-    out = torch.stack([height, px * live, py * live, pz * live, mu * live, mv * live], dim=1)
-    return _dead_to_zero(out, tile_count)
+
+def mesh_fused_planar_reference(block_array: torch.Tensor, ids: torch.Tensor,
+                                geom: torch.Tensor, tile_params: torch.Tensor,
+                                fs: torch.Tensor, tile_count: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`mesh_fused_planar` (same arguments,
+    same result), batched over tiles on any device."""
+    stage = _planar_stage(block_array, ids, geom, tile_params, fs)
+    return _dead_to_zero(stage.mesh_rows(), tile_count)
 
 
 # ---------------------------------------------------------------------------
@@ -366,25 +452,13 @@ def mesh_fused_spherical(block_array: torch.Tensor, ids: torch.Tensor, geom: tor
     if block_array.device.type == "cpu":
         return mesh_fused_spherical_reference(block_array, ids, geom, tile_params, fs,
                                               hp_steps, tile_count, origin_lod, ellipsoidal)
-    if block_array.device.type != "cuda":
-        raise ValueError(f"unsupported device {block_array.device}")
-    if block_array.data_ptr() % 16:
-        raise ValueError("block_array must be 16-byte aligned")
     out = torch.empty((n, SPH_CH, GV, GV), dtype=torch.float32, device=block_array.device)
     if n == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(block_array.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mesh_fused_spherical_launch(
-            block_array.data_ptr(), block_array.shape[0], ids.data_ptr(),
-            geom.data_ptr(), tile_params.data_ptr(), fs.data_ptr(), hp_steps.data_ptr(),
-            tile_count.data_ptr(), out.data_ptr(), n, int(origin_lod), int(bool(ellipsoidal)),
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"mesh_fused_spherical launch failed: cudaError {rc}")
-    mesh_fused_spherical.launches += 1
+    _launch(mesh_fused_spherical, block_array.device, "mesh_fused_spherical_launch",
+            block_array.data_ptr(), block_array.shape[0], ids.data_ptr(), geom.data_ptr(),
+            tile_params.data_ptr(), fs.data_ptr(), hp_steps.data_ptr(), tile_count.data_ptr(),
+            out.data_ptr(), n, int(origin_lod), int(bool(ellipsoidal)))
     return out
 
 
@@ -482,8 +556,8 @@ def mesh_fused_spherical_reference(block_array: torch.Tensor, ids: torch.Tensor,
     near = (d2_w0 < fs[45]) & hp_on
     d2 = torch.where(near, dhx * dhx + dhy * dhy + dhz * dhz, d2_w0)
     log2_dist = 0.5 * torch.log2(d2)
-    height, mu, mv = _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs,
-                                          gi, i, j, u, v)
+    height, mu, mv, _ = _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs,
+                                             gi, i, j, u, v)
 
     (wxm, wym, wzm), (nxm, nym, nzm) = far_geom(mu, mv)
     rxm, rym, rzm = taylor_rel(mu, mv)
@@ -497,6 +571,359 @@ def mesh_fused_spherical_reference(block_array: torch.Tensor, ids: torch.Tensor,
     out = torch.stack([height, px * live, py * live, pz * live, mu * live, mv * live,
                        nx_f * live, ny_f * live, nz_f * live], dim=1)
     return _dead_to_zero(out, tile_count)
+
+
+# ---------------------------------------------------------------------------
+# Material kernels: packed albedo (K3), in-kernel PBR shade (K4), and the
+# attachment samplers (K5)
+# ---------------------------------------------------------------------------
+
+MAX_CHANNELS = 4  # packed channels per int32 word
+SHADE_HEADER = 16  # floats before the light records of a material buffer
+LIGHT_STRIDE = 16  # floats per light record
+_LIGHT_KINDS = {"dir": 0, "point": 1, "spot": 2}
+
+
+def pack_shade_spec(spec, device) -> torch.Tensor:
+    """The in-kernel material (render/material.kernel_shade_spec: roughness,
+    metallic, reflectance, emissive, ambient, lights, albedo max value) as
+    the f32 buffer ``csrc/mesh_fused.cu`` reads.
+
+    Header: [1 / alb_max, 1 - metallic, metallic, 0.16 reflectance^2
+    (1 - metallic), a2, a2 - 1, 2 roughness, light count, emissive rgb,
+    ambient rgb, 0, 0]; then per light [kind (0 directional, 1 point,
+    2 spot), direction to the light (directional) or position, radiance
+    rgb, 1 / range^2, unit spot axis, cos(outer), 1 / (cos(inner) -
+    cos(outer)), 0, 0, 0]. Each constant is computed as the JAX kernel
+    computes it: in float64 from the Python values (numpy float32 for the
+    light directions and radiances) and rounded once to float32."""
+    pr_f, metallic, reflectance, emissive, ambient, lights, alb_max = spec
+    pr = float(np.clip(pr_f, 0.089, 1.0))
+    rough = pr * pr
+    a2 = rough * rough
+    buf = np.zeros(SHADE_HEADER + LIGHT_STRIDE * len(lights), np.float32)
+    buf[:8] = (1.0 / alb_max, 1.0 - metallic, metallic,
+               0.16 * reflectance * reflectance * (1.0 - metallic), a2, a2 - 1.0,
+               2.0 * rough, len(lights))
+    buf[8:11] = emissive
+    buf[11:14] = ambient
+    for k, light in enumerate(lights):
+        rec = buf[SHADE_HEADER + k * LIGHT_STRIDE:SHADE_HEADER + (k + 1) * LIGHT_STRIDE]
+        kind = light[0]
+        rec[0] = _LIGHT_KINDS[kind]
+        if kind == "dir":
+            _, d3, c3, illum = light
+            d = np.asarray(d3, np.float32)
+            rec[1:4] = -d / np.linalg.norm(d)
+            rec[4:7] = np.asarray(c3, np.float32) * np.float32(illum)
+            continue
+        if kind == "spot":
+            _, p3, d3, c3, inten, rng, inner, outer = light
+            sd = np.asarray(d3, np.float32)
+            rec[8:11] = sd / np.linalg.norm(sd)
+            rec[11] = np.cos(outer)
+            rec[12] = 1.0 / max(np.cos(inner) - np.cos(outer), 1e-4)
+        else:
+            _, p3, c3, inten, rng = light
+        rec[1:4] = p3
+        rec[4:7] = np.asarray(c3, np.float32) * np.float32(inten)
+        rec[7] = 1.0 / (rng * rng)
+    return torch.from_numpy(buf).to(device)
+
+
+def _pow5(x):
+    x2 = x * x
+    return x2 * x2 * x
+
+
+def pbr_shade_reference(shade, cols, height, px, py, pz, fs, lodf):
+    """The in-kernel fragment stage (pallas_kernels.py _kernel_pbr_shade),
+    batched over tiles in the kernel's operation order: the plain version
+    of :func:`mesh_fused_shaded`'s shade phase. ``shade`` is the
+    :func:`pack_shade_spec` buffer, ``cols`` the raw albedo channels (3 or
+    4 of (n, 17, 17)), ``height`` and positions (n, 17, 17), ``lodf`` the
+    tiles' lods (n, 1, 1). Returns the linear RGBA (or RGB) channels,
+    unmasked."""
+    s = [float(x) for x in shade.detach().cpu().numpy()]
+    inv_max, one_m, metallic, f0c, a2, a2m1, two_rough, n_lights = s[:8]
+
+    # normals from the tile's heights, one-sided at the tile edge
+    spacing = (2.0 * fs[46]) * torch.exp2(-lodf) * (1.0 / (GV - 1.0))
+    hi_u = torch.cat([height[:, :, 1:], height[:, :, -1:]], dim=2)
+    lo_u = torch.cat([height[:, :, :1], height[:, :, :-1]], dim=2)
+    hi_v = torch.cat([height[:, 1:], height[:, -1:]], dim=1)
+    lo_v = torch.cat([height[:, :1], height[:, :-1]], dim=1)
+    dh_du = (hi_u - lo_u) / (2.0 * spacing)
+    dh_dv = (hi_v - lo_v) / (2.0 * spacing)
+    ninv = 1.0 / torch.clamp(torch.sqrt(dh_du * dh_du + 1.0 + dh_dv * dh_dv), min=1e-8)
+    nx, ny, nz = -dh_du * ninv, ninv, -dh_dv * ninv
+
+    base = [cols[c] * inv_max for c in range(3)]
+    alpha = cols[3] * inv_max if len(cols) > 3 else torch.ones_like(base[0])
+    dc = [b * one_m for b in base]
+    f0 = [f0c + b * metallic for b in base]
+    vx, vy, vz = fs[39] - px, fs[40] - py, fs[41] - pz
+    vinv = 1.0 / torch.clamp(torch.sqrt(vx * vx + vy * vy + vz * vz), min=1e-8)
+    vx, vy, vz = vx * vinv, vy * vinv, vz * vinv
+    nov = torch.clamp(nx * vx + ny * vy + nz * vz, min=1e-4)
+    f90 = torch.clamp((f0[0] + f0[1] + f0[2]) * 16.5, 0.0, 1.0)
+    pi_f, inv_pi_f = float(np.float32(np.pi)), float(np.float32(1.0 / np.pi))
+
+    out = [torch.full_like(base[0], s[8 + c]) for c in range(3)]
+    for k in range(int(n_lights)):
+        rec = s[SHADE_HEADER + k * LIGHT_STRIDE:SHADE_HEADER + (k + 1) * LIGHT_STRIDE]
+        kind = int(rec[0])
+        atten = None
+        if kind == 0:
+            lx, ly, lz = rec[1], rec[2], rec[3]
+        else:
+            tx, ty, tz = rec[1] - px, rec[2] - py, rec[3] - pz
+            d2l = torch.clamp(tx * tx + ty * ty + tz * tz, min=1e-4)
+            dinv = 1.0 / torch.sqrt(d2l)
+            lx, ly, lz = tx * dinv, ty * dinv, tz * dinv
+            q = d2l * rec[7]
+            window = torch.clamp(1.0 - q * q, 0.0, 1.0)
+            atten = window * window / d2l
+            if kind == 2:
+                cos_a = -(lx * rec[8] + ly * rec[9] + lz * rec[10])
+                sc = torch.clamp((cos_a - rec[11]) * rec[12], 0.0, 1.0)
+                atten = atten * (sc * sc)
+        hx, hy, hz = lx + vx, ly + vy, lz + vz
+        hinv = 1.0 / torch.clamp(torch.sqrt(hx * hx + hy * hy + hz * hz), min=1e-8)
+        hx, hy, hz = hx * hinv, hy * hinv, hz * hinv
+        nol = torch.clamp(nx * lx + ny * ly + nz * lz, 0.0, 1.0)
+        noh = torch.clamp(nx * hx + ny * hy + nz * hz, 0.0, 1.0)
+        loh = torch.clamp(hx * lx + hy * ly + hz * lz, 0.0, 1.0)
+        f = noh * noh * a2m1 + 1.0
+        d_ggx = a2 / torch.clamp(pi_f * f * f, min=1e-8)
+        lambda_v = nol * torch.sqrt((nov - a2 * nov) * nov + a2)
+        lambda_l = nov * torch.sqrt((nol - a2 * nol) * nol + a2)
+        v_smith = 0.5 / torch.clamp(lambda_v + lambda_l, min=1e-8)
+        om = _pow5(1.0 - loh)
+        fd90 = 0.5 + two_rough * loh * loh
+        light_scatter = 1.0 + (fd90 - 1.0) * _pow5(1.0 - nol)
+        view_scatter = 1.0 + (fd90 - 1.0) * _pow5(1.0 - nov)
+        fd = light_scatter * view_scatter * inv_pi_f
+        for c in range(3):
+            fresnel = f0[c] + (f90 - f0[c]) * om
+            spec = d_ggx * v_smith * fresnel
+            contrib = (dc[c] * fd + spec) * rec[4 + c] * nol
+            if atten is not None:
+                contrib = contrib * atten
+            out[c] = out[c] + contrib
+    for c in range(3):
+        out[c] = out[c] + dc[c] * s[11 + c]
+    return [out[0], out[1], out[2], alpha][:len(cols)]
+
+
+def _check_material_args(block_array, ids, geom, tile_params, fs, tile_count, albedo_blocks,
+                         channels: int, bits: int, combined: bool, shade=None) -> int:
+    n = _check_mesh_args(block_array, ids, geom, tile_params, fs, tile_count,
+                         quad_rows=64 if combined else 32)
+    if not (1 <= channels <= MAX_CHANNELS and bits in (8, 16) and channels * bits <= 32):
+        raise ValueError(f"{channels} channels of {bits} bits do not pack into an int32 word")
+    if combined != (albedo_blocks is None):
+        raise ValueError("pass albedo_blocks, or combined (N, 64, 128) blocks, not both")
+    extra = [] if combined else [(albedo_blocks, torch.int32, "albedo_blocks")]
+    if shade is not None:
+        extra.append((shade, torch.float32, "shade"))
+        if shade.dim() != 1 or shade.numel() < SHADE_HEADER:
+            raise ValueError("shade must be a pack_shade_spec buffer")
+    for x, dtype, name in extra:
+        if x.device != block_array.device or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous {dtype} tensor on {block_array.device}")
+    if not combined:
+        if tuple(albedo_blocks.shape) != tuple(block_array.shape):
+            raise ValueError(f"albedo_blocks {tuple(albedo_blocks.shape)} do not pair with "
+                             f"the height blocks {tuple(block_array.shape)}")
+        if albedo_blocks.device.type == "cuda" and albedo_blocks.data_ptr() % 16:
+            raise ValueError("albedo_blocks must be 16-byte aligned")
+    return n
+
+
+def _mesh_material(wrapper, block_array, ids, geom, tile_params, fs, tile_count,
+                   albedo_blocks, channels, bits, fast, combined, shade):
+    """K3 (``shade`` None) and K4: check, then the plain version on the CPU
+    or the kernel on the card."""
+    n = _check_material_args(block_array, ids, geom, tile_params, fs, tile_count,
+                             albedo_blocks, channels, bits, combined, shade)
+    fast = bool(fast) and bits <= 8
+    if block_array.device.type == "cpu":
+        return _mesh_material_reference(block_array, ids, geom, tile_params, fs, tile_count,
+                                        albedo_blocks, channels, bits, fast, combined, shade)
+    out = torch.empty((n, OUT_CH + channels, GV, GV), dtype=torch.float32,
+                      device=block_array.device)
+    if n == 0:
+        return out
+    _launch(wrapper, block_array.device, "mesh_fused_material_launch",
+            block_array.data_ptr(), block_array.shape[0], ids.data_ptr(), geom.data_ptr(),
+            tile_params.data_ptr(), fs.data_ptr(), tile_count.data_ptr(),
+            None if combined else albedo_blocks.data_ptr(), channels, bits, int(fast),
+            int(combined), None if shade is None else shade.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def mesh_fused_albedo(block_array: torch.Tensor, ids: torch.Tensor, geom: torch.Tensor,
+                      tile_params: torch.Tensor, fs: torch.Tensor, tile_count: torch.Tensor,
+                      albedo_blocks: torch.Tensor | None, channels: int, bits: int,
+                      fast: bool = True, combined: bool = False) -> torch.Tensor:
+    """The planar vertex stage (:func:`mesh_fused_planar`) with a packed
+    albedo fused in (the JAX kernel's ``albedo_channels``): per tile the
+    albedo quad of the same quad id, resampled with the height's tents and
+    read at the morphed uv through the height's window weights.
+
+    Args:
+      block_array, ids, geom, tile_params, fs, tile_count: as
+        :func:`mesh_fused_planar`; with ``combined`` the blocks are (N, 64,
+        128): heights in rows 0:32, the packed albedo in rows 32:64.
+      albedo_blocks: (N, 32, 128) int32 packed albedo quads (same plan as
+        the heights), or None with ``combined``.
+      channels, bits: the first ``channels`` channels of ``bits`` bits each
+        (channel c in bits [c * bits, (c + 1) * bits)); 3 skips the alpha.
+      fast: the bf16 resample for channels of 8 bits (16-bit channels are
+        always exact).
+
+    Returns (Fp, 6 + C, 17, 17) f32: the six mesh channels, bit-identical to
+    :func:`mesh_fused_planar`'s, then C channels of raw texel values x valid
+    x live.
+    """
+    return _mesh_material(mesh_fused_albedo, block_array, ids, geom, tile_params, fs,
+                          tile_count, albedo_blocks, channels, bits, fast, combined, None)
+
+
+mesh_fused_albedo.launches = 0
+
+
+def mesh_fused_shaded(block_array: torch.Tensor, ids: torch.Tensor, geom: torch.Tensor,
+                      tile_params: torch.Tensor, fs: torch.Tensor, tile_count: torch.Tensor,
+                      albedo_blocks: torch.Tensor | None, channels: int, bits: int,
+                      shade: torch.Tensor, fast: bool = True,
+                      combined: bool = False) -> torch.Tensor:
+    """:func:`mesh_fused_albedo` with the fragment stage on the albedo
+    (the JAX kernel's ``shade``): central-difference normals over the tile's
+    heights, Filament GGX + Smith + Schlick + Burley for every light of the
+    material buffer ``shade`` (:func:`pack_shade_spec`), emissive and
+    ambient. Returns (Fp, 6 + C, 17, 17): the mesh channels, then linear RGBA
+    (C = 4) or RGB (C = 3) x valid x live."""
+    return _mesh_material(mesh_fused_shaded, block_array, ids, geom, tile_params, fs,
+                          tile_count, albedo_blocks, channels, bits, fast, combined, shade)
+
+
+mesh_fused_shaded.launches = 0
+
+
+def _mesh_material_reference(block_array, ids, geom, tile_params, fs, tile_count,
+                             albedo_blocks, channels, bits, fast, combined, shade):
+    heights = block_array[:, :32] if combined else block_array
+    words = (block_array[:, 32:] if combined else albedo_blocks)[ids.long()]
+    stage = _planar_stage(heights, ids, geom, tile_params, fs)
+    A = _channel_halfgrids(words, geom, channels, bits, fast and bits <= 8)
+    cols = [stage.interp9(A[:, c]) for c in range(channels)]
+    if shade is not None:
+        cols = pbr_shade_reference(shade, cols, stage.height, stage.px, stage.py, stage.pz,
+                                    fs, stage.lodf)
+    rows = [c * stage.valid * stage.live for c in cols]
+    out = torch.cat([stage.mesh_rows(), torch.stack(rows, dim=1)], dim=1)
+    return _dead_to_zero(out, tile_count)
+
+
+def mesh_fused_albedo_reference(block_array, ids, geom, tile_params, fs, tile_count,
+                                albedo_blocks, channels: int, bits: int, fast: bool = True,
+                                combined: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`mesh_fused_albedo` (same arguments,
+    same result), batched over tiles on any device."""
+    return _mesh_material_reference(block_array, ids, geom, tile_params, fs, tile_count,
+                                    albedo_blocks, channels, bits, fast, combined, None)
+
+
+def mesh_fused_shaded_reference(block_array, ids, geom, tile_params, fs, tile_count,
+                                albedo_blocks, channels: int, bits: int, shade,
+                                fast: bool = True, combined: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`mesh_fused_shaded` (same arguments,
+    same result), batched over tiles on any device."""
+    return _mesh_material_reference(block_array, ids, geom, tile_params, fs, tile_count,
+                                    albedo_blocks, channels, bits, fast, combined, shade)
+
+
+def _check_attach_args(block_array, ids, geom, uvs, tile_count, channels, bits) -> int:
+    n = ids.shape[0] if ids.dim() == 1 else -1
+    n = _check_args(block_array, ids, geom, tile_count, 32,
+                    ((uvs, torch.float32, (n, 2, GV, GV), "uvs"),))
+    if not (1 <= channels <= MAX_CHANNELS and (bits == 0 and channels == 1 or bits in (8, 16))
+            and channels * max(bits, 1) <= 32):
+        raise ValueError(f"{channels} channels of {bits} bits do not pack into an int32 word")
+    return n
+
+
+def _attach(wrapper, block_array, ids, geom, uvs, tile_count, channels, bits):
+    n = _check_attach_args(block_array, ids, geom, uvs, tile_count, channels, bits)
+    if block_array.device.type == "cpu":
+        return _attach_reference(block_array, ids, geom, uvs, tile_count, channels, bits)
+    out = torch.empty((n, channels, GV, GV), dtype=torch.float32, device=block_array.device)
+    if n == 0:
+        return out
+    _launch(wrapper, block_array.device, "attach_sample_launch", block_array.data_ptr(),
+            block_array.shape[0], ids.data_ptr(), geom.data_ptr(), uvs.data_ptr(),
+            tile_count.data_ptr(), channels, bits, out.data_ptr(), n)
+    return out
+
+
+def attach_sample_fused(block_array: torch.Tensor, ids: torch.Tensor, geom: torch.Tensor,
+                        uvs: torch.Tensor, tile_count: torch.Tensor) -> torch.Tensor:
+    """Sample one raw attachment channel at given vertex uvs: per tile the
+    quad fetch, the mean-centred tent resample to the 33x33 half-grid, the
+    3x3 window at the uvs, x valid (the JAX kernel attach_sample_fused).
+
+    Args:
+      block_array: (N, 32, 128) int32 quads, one raw channel per word.
+      ids, geom, tile_count: the attachment's PatchBatch ids and geom (the
+        frame's tile order) and the live tile count; tiles at index >=
+        tile_count come out as zeros.
+      uvs: (Fp, 2, 17, 17) f32 [u, v] per vertex on the (row = v, column
+        = u) grid.
+
+    Returns (Fp, 1, 17, 17) f32 raw texel values (the caller normalises).
+    """
+    return _attach(attach_sample_fused, block_array, ids, geom, uvs, tile_count, 1, 0)
+
+
+attach_sample_fused.launches = 0
+
+
+def attach_sample_fused_packed(block_array: torch.Tensor, ids: torch.Tensor,
+                               geom: torch.Tensor, uvs: torch.Tensor, tile_count: torch.Tensor,
+                               channels: int, bits: int) -> torch.Tensor:
+    """:func:`attach_sample_fused` for ``channels`` channels of ``bits`` bits
+    packed into each word (Rgba8: 4 x 8, Rg16: 2 x 16), from one quad fetch.
+    Returns (Fp, C, 17, 17) f32 raw texel values."""
+    if bits not in (8, 16):
+        raise ValueError(f"packed channels have 8 or 16 bits, not {bits}")
+    return _attach(attach_sample_fused_packed, block_array, ids, geom, uvs, tile_count,
+                   channels, bits)
+
+
+attach_sample_fused_packed.launches = 0
+
+
+def _attach_reference(block_array, ids, geom, uvs, tile_count, channels, bits):
+    A = _channel_halfgrids(block_array[ids.long()], geom, channels, bits, False)
+    gi, i, j, _, _ = _vertex_grid(block_array.device, geom.dtype)
+    interp9 = _window(uvs[:, 0], uvs[:, 1], gi, i, j)
+    valid = geom[:, 3].view(-1, 1, 1)
+    out = torch.stack([interp9(A[:, c]) * valid for c in range(channels)], dim=1)
+    return _dead_to_zero(out, tile_count)
+
+
+def attach_sample_fused_reference(block_array, ids, geom, uvs, tile_count) -> torch.Tensor:
+    """Plain PyTorch version of :func:`attach_sample_fused` (same arguments,
+    same result), batched over tiles on any device."""
+    return _attach_reference(block_array, ids, geom, uvs, tile_count, 1, 0)
+
+
+def attach_sample_fused_packed_reference(block_array, ids, geom, uvs, tile_count,
+                                         channels: int, bits: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`attach_sample_fused_packed`."""
+    return _attach_reference(block_array, ids, geom, uvs, tile_count, channels, bits)
 
 
 # ---------------------------------------------------------------------------
@@ -519,30 +946,56 @@ def _nvcc() -> str:
 
 def build_library(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into ``build/kernels/kernels_<hash>.so`` unless a
-    library built from the same sources and flags is already there."""
+    library built from the same sources, headers and flags is already there.
+    Each source compiles in its own ``nvcc`` process, all started together;
+    one more call links them."""
     sources = sorted(_CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sorted(_CSRC.glob("*.cu*")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out = _BUILD_DIR / f"kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{s.stem}.o" for s in sources]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *compile_flags, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o",
+                 str(o), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for s, o in zip(sources, objs)
+        ]
+        errs = [p.communicate()[1] for p in procs]  # drains both pipes, then waits
+        logs = [(s.name, p.returncode, err) for s, p, err in zip(sources, procs, errs)]
+        failed = [(name, rc, err) for name, rc, err in logs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{err}" for name, rc, err in failed))
+        if verbose:
+            for name, _, err in logs:
+                print(f"{name}:\n{err}", end="")
+        tmp = Path(tmpdir) / out.name
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
     return out
+
+
+def _launch(wrapper, device, entry: str, *args) -> None:
+    """Call the library's ``entry`` with ``args`` and the current stream of
+    ``device``; raise if the launch failed, else count it on ``wrapper``."""
+    lib = _library()
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{wrapper.__name__} launch failed: cudaError {rc}")
+    wrapper.launches += 1
 
 
 def _library() -> ctypes.CDLL:
@@ -559,5 +1012,15 @@ def _library() -> ctypes.CDLL:
             ctypes.c_int, vp,
         ]
         lib.mesh_fused_spherical_launch.restype = ctypes.c_int
+        lib.mesh_fused_material_launch.argtypes = [
+            vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, vp, vp, ctypes.c_int, vp,
+        ]
+        lib.mesh_fused_material_launch.restype = ctypes.c_int
+        lib.attach_sample_launch.argtypes = [
+            vp, ctypes.c_longlong, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, vp,
+            ctypes.c_int, vp,
+        ]
+        lib.attach_sample_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB

@@ -3,13 +3,18 @@ torch twin of the fused path of the JAX package's ``ops/meshgen.py``.
 
 :func:`generate_mesh_fused` plans the frame's patch fetches
 (patch_sampling.plan_patch_batch), packs the kernel's per-tile and frame
-scalars, and runs :func:`kernels.mesh_fused_planar` (planar frames) or
+scalars, and runs :func:`kernels.mesh_fused_planar` (planar frames),
 :func:`kernels.mesh_fused_spherical` (cube-sphere frames, with the Taylor
-high-precision path). Its ``raw`` product is (Fp, C, 17, 17) f32 in the
-sorted tile order, on the (row = v, column = u) vertex grid: C = 6 planar
-channels [height, pos x, pos y, pos z, morphed u, morphed v], or C = 9 for
-spheres, which add [normal x, normal y, normal z]. :func:`fused_to_grid` is
-a view of it as a :class:`GridMeshOutput`.
+high-precision path), or for a planar frame with a packed albedo
+:func:`kernels.mesh_fused_albedo` (the albedo fused in) or
+:func:`kernels.mesh_fused_shaded` (albedo and PBR shade fused in). Its
+``raw`` product is (Fp, C, 17, 17) f32 in the sorted tile order, on the
+(row = v, column = u) vertex grid: the 6 planar channels [height, pos x,
+pos y, pos z, morphed u, morphed v], or 9 for spheres, which add [normal
+x, normal y, normal z]; a planar frame with an albedo adds its C channels
+after those 6 (raw texel values, or the shaded linear colour).
+:func:`fused_to_grid` is a view of it as a :class:`GridMeshOutput`, and
+:func:`fused_albedo_to_grid` one of the colour channels.
 """
 
 from __future__ import annotations
@@ -46,8 +51,11 @@ def check_fused_config(cfg: StaticTerrainConfig) -> None:
             f"the fused mesh kernel needs grid_size 16, got {cfg.grid_size}")
 
 
-def mesh_kernel(cfg: StaticTerrainConfig):
-    """The mesh kernel's wrapper for the frame configuration."""
+def mesh_kernel(cfg: StaticTerrainConfig, albedo_channels: int = 0, shaded: bool = False):
+    """The mesh kernel's wrapper for the frame configuration (and a fused
+    albedo of ``albedo_channels`` channels, ``shaded`` or not)."""
+    if albedo_channels:
+        return kernels.mesh_fused_shaded if shaded else kernels.mesh_fused_albedo
     return kernels.mesh_fused_spherical if cfg.spherical else kernels.mesh_fused_planar
 
 
@@ -68,14 +76,28 @@ def _side_transforms(uniforms: FrameUniforms, device) -> tuple[torch.Tensor, tor
 
 def fused_kernel_args(tiles: RefinementOutput, block_array: torch.Tensor,
                       uniforms: FrameUniforms, cfg: StaticTerrainConfig, plan,
-                      max_value: float):
+                      max_value: float, albedo_blocks=None, albedo_channels: int = 0,
+                      albedo_bits: int = 0, shade_spec=None, albedo_fast: bool = True,
+                      albedo_combined: bool = False):
     """Plan the patch fetches and pack the mesh kernel's arguments.
+
+    With ``albedo_channels`` (a planar frame) the kernel also samples the
+    first ``albedo_channels`` channels of ``albedo_bits`` bits of the packed
+    ``albedo_blocks`` (same plan as the heights), or of rows 32:64 of
+    ``albedo_combined`` (N, 64, 128) blocks; ``albedo_fast`` takes the bf16
+    resample for 8-bit channels. ``shade_spec`` (a
+    material.kernel_shade_spec, or its kernels.pack_shade_spec buffer)
+    shades the albedo in the kernel.
 
     Returns (sorted_tiles, PatchBatch, args) where ``args`` is the argument
     tuple of the frame's kernel (:func:`mesh_kernel`) and of its plain
     version.
     """
     check_fused_config(cfg)
+    if albedo_channels and cfg.spherical:
+        raise NotImplementedError(
+            "the fused albedo runs on planar frames; the spherical kernel's albedo "
+            "variant is not ported yet")
     F = cfg.tile_capacity
     tiles, batch = ps.plan_patch_batch(tiles, uniforms, cfg, plan, block_array.shape[0])
     Fp = batch.ids.shape[0]
@@ -93,7 +115,15 @@ def fused_kernel_args(tiles: RefinementOutput, block_array: torch.Tensor,
     count = tiles.tile_count.reshape(1).to(torch.int32)
     if not cfg.spherical:
         tile_params = torch.stack(cols, dim=-1).contiguous()
-        return tiles, batch, (block_array, batch.ids, batch.geom, tile_params, fs, count)
+        args = (block_array, batch.ids, batch.geom, tile_params, fs, count)
+        if albedo_channels:
+            shade = ()
+            if shade_spec is not None:
+                shade = (shade_spec if isinstance(shade_spec, torch.Tensor)
+                         else kernels.pack_shade_spec(shade_spec, dev),)
+            args += (albedo_blocks, albedo_channels, albedo_bits, *shade,
+                     albedo_fast and albedo_bits <= 8, albedo_combined)
+        return tiles, batch, args
 
     # per-tile Taylor rows, origin anchor and side-composed transforms, in
     # the JAX kernel's column order (kernels.SPH_PARAMS)
@@ -135,17 +165,22 @@ def fused_kernel_args(tiles: RefinementOutput, block_array: torch.Tensor,
 
 def generate_mesh_fused(tiles: RefinementOutput, block_array: torch.Tensor,
                         uniforms: FrameUniforms, cfg: StaticTerrainConfig, plan,
-                        max_value: float):
+                        max_value: float, albedo_blocks=None, albedo_channels: int = 0,
+                        albedo_bits: int = 0, shade_spec=None, albedo_fast: bool = True,
+                        albedo_combined: bool = False):
     """The whole mesh stage in one kernel launch.
 
     Planar, or spherical with the Taylor high-precision path; grid_size 16,
-    per-vertex blend (the kernel's crossfade). Returns (raw, sorted_tiles):
-    ``raw`` is (Fp, 6 or 9, 17, 17) f32 (see the module docstring); its
-    rows pair with ``sorted_tiles``, the tile list reordered by atlas quad
-    id (a tile list is a set, so any deterministic order is valid).
+    per-vertex blend (the kernel's crossfade). The albedo arguments are
+    :func:`fused_kernel_args`'s. Returns (raw, sorted_tiles): ``raw`` is
+    (Fp, 6 + C or 9, 17, 17) f32 (see the module docstring); its rows pair
+    with ``sorted_tiles``, the tile list reordered by atlas quad id (a tile
+    list is a set, so any deterministic order is valid).
     """
-    tiles, _, args = fused_kernel_args(tiles, block_array, uniforms, cfg, plan, max_value)
-    return mesh_kernel(cfg)(*args), tiles
+    tiles, _, args = fused_kernel_args(
+        tiles, block_array, uniforms, cfg, plan, max_value, albedo_blocks, albedo_channels,
+        albedo_bits, shade_spec, albedo_fast, albedo_combined)
+    return mesh_kernel(cfg, albedo_channels, shade_spec is not None)(*args), tiles
 
 
 def fused_to_grid(raw: torch.Tensor, tiles: RefinementOutput,
@@ -170,3 +205,12 @@ def fused_to_grid(raw: torch.Tensor, tiles: RefinementOutput,
         heights=r[:, 0],
         tile_mask=torch.arange(F, dtype=torch.int32, device=raw.device) < tiles.tile_count,
     )
+
+
+def fused_albedo_to_grid(raw: torch.Tensor, cfg: StaticTerrainConfig, channels: int,
+                         max_value: float) -> torch.Tensor:
+    """The fused kernel's trailing ``channels`` colour channels as (F, G+1,
+    G+1, C) f32, divided by ``max_value`` (the JAX package's
+    fused_albedo_to_grid)."""
+    F = cfg.tile_capacity
+    return raw[:F, raw.shape[1] - channels:].permute(0, 2, 3, 1) / max_value

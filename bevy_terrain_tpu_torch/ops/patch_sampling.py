@@ -18,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from bevy_terrain_tpu_torch.ops import coords
+from bevy_terrain_tpu_torch.ops import coords, kernels
 from bevy_terrain_tpu_torch.ops.params import StaticTerrainConfig
 from bevy_terrain_tpu_torch.ops.refinement import RefinementOutput
 
@@ -189,11 +189,15 @@ def plan_patch_batch(
     cfg: StaticTerrainConfig,
     plan: PatchPlan,
     n_blocks: int,
+    assume_sorted: bool = False,
 ) -> tuple[RefinementOutput, PatchBatch]:
     """Per-tile atlas lookup + patch geometry + quad-id sort.
 
     Returns (sorted_tiles: RefinementOutput with (F,) arrays, PatchBatch).
     Dead lanes (>= tile_count) sort to the end under the int32 sentinel key.
+    With ``assume_sorted`` the tile list is taken to be in quad-id order for
+    this plan already (true for a sibling attachment with the height
+    attachment's plan) and the sort is skipped, keeping the row order.
     """
     if cfg.tile_tree_lod:
         raise NotImplementedError("tile_tree_lod is not ported to the torch package yet")
@@ -229,10 +233,14 @@ def plan_patch_batch(
 
     # --- sort tiles by quad id; dead lanes to the end ---
     key = torch.where(live, ids4[:, 0], _KEY_SENTINEL).to(i32)
-    s_key, perm = torch.sort(key, stable=True)
-    s_side, s_lod, s_x, s_y = t_side[perm], t_lod[perm], t_xy[perm, 0], t_xy[perm, 1]
-    s_p0 = p0[perm]
-    s_dp, s_valid, s_ratio = dp[perm], valid[perm], ratio[perm]
+    if assume_sorted:
+        s_key, s_side, s_lod, s_x, s_y = key, t_side, t_lod, t_xy[:, 0], t_xy[:, 1]
+        s_p0, s_dp, s_valid, s_ratio = p0, dp, valid, ratio
+    else:
+        s_key, perm = torch.sort(key, stable=True)
+        s_side, s_lod, s_x, s_y = t_side[perm], t_lod[perm], t_xy[perm, 0], t_xy[perm, 1]
+        s_p0 = p0[perm]
+        s_dp, s_valid, s_ratio = dp[perm], valid[perm], ratio[perm]
 
     # --- quad ranks + unique-id list (rank order) ---
     first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), s_key[1:] != s_key[:-1]])
@@ -342,3 +350,56 @@ def patch_geometry(
     ids = torch.stack([bid(0, 0), bid(0, 1), bid(1, 0), bid(1, 1)], dim=-1)
     p0 = start - torch.stack([bx, by], dim=-1).to(torch.float32) * BLOCK
     return ids, p0, dp
+
+
+def sample_attachment_vertices(
+    block_arrays,  # list per channel of (N, 32, 128) quad block arrays
+    tiles: RefinementOutput,  # the frame's quad-id-sorted tile list
+    morphed_uv: torch.Tensor,  # (F, G+1, G+1, 2) from the frame's GridMeshOutput
+    uniforms,
+    cfg: StaticTerrainConfig,
+    plan: PatchPlan,
+    max_value: float,
+    plan_matches_frame: bool = True,
+    packed_channels: int = 0,
+    packed_bits: int = 0,
+) -> torch.Tensor:
+    """Sample an attachment at the frame's morphed vertex uvs (the fragment
+    stage's attachment fetch, attachments.wgsl:12-43) through the fused
+    sampler kernels: one :func:`kernels.attach_sample_fused` launch per
+    channel array, or one :func:`kernels.attach_sample_fused_packed` launch
+    for ``packed_channels`` channels of ``packed_bits`` bits in one array.
+    Returns (F, G+1, G+1, C) f32 in [0, 1].
+
+    The tiles keep the frame's order: the attachment's plan must be the
+    height attachment's (``plan_matches_frame``), so that its quad ids are
+    sorted in the same order. Another plan (e.g. a border-1 albedo beside a
+    border-2 height) needs the JAX package's per-tile fallback sampler,
+    which is not ported yet.
+    """
+    if not plan_matches_frame:
+        raise NotImplementedError(
+            "an attachment whose patch plan differs from the height attachment's "
+            "needs the per-tile fallback sampler, which is not ported yet")
+    if cfg.grid_size != 16:
+        raise NotImplementedError(
+            f"the attachment sampler kernels need grid_size 16, got {cfg.grid_size}")
+    F = cfg.tile_capacity
+    _, batch = plan_patch_batch(tiles, uniforms, cfg, plan, block_arrays[0].shape[0],
+                                assume_sorted=True)
+    # attachments sample one data lod: the crossfade column is zero
+    geom = batch.geom.clone()
+    geom[:, 4] = 0.0
+    Fp = batch.ids.shape[0]
+    uvs = morphed_uv.permute(0, 3, 1, 2)
+    if Fp > F:
+        uvs = torch.cat([uvs, uvs.new_zeros((Fp - F,) + uvs.shape[1:])])
+    uvs = uvs.contiguous()
+    count = tiles.tile_count.reshape(1).to(torch.int32)
+    if packed_channels:
+        raw = kernels.attach_sample_fused_packed(block_arrays[0], batch.ids, geom, uvs, count,
+                                                 packed_channels, packed_bits)
+    else:
+        raw = torch.cat([kernels.attach_sample_fused(b, batch.ids, geom, uvs, count)
+                         for b in block_arrays], dim=1)
+    return raw[:F].permute(0, 2, 3, 1) / max_value

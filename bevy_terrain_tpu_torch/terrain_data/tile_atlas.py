@@ -12,9 +12,11 @@ twin of the reference's ``TileAtlas``, tile_atlas.rs):
   on the thread that calls it (the one that owns the CUDA stream).
 * **Device storage** — per attachment ONE ``(atlas_size * 84, 32, 128)``
   int32 block-quad tensor (patch_sampling.quad_rows) on the atlas's
-  device, updated by one ``index_copy_`` per frame. The JAX package's
-  per-mip slabs (read only by its per-vertex path and the queries) are not
-  ported yet.
+  device, updated by one ``index_copy_`` per frame; a multi-channel format
+  (Rgba8, Rg16) packs its channels into each int32 word
+  (patch_sampling.blocks_from_tile_packed). The JAX package's per-mip
+  slabs (read only by its per-vertex path and the queries) are not ported
+  yet.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from bevy_terrain_tpu_torch.config import AttachmentConfig, TerrainConfig
 from bevy_terrain_tpu_torch.formats.tc import TC
 from bevy_terrain_tpu_torch.math.coordinate import TileCoordinate
 from bevy_terrain_tpu_torch.ops.patch_sampling import (
-    blocks_from_tile, make_patch_plan,
+    blocks_from_tile, blocks_from_tile_packed, make_patch_plan,
 )
 from bevy_terrain_tpu_torch.terrain_data import attachment as attachment_io
 
@@ -92,22 +94,27 @@ class AtlasAttachment:
         self.patch_plan = make_patch_plan(
             config.texture_size, config.mip_level_count, config.border_size
         )
-        self.block_packed = False
-        self.packed_bits = 0
-        self.block_array: Optional[torch.Tensor] = None
+        # A multi-channel format stores ONE packed int32 block array (channel
+        # c in bits [c*B, (c+1)*B), B = 8 or 16): a texel is one word, as in
+        # the reference's texture formats (src/terrain_data/mod.rs:38-84), so
+        # one quad fetch serves every channel
+        self.block_packed = config.format.channels > 1
+        self.packed_bits = 8 * config.format.dtype.itemsize if self.block_packed else 0
+        self.block_arrays: Optional[list[torch.Tensor]] = None
         if self.patch_plan.usable:
-            if config.format.channels != 1:
-                raise NotImplementedError(
-                    "multi-channel (packed) attachments are not ported to the "
-                    "torch package yet")
             # int32 row-interleaved block quads (32, 128), slot-major:
             # slot a's blocks are rows [a * per_slot, (a + 1) * per_slot)
             shape = (atlas_size * self.patch_plan.total_blocks_per_slot, 32, 128)
-            self.block_array = torch.zeros(shape, dtype=torch.int32, device=self.device)
+            self.block_arrays = [torch.zeros(shape, dtype=torch.int32, device=self.device)]
         # staged uploads: (atlas_index, [mip arrays])
         self._staged: list[tuple[int, list[np.ndarray]]] = []
         self.loading: list[tuple[Future, "AtlasTileAttachment"]] = []
         self.saving: list[Future] = []
+
+    @property
+    def block_array(self) -> Optional[torch.Tensor]:
+        """The block array of channel 0 (of every channel when packed)."""
+        return self.block_arrays[0] if self.block_arrays else None
 
     # -- IO (reference tile_atlas.rs:77-149) --
 
@@ -176,8 +183,9 @@ class AtlasAttachment:
             per_slot = self.patch_plan.total_blocks_per_slot
             indices = np.array([i for i, _ in self._staged], np.int64)
             block_idx = (indices[:, None] * per_slot + np.arange(per_slot)[None, :]).reshape(-1)
+            quads = blocks_from_tile_packed if self.block_packed else blocks_from_tile
             block_vals = np.stack(
-                [blocks_from_tile(mips, self.patch_plan, 0) for _, mips in self._staged]
+                [quads(mips, self.patch_plan) for _, mips in self._staged]
             ).reshape(-1, 32, 128).astype(np.int32)
             self.block_array.index_copy_(
                 0,

@@ -3,9 +3,14 @@
 Writes reference-format tile payloads (raw ``.bin`` + ``config.tc``) for an
 analytic height function, so the streaming/rendering stack can be exercised
 and golden-tested without real imagery: a planar terrain
-(:func:`generate_planar_dataset`) or a cube sphere, six sides
-(:func:`generate_spherical_dataset`). The payload layout matches the
+(:func:`generate_planar_dataset`, with an analytic colour field for a
+multi-channel attachment such as an Rgba8 albedo) or a cube sphere, six
+sides (:func:`generate_spherical_dataset`). The payload layout matches the
 reference's disk format exactly (SURVEY.md section 2 "Tile payload files").
+
+These are test and benchmark fixtures. The JAX package's tests make the
+same kind of files from images through its ``Preprocessor``, which this
+package does not have yet.
 """
 
 from __future__ import annotations
@@ -40,6 +45,14 @@ def default_sphere_height_fn(p: np.ndarray) -> np.ndarray:
     return np.clip(h, 0.05, 1.0)  # keep away from 0 (nodata sentinel)
 
 
+def default_color_fn(u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Smooth analytic RGBA in [0, 1] (..., 4): red along u, green along v,
+    a blue wave, opaque alpha."""
+    red = 0.1 + 0.85 * u
+    blue = 0.5 + 0.3 * np.sin(2 * np.pi * 4 * (u + 0.5 * v))
+    return np.stack([red, v, blue, np.ones_like(u)], axis=-1)
+
+
 def _texel_uv(coordinate: TileCoordinate, attachment: AttachmentConfig):
     """(u, v) grids (row = v, column = u) of one tile's texel centres in
     side uv, border texels included, clamped to the side."""
@@ -56,8 +69,20 @@ def _texel_uv(coordinate: TileCoordinate, attachment: AttachmentConfig):
     return np.meshgrid(u, v, indexing="xy")  # row=v(y), col=u(x)
 
 
-def _to_payload(h: np.ndarray, attachment: AttachmentConfig) -> np.ndarray:
-    return (h * attachment.format.max_value).astype(attachment.format.dtype)[..., None]
+def _to_payload(field: np.ndarray, attachment: AttachmentConfig) -> np.ndarray:
+    """(H, W) heights or (H, W, C) channels in [0, 1] -> the format's
+    (H, W, C) texels. A multi-channel payload keeps channel 0 non-zero: 0
+    is the reference's nodata sentinel (textureGather(0u) validity,
+    split.wgsl:34)."""
+    fmt = attachment.format
+    field = field[..., None] if field.ndim == 2 else field
+    if field.shape[-1] != fmt.channels:
+        raise ValueError(f"the field has {field.shape[-1]} channels, {fmt.value} has "
+                         f"{fmt.channels}")
+    payload = (field * fmt.max_value).astype(fmt.dtype)
+    if fmt.channels > 1:
+        payload[..., 0] = np.maximum(payload[..., 0], 1)
+    return payload
 
 
 def tile_payload(
@@ -87,12 +112,20 @@ def generate_planar_dataset(
     attachment: AttachmentConfig,
     height_fn: Callable[[np.ndarray, np.ndarray], np.ndarray] = default_height_fn,
     root: str = "assets",
+    field_fn: Callable[[np.ndarray, np.ndarray], np.ndarray] | None = None,
 ) -> list[TileCoordinate]:
     """Write all tiles of a planar terrain for lods 0..lod_count-1.
+
+    A one-channel attachment holds ``height_fn(u, v)``; a multi-channel one
+    (Rgba8, Rg16) holds ``field_fn(u, v)``, C channels in [0, 1] (default
+    :func:`default_color_fn`, cut to C channels), channel 0 kept non-zero.
 
     Layout: ``{root}/{path}/data/{name}/{side}_{lod}_{x}_{y}.bin`` +
     ``{root}/{path}/config.tc`` (reference tile_atlas.rs:107-109,605-612).
     """
+    if attachment.format.channels > 1:
+        channels = attachment.format.channels
+        height_fn = field_fn or (lambda u, v: default_color_fn(u, v)[..., :channels])
     data_dir = Path(root) / path / "data" / attachment.name
     data_dir.mkdir(parents=True, exist_ok=True)
     tiles = []

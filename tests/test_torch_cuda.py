@@ -169,3 +169,99 @@ def test_spherical_kernel_matches_plain_version(kind, altitude):
         assert float(err[:, sl].max()) <= SPH_TOL[name], name
     n = int(args[6])
     assert n > 0 and not got[n:].any()
+
+
+# -- material kernels (K3 albedo, K4 shade, K5 samplers) vs their plain versions
+
+# of full scale: the exact resample differs from the plain version's by the
+# summation order only; the bf16 fast path rounds its y sums to bf16, where
+# one step is up to 1/255 of full scale for 8-bit texels
+TOL_EXACT, TOL_FAST = 1e-5, 2.0 / 255.0
+
+
+def _packed(shape, channels, bits, seed):
+    rng = np.random.default_rng(seed)
+    words = np.zeros(shape, np.uint32)
+    for c in range(channels):
+        words |= rng.integers(0, 1 << bits, shape).astype(np.uint32) << (bits * c)
+    return words.view(np.int32)
+
+
+def _material_spec():
+    from bevy_terrain_tpu_torch.render.material import (
+        DirectionalLight, PointLight, SpotLight, StandardMaterial, albedo_material,
+        kernel_shade_spec,
+    )
+
+    material = StandardMaterial(
+        base_color=albedo_material(1), perceptual_roughness=0.6, metallic=0.2,
+        reflectance=0.4,
+        lights=(DirectionalLight(direction=(-0.3, -0.8, -0.5), color=(1.0, 0.9, 0.8),
+                                 illuminance=0.9),
+                PointLight(position=(120.0, 300.0, -80.0), range=3000.0, intensity=0.5),
+                SpotLight(position=(0.0, 200.0, 0.0), direction=(0.1, -1.0, 0.2),
+                          range=2000.0, intensity=0.7, inner_angle=0.3, outer_angle=0.7)),
+    )
+    return kernel_shade_spec(material, 255.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["fast", "exact", "opaque", "combined", "shaded_exact",
+                                  "shaded_fast"])
+def test_material_kernel_matches_plain_version(form):
+    dev = _card()
+    blob, blocks, cfg, plan = _scene(256)
+    albedo = torch.from_numpy(_packed(blocks.shape, 4, 8, 7)).to(dev)
+    _, _, args = _stage(blob, blocks, cfg, plan, dev)
+    channels = 3 if form == "opaque" else 4
+    fast = form in ("fast", "opaque", "combined", "shaded_fast")
+    if form == "combined":
+        base = (torch.cat([args[0], albedo], dim=1), *args[1:6], None)
+    else:
+        base = (*args[:6], albedo)
+    shaded = form.startswith("shaded")
+    if shaded:
+        shade = kernels.pack_shade_spec(_material_spec(), dev)
+        kargs = (*base, channels, 8, shade, fast, form == "combined")
+        wrapper, plain = kernels.mesh_fused_shaded, kernels.mesh_fused_shaded_reference
+    else:
+        kargs = (*base, channels, 8, fast, form == "combined")
+        wrapper, plain = kernels.mesh_fused_albedo, kernels.mesh_fused_albedo_reference
+    before = wrapper.launches
+    got = wrapper(*kargs)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    mesh = kernels.mesh_fused_planar(*args)
+    assert torch.equal(got[:, :6], mesh)  # the mesh rows are K1's, bit for bit
+    want = plain(*kargs)
+    err = float((got[:, 6:] - want[:, 6:]).abs().max())
+    scale = 1.0 if shaded else 255.0
+    tol = (TOL_FAST if fast else (1e-4 if shaded else TOL_EXACT)) * scale
+    assert err <= tol, (form, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels,bits", [(1, 0), (4, 8), (2, 16)])
+def test_attach_kernel_matches_plain_version(channels, bits):
+    dev = _card()
+    blob, blocks, cfg, plan = _scene(256)
+    if bits:
+        blocks = _packed(blocks.shape, channels, bits, 9)
+    tiles, batch, args = _stage(blob, blocks, cfg, plan, dev)
+    rng = np.random.default_rng(3)
+    uvs = torch.from_numpy(rng.uniform(0, 1, (batch.ids.shape[0], 2, 17, 17))
+                           .astype(np.float32)).to(dev)
+    call = (args[0], batch.ids, batch.geom, uvs, args[5])
+    if bits:
+        wrapper = kernels.attach_sample_fused_packed
+        got = wrapper(*call, channels, bits)
+        want = kernels.attach_sample_fused_packed_reference(*call, channels, bits)
+    else:
+        wrapper = kernels.attach_sample_fused
+        got = wrapper(*call)
+        want = kernels.attach_sample_fused_reference(*call)
+    torch.cuda.synchronize()
+    assert wrapper.launches > 0 and got.shape == (batch.ids.shape[0], channels, 17, 17)
+    full = 65535.0 if bits in (0, 16) else 255.0
+    assert float((got - want).abs().max()) <= TOL_EXACT * full
+    assert not got[int(tiles.tile_count):].any()

@@ -24,6 +24,7 @@ from bevy_terrain_tpu.ops.params import unpack_frame_uniforms as junpack
 from bevy_terrain_tpu_torch.ops import kernels, meshgen, refinement
 from bevy_terrain_tpu_torch.ops.params import unpack_frame_uniforms
 from tests.test_torch_patch_sampling import LODS, small_frame
+from tests.test_torch_patch_sampling import one_torch_thread  # noqa: F401 (autouse)
 
 MAX_VALUE = 65535.0
 

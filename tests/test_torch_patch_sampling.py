@@ -25,6 +25,18 @@ from bevy_terrain_tpu_torch.ops.params import unpack_frame_uniforms
 TEXTURE_SIZE, BORDER, LODS, SIDE = 512, 2, 3, 1000.0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a test file's torch CPU work on one thread. The suite runs several
+    test processes at once, and a thread pool per process oversubscribes the
+    cores; the checks do not depend on the thread count. Other test files
+    import this fixture to use it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def small_frame(**cfg_kw):
     """The small_frame scene of tests/test_fused_mesh.py, packed into one
     uniform blob. Returns (blob, blocks, cfg, jax cfg, plan, jax plan)."""

@@ -31,10 +31,14 @@ from bevy_terrain_tpu.ops import refinement as jrefinement
 from bevy_terrain_tpu.ops.params import StaticTerrainConfig as JStaticConfig
 from bevy_terrain_tpu.ops.params import unpack_frame_uniforms as junpack
 from bevy_terrain_tpu_torch import interop
-from bevy_terrain_tpu_torch.config import AttachmentConfig, TerrainConfig, TerrainViewConfig
+from bevy_terrain_tpu_torch.config import (
+    AttachmentConfig, AttachmentFormat, TerrainConfig, TerrainViewConfig,
+)
 from bevy_terrain_tpu_torch.math import TerrainModel
+from bevy_terrain_tpu_torch.render.material import StandardMaterial, albedo_material
 from bevy_terrain_tpu_torch.render.pipeline import Terrain
 from bevy_terrain_tpu_torch.utils.synthetic import generate_planar_dataset
+from tests.test_torch_patch_sampling import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = Path(__file__).resolve().parent / "goldens" / "mesh_planar_streamed.npz"
 VIEW = np.array([-120.0, 90.0, 160.0])
@@ -194,14 +198,20 @@ def test_interop_carries_jax_atlas(dataset, port_frame, jax_terrain):
 def test_unported_configurations_raise(tmp_path, case):
     """Configurations outside the ported slice raise NotImplementedError
     instead of silently taking another path. A sphere is ported with the
-    Taylor high-precision path only (the JAX fused kernel's own rule)."""
-    att = AttachmentConfig(**ATT)
+    Taylor high-precision path only (the JAX fused kernel's own rule); a
+    sampled attachment must share the height attachment's patch plan (a
+    border-1 albedo beside the border-2 height needs the per-tile fallback
+    sampler, not ported)."""
+    atts = (AttachmentConfig(**ATT),)
     model = TerrainModel.planar(np.zeros(3), 1000.0, 0.0, 100.0)
     if case == "spherical":
         model = TerrainModel.sphere(np.zeros(3), 6.4e6, 0.0, 9000.0)
     if case == "small_attachment":
-        att = AttachmentConfig(name="height", texture_size=32, border_size=1)
-    config = TerrainConfig(model=model, attachments=(att,), assets_root=str(tmp_path),
+        atts = (AttachmentConfig(name="height", texture_size=32, border_size=1),)
+    if case == "shading":
+        atts += (AttachmentConfig(name="albedo", texture_size=512, border_size=1,
+                                  mip_level_count=4, format=AttachmentFormat.RGBA8),)
+    config = TerrainConfig(model=model, attachments=atts, assets_root=str(tmp_path),
                            **{**TERRAIN, "atlas_size": 4})
     with pytest.raises(NotImplementedError):
         terrain = Terrain(config, device="cpu")
@@ -210,4 +220,5 @@ def test_unported_configurations_raise(tmp_path, case):
         elif case == "grid_size":
             terrain.add_view("cam", TerrainViewConfig(grid_size=8))
         elif case == "shading":
-            terrain.set_shading()
+            terrain.set_shading(StandardMaterial(base_color=albedo_material(1)),
+                                sample_attachments=(1,))

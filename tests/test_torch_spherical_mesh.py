@@ -40,6 +40,7 @@ from bevy_terrain_tpu_torch.ops import kernels, meshgen, patch_sampling, refinem
 from bevy_terrain_tpu_torch.ops.params import (
     StaticTerrainConfig, pack_frame_uniforms, unpack_frame_uniforms,
 )
+from tests.test_torch_patch_sampling import one_torch_thread  # noqa: F401 (autouse)
 
 R = 6.371e6
 LODS = 4

@@ -43,6 +43,7 @@ from bevy_terrain_tpu_torch.config import AttachmentConfig, TerrainConfig, Terra
 from bevy_terrain_tpu_torch.math import TerrainModel, frustum
 from bevy_terrain_tpu_torch.render.pipeline import Terrain
 from bevy_terrain_tpu_torch.utils.synthetic import generate_spherical_dataset
+from tests.test_torch_patch_sampling import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = Path(__file__).resolve().parent / "goldens" / "mesh_spherical_streamed.npz"
 R = 6.371e6
