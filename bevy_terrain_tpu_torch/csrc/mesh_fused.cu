@@ -336,28 +336,7 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
   // q[:, 64:128]; exact integer sum for the mean ----
   long long q = ids[t];
   q = q < 0 ? 0 : (q >= n_blocks ? n_blocks - 1 : q);
-  const int4* src = reinterpret_cast<const int4*>(blocks + q * stride);
-  long long acc = 0;
-  for (int v = tid; v < QUAD_WORDS / 4; v += NTHREADS) {
-    const int4 w = __ldg(src + v);
-    int pr, pc;
-    quad_to_patch(v, pr, pc);
-    patch[pr][pc + 0] = (float)w.x;
-    patch[pr][pc + 1] = (float)w.y;
-    patch[pr][pc + 2] = (float)w.z;
-    patch[pr][pc + 3] = (float)w.w;
-    acc += (long long)w.x + w.y + w.z + w.w;
-  }
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if ((tid & 31) == 0) warp_sum[tid >> 5] = acc;
-  __syncthreads();
-  if (tid == 0) {
-    long long total = 0;
-    for (int w = 0; w < NWARPS; ++w) total += warp_sum[w];
-    s_mean = (float)((double)total / (double)(P * P));
-  }
-  __syncthreads();
-  const float mean = s_mean;
+  const float mean = block_mean(load_patch(blocks + q * stride, patch), warp_sum, &s_mean);
 
   // ---- 2. tent resample of the mean-centred patch at the 33x33 half-grid
   // positions clip(p0 + k * dp, 0, 63): H = Wy (P - c) Wx^T + c ----
@@ -365,13 +344,7 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
   const float p0x = g[0], p0y = g[1], dp = g[2], valid = g[3];
   for (int e = tid; e < K * K; e += NTHREADS) {
     const int k = e / K, l = e % K;
-    const Taps tw = halfgrid_taps(p0x, p0y, dp, k, l);
-    const int r0 = tw.r0, c0 = tw.c0;
-    const float col0 =
-        tw.wy0 * (patch[r0][c0] - mean) + tw.wy1 * (patch[r0 + 1][c0] - mean);
-    const float col1 =
-        tw.wy0 * (patch[r0][c0 + 1] - mean) + tw.wy1 * (patch[r0 + 1][c0 + 1] - mean);
-    H[k][l] = (col0 * tw.wx0 + col1 * tw.wx1) + mean;
+    H[k][l] = centred_bilinear(patch, mean, halfgrid_taps(p0x, p0y, dp, k, l)) + mean;
   }
   __syncthreads();
 
@@ -379,7 +352,7 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
   // rows (pallas_kernels.py xsmooth / ysmooth) ----
   for (int e = tid; e < K * K; e += NTHREADS) {
     const int k = e / K, l = e % K;
-    X[k][l] = 0.25f * H[k][max(l - 1, 0)] + 0.5f * H[k][l] + 0.25f * H[k][min(l + 1, K - 1)];
+    X[k][l] = smooth3(H[k][max(l - 1, 0)], H[k][l], H[k][min(l + 1, K - 1)]);
   }
   if (ALBEDO) {
     // the albedo quad into the patch buffer (its words' bits, same
@@ -413,7 +386,7 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
   __syncthreads();
   for (int e = tid; e < K * K; e += NTHREADS) {
     const int k = e / K, l = e % K;
-    Hs[k][l] = 0.25f * X[max(k - 1, 0)][l] + 0.5f * X[k][l] + 0.25f * X[min(k + 1, K - 1)][l];
+    Hs[k][l] = smooth3(X[max(k - 1, 0)][l], X[k][l], X[min(k + 1, K - 1)][l]);
   }
   if (ALBEDO && !alb.fast && tid < alb.channels) {
     unsigned long long total = 0;

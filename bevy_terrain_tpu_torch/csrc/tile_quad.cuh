@@ -1,5 +1,6 @@
-// What the tile kernels (mesh_fused.cu, attach_sample.cu) share: the
-// block-quad layout, the 33x33 half-grid tents and the 3x3 vertex window.
+// What the tile kernels (mesh_fused.cu, attach_sample.cu, fetch_resample.cu)
+// share: the block-quad layout and fetch, the 33x33 half-grid tents, the
+// 1-2-1 smoothing tap and the 3x3 vertex window.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -59,6 +60,62 @@ __device__ __forceinline__ void quad_to_patch(int v, int& pr, int& pc) {
   const int c = (v & 31) * 4;  // quad column
   pr = r + (c >= P ? 32 : 0);
   pc = c & (P - 1);
+}
+
+// Fetch one quad (QUAD_WORDS int32, 16-byte loads) into `patch` in natural
+// texel order, as floats. Returns this thread's share of the exact integer
+// texel sum.
+__device__ __forceinline__ long long load_patch(const int* __restrict__ quad,
+                                                float (*patch)[P]) {
+  const int4* src = reinterpret_cast<const int4*>(quad);
+  long long acc = 0;
+  for (int v = threadIdx.x; v < QUAD_WORDS / 4; v += NTHREADS) {
+    const int4 w = __ldg(src + v);
+    int pr, pc;
+    quad_to_patch(v, pr, pc);
+    patch[pr][pc + 0] = (float)w.x;
+    patch[pr][pc + 1] = (float)w.y;
+    patch[pr][pc + 2] = (float)w.z;
+    patch[pr][pc + 3] = (float)w.w;
+    acc += (long long)w.x + w.y + w.z + w.w;
+  }
+  return acc;
+}
+
+// The patch mean from the threads' shares of the texel sum (load_patch): an
+// exact integer sum, divided once. Every thread of the block calls it and
+// gets the mean; it ends with a barrier, after which the patch is visible
+// to all threads. warp_sum (NWARPS) and s_mean are shared scratch.
+__device__ __forceinline__ float block_mean(long long acc, long long* warp_sum,
+                                            float* s_mean) {
+  const int tid = threadIdx.x;
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  if ((tid & 31) == 0) warp_sum[tid >> 5] = acc;
+  __syncthreads();
+  if (tid == 0) {
+    long long total = 0;
+    for (int w = 0; w < NWARPS; ++w) total += warp_sum[w];
+    *s_mean = (float)((double)total / (double)(P * P));
+  }
+  __syncthreads();
+  return *s_mean;
+}
+
+// Half-grid point of the mean-centred patch through its two-by-two taps:
+// Wy (patch - mean) Wx^T at one (k, l), before the mean is added back.
+__device__ __forceinline__ float centred_bilinear(float (*patch)[P], float mean,
+                                                  const Taps& tw) {
+  const int r0 = tw.r0, c0 = tw.c0;
+  const float col0 = tw.wy0 * (patch[r0][c0] - mean) + tw.wy1 * (patch[r0 + 1][c0] - mean);
+  const float col1 =
+      tw.wy0 * (patch[r0][c0 + 1] - mean) + tw.wy1 * (patch[r0 + 1][c0 + 1] - mean);
+  return col0 * tw.wx0 + col1 * tw.wx1;
+}
+
+// One tap of the 1-2-1 smoothing (the caller duplicates boundary rows by
+// clamping the neighbours' indices).
+__device__ __forceinline__ float smooth3(float lo, float mid, float hi) {
+  return 0.25f * lo + 0.5f * mid + 0.25f * hi;
 }
 
 }  // namespace

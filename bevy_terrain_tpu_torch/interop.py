@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from bevy_terrain_tpu_torch.math.coordinate import TileCoordinate
+from bevy_terrain_tpu_torch.terrain_data import attachment as attachment_io
 from bevy_terrain_tpu_torch.terrain_data.tile_atlas import TileAtlas, _TileState
 
 
@@ -38,7 +39,7 @@ def atlas_from_numpy(atlas: TileAtlas, block_arrays, host_data, tile_states) -> 
         attachment (Rgba8, Rg16) has one array of packed words in both
         packages.
       host_data: per attachment, the list of resident mip-0 payloads per
-        atlas slot (None where empty).
+        atlas slot (None where empty); the mip slabs are rebuilt from them.
       tile_states: mapping ``(side, lod, x, y) -> (atlas_index, requests,
         loading_remaining)`` of the resident tiles.
 
@@ -58,9 +59,12 @@ def atlas_from_numpy(atlas: TileAtlas, block_arrays, host_data, tile_states) -> 
             att.block_array.copy_(torch.from_numpy(np.array(blocks, np.int32)))
         if len(data) != atlas.atlas_size:
             raise ValueError(f"host data has {len(data)} slots, atlas {atlas.atlas_size}")
-        att.data = [None if d is None else np.asarray(d) for d in data]
         att._staged.clear()
         att.loading.clear()
+        att.upload_slabs([
+            (index, attachment_io.generate_mipmaps(np.asarray(d), att.config.mip_level_count))
+            for index, d in enumerate(data) if d is not None])
+        att.data = [None if d is None else np.asarray(d) for d in data]
 
     state = atlas.state
     state.tile_states.clear()

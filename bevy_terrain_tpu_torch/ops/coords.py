@@ -215,6 +215,37 @@ def compute_subdivision_coordinate(side, lod, xy, taylor: TaylorParams,
     return torch.where(offset < 0, zero, torch.where(offset > 0, one, vuv))
 
 
+def compute_morph(lod, uv, view_distance, uniforms: FrameUniforms, cfg: StaticTerrainConfig):
+    """CDLOD vertex morph toward the even-grid uv (functions.wgsl:35-49)."""
+    if not cfg.morph:
+        return uv
+    grid_size = float(cfg.grid_size)
+    even_uv = ((uv * grid_size).to(torch.int32) & ~1).to(torch.float32) / grid_size
+    target_lod = torch.log2(2.0 * uniforms.morph_distance / view_distance)
+    lod_f = lod.to(torch.float32)
+    a = lod_f + uniforms.morph_range
+    ratio = torch.where(
+        lod == 0,
+        torch.zeros((), dtype=torch.float32, device=lod.device),
+        ((target_lod - a) / (lod_f - a)).clamp(0.0, 1.0),
+    )[..., None]
+    return uv + (even_uv - uv) * ratio  # mix(uv, even_uv, ratio)
+
+
+def compute_tile_uv(vertex_index, cfg: StaticTerrainConfig):
+    """Degenerate-triangle-strip grid uv per vertex (functions.wgsl:64-71).
+
+    ``vertex_index`` int32 (...,) -> uv (..., 2) f32.
+    """
+    vpr = cfg.vertices_per_row
+    grid_index = vertex_index % cfg.vertices_per_tile
+    row_index = (grid_index % vpr).clamp(1, vpr - 2) - 1
+    column_index = grid_index // vpr
+    u = (column_index + (row_index & 1)).to(torch.float32)
+    v = (row_index >> 1).to(torch.float32)
+    return torch.stack([u, v], dim=-1) / float(cfg.grid_size)
+
+
 def compute_blend(view_distance, uniforms: FrameUniforms, cfg: StaticTerrainConfig):
     """Blend lod + ratio from view distance (functions.wgsl:51-62).
 

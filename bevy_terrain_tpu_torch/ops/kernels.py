@@ -106,16 +106,12 @@ def _check_mesh_args(block_array, ids, geom, tile_params, fs, tile_count,
     ))
 
 
-def _check_args(block_array, ids, geom, tile_count, quad_rows: int, more) -> int:
-    """Check the quads, ids, geom and tile_count of a kernel call and
-    ``more`` (tensor, dtype, shape, name) entries: one device, dtypes,
-    shapes, contiguity, alignment. Returns the tile count n."""
+def _check_tensors(block_array, quad_rows: int, more) -> None:
+    """Check the quads of a kernel call and ``more`` (tensor, dtype, shape,
+    name) entries: one device, dtypes, shapes, contiguity, alignment."""
     dev = block_array.device
-    n = ids.shape[0] if ids.dim() == 1 else -1
     checks = (
         (block_array, torch.int32, (block_array.shape[0], quad_rows, 128), "block_array"),
-        (ids, torch.int32, (n,), "ids"),
-        (geom, torch.float32, (n, 8), "geom"),
         *more,
     )
     for x, dtype, shape, name in checks:
@@ -126,15 +122,28 @@ def _check_args(block_array, ids, geom, tile_count, quad_rows: int, more) -> int
                              f"{x.dtype} {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if (tile_count.device != dev or tile_count.dtype != torch.int32
-            or tile_count.numel() != 1):
-        raise ValueError("tile_count must be one int32 on the blocks' device")
-    if n < 0:
-        raise ValueError("ids must be 1-d")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda" and block_array.data_ptr() % 16:
         raise ValueError("block_array must be 16-byte aligned")
+
+
+def _check_args(block_array, ids, geom, tile_count, quad_rows: int, more) -> int:
+    """Check the quads, ids, geom and tile_count of a kernel call and
+    ``more`` (tensor, dtype, shape, name) entries (:func:`_check_tensors`).
+    Returns the tile count n."""
+    dev = block_array.device
+    if ids.dim() != 1:
+        raise ValueError("ids must be 1-d")
+    n = ids.shape[0]
+    _check_tensors(block_array, quad_rows, (
+        (ids, torch.int32, (n,), "ids"),
+        (geom, torch.float32, (n, 8), "geom"),
+        *more,
+    ))
+    if (tile_count.device != dev or tile_count.dtype != torch.int32
+            or tile_count.numel() != 1):
+        raise ValueError("tile_count must be one int32 on the blocks' device")
     return n
 
 
@@ -192,12 +201,12 @@ def _patch(quads: torch.Tensor) -> torch.Tensor:
     return torch.cat([quads[:, :, :P], quads[:, :, P:]], dim=1)
 
 
-def _tents(geom):
+def _tents(geom, koff: float = 0.0):
     """The x and y tent weights of each tile's 33 half-grid positions
-    clip(p0 + k * dp, 0, 63) over the 64 patch texels: (wx, wy), (n, 33, 64)
-    each, in geom's dtype."""
+    clip(p0 + (k + koff) * dp, 0, 63) over the 64 patch texels: (wx, wy),
+    (n, 33, 64) each, in geom's dtype."""
     dt, dev = geom.dtype, geom.device
-    k = torch.arange(K, dtype=dt, device=dev)
+    k = torch.arange(K, dtype=dt, device=dev) + koff
     r = torch.arange(P, dtype=dt, device=dev)
     dp = geom[:, 2:3]
 
@@ -208,23 +217,31 @@ def _tents(geom):
     return tents(geom[:, 0]), tents(geom[:, 1])
 
 
-def _halfgrids(block_array, ids, geom):
-    """Phases 1-3 of both mesh kernels, batched over tiles: the mean-centred
-    tent resample of each tile's quad to the 33x33 half-grid, H, and its
-    1-2-1 smoothed copy, Hs (both (n, 33, 33), natural order), in geom's
-    dtype."""
+def _centred_halfgrid(block_array, ids, geom):
+    """The tent resample of each tile's mean-centred quad to the 33x33
+    half-grid: (Hc (n, 33, 33) natural order, before the mean is added
+    back; the patch means c (n, 1, 1)), in geom's dtype."""
     dt = geom.dtype
     patch = _patch(block_array[ids.long()].to(dt))  # (n, 64, 64)
     c = patch.mean(dim=(1, 2))[:, None, None]
     wx, wy = _tents(geom)
     rows = torch.einsum("nkr,nrc->nkc", wy, patch - c)
-    H = torch.einsum("nkc,nlc->nkl", rows, wx) + c  # (n, 33, 33) natural order
-    A = _smooth_matrix(block_array.device).to(dt)
+    return torch.einsum("nkc,nlc->nkl", rows, wx), c
+
+
+def _halfgrids(block_array, ids, geom):
+    """Phases 1-3 of both mesh kernels, batched over tiles: the mean-centred
+    tent resample of each tile's quad to the 33x33 half-grid, H, and its
+    1-2-1 smoothed copy, Hs (both (n, 33, 33), natural order), in geom's
+    dtype."""
+    Hc, c = _centred_halfgrid(block_array, ids, geom)
+    H = Hc + c
+    A = _smooth_matrix(block_array.device).to(geom.dtype)
     Hs = torch.einsum("nkl,ml->nkm", torch.einsum("ij,njl->nil", A, H), A)
     return H, Hs
 
 
-def _unpack(words: torch.Tensor, c: int, bits: int) -> torch.Tensor:
+def unpack(words: torch.Tensor, c: int, bits: int) -> torch.Tensor:
     """Channel ``c`` of packed int32 words (``bits`` per channel, channel c
     in bits [c * bits, (c + 1) * bits)); ``bits`` 0 is the raw word. The
     mask after torch's arithmetic shift makes it a logical one."""
@@ -249,7 +266,7 @@ def _channel_halfgrids(words, geom, channels: int, bits: int, fast: bool):
         wx, wy = (w.to(torch.bfloat16).to(dt) for w in (wx, wy))
     grids = []
     for c in range(channels):
-        t = _unpack(q, c, bits)
+        t = unpack(q, c, bits)
         tf = t.to(dt)
         if fast:
             rows = torch.einsum("nkr,nrc->nkc", wy, tf).to(torch.bfloat16).to(dt)
@@ -927,6 +944,139 @@ def attach_sample_fused_packed_reference(block_array, ids, geom, uvs, tile_count
 
 
 # ---------------------------------------------------------------------------
+# Half-grid kernels of the staged mesh path: fetch_resample_cached (K6) and
+# fetch_resample (K7)
+# ---------------------------------------------------------------------------
+
+# evens-first half-grid order [0, 2, .., 32, 1, 3, .., 31]: the order K6
+# writes and patch_sampling.vertex_values_from_halfgrid reads
+HALFGRID_PERM = np.concatenate([np.arange(0, K, 2), np.arange(1, K, 2)])
+
+
+def fetch_resample_cached(block_array: torch.Tensor, ids: torch.Tensor, geom: torch.Tensor,
+                          tile_count: torch.Tensor) -> torch.Tensor:
+    """The half-grid of every tile of a frame: quad fetch, tent resample of
+    the mean-centred 64x64 patch at the 33x33 positions clip(p0 + k * dp,
+    0, 63), the two-sided value blend ``B H B^T`` toward the coarser data
+    lod (``B = I + ratio (A - I)``, A the 1-2-1 smoothing with duplicated
+    boundary rows), the mean back, x valid (the JAX kernel
+    fetch_resample_cached).
+
+    Args:
+      block_array: (N, 32, 128) int32 row-interleaved block quads.
+      ids: (Fp,) int32 quad id per tile (PatchBatch.ids, sorted order).
+      geom: (Fp, 8) f32 PatchBatch.geom [p0x, p0y, dp, valid, ratio, 0, 0, 0].
+      tile_count: int32 tensor of one element on the same device; tiles at
+        index >= tile_count come out as zeros (their ``valid`` is 0 in a
+        PatchBatch anyway).
+
+    Returns (Fp, 33, 33) f32 at raw texel scale, rows and columns in
+    evens-first order (:data:`HALFGRID_PERM`).
+
+    All sums are f32, as in the JAX kernel's interpret mode; on the TPU the
+    JAX kernel runs its dots in bf16 passes, so this is the more exact of
+    the two. On a CUDA tensor this launches ``csrc/fetch_resample.cu`` (and
+    raises if it cannot); on a CPU tensor it returns the plain version.
+    """
+    n = _check_args(block_array, ids, geom, tile_count, 32, ())
+    if block_array.device.type == "cpu":
+        return fetch_resample_cached_reference(block_array, ids, geom, tile_count)
+    out = torch.empty((n, K, K), dtype=torch.float32, device=block_array.device)
+    if n == 0:
+        return out
+    _launch(fetch_resample_cached, block_array.device, "fetch_resample_cached_launch",
+            block_array.data_ptr(), block_array.shape[0], ids.data_ptr(), geom.data_ptr(),
+            tile_count.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+fetch_resample_cached.launches = 0
+
+
+def fetch_resample_cached_reference(block_array: torch.Tensor, ids: torch.Tensor,
+                                    geom: torch.Tensor,
+                                    tile_count: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fetch_resample_cached` (same
+    arguments, same result), batched over tiles on any device, in the
+    kernel's operation order: blend along rows, then along columns."""
+    n = ids.shape[0]
+    Hc, c = _centred_halfgrid(block_array, ids, geom)
+    A = _smooth_matrix(block_array.device).to(geom.dtype)
+    ratio = geom[:, 4].view(n, 1, 1)
+    X = Hc + ratio * (torch.einsum("ij,njl->nil", A, Hc) - Hc)
+    Y = X + ratio * (torch.einsum("nkl,ml->nkm", X, A) - X)
+    out = (Y + c) * geom[:, 3].view(n, 1, 1)
+    out = out[:, HALFGRID_PERM][:, :, HALFGRID_PERM]
+    alive = torch.arange(n, device=out.device) < tile_count.reshape(())
+    return torch.where(alive.view(n, 1, 1), out, 0.0)
+
+
+def fetch_resample(block_array: torch.Tensor, ids: torch.Tensor,
+                   geom: torch.Tensor) -> torch.Tensor:
+    """The half-grid of every tile, with the blend folded into the resample
+    weights: quad fetch, then ``wy @ patch @ wx^T`` with each tent weight
+    row crossfaded by the tile's ratio toward its 1-2-1 form ``0.25 t(p -
+    dp) + 0.5 t(p) + 0.25 t(p + dp)`` (the boundary rows keep ``t(p)``), x
+    valid; no mean subtraction (the JAX kernel fetch_resample). One launch
+    for any number of tiles.
+
+    Args:
+      block_array: (N, 32, 128) int32 row-interleaved block quads.
+      ids: (F, 4) int32 flat block indices (tl, tr, bl, br) per tile; the
+        quad holds all four, so only column 0 drives the fetch.
+      geom: (F, 8) f32 [p0x, p0y, dp, valid, ratio, 0, 0, 0] per tile.
+
+    Returns (F, 33, 33) f32 at raw texel scale, in natural order.
+
+    All sums are f32 (see :func:`fetch_resample_cached`). On a CUDA tensor
+    this launches ``csrc/fetch_resample.cu`` (and raises if it cannot); on a
+    CPU tensor it returns the plain version.
+    """
+    if ids.dim() != 2:
+        raise ValueError("ids must be (F, 4)")
+    n = ids.shape[0]
+    _check_tensors(block_array, 32, (
+        (ids, torch.int32, (n, 4), "ids"),
+        (geom, torch.float32, (n, 8), "geom"),
+    ))
+    if block_array.device.type == "cpu":
+        return fetch_resample_reference(block_array, ids, geom)
+    out = torch.empty((n, K, K), dtype=torch.float32, device=block_array.device)
+    if n == 0:
+        return out
+    _launch(fetch_resample, block_array.device, "fetch_resample_launch",
+            block_array.data_ptr(), block_array.shape[0], ids.data_ptr(), geom.data_ptr(),
+            out.data_ptr(), n)
+    return out
+
+
+fetch_resample.launches = 0
+
+
+def fetch_resample_reference(block_array: torch.Tensor, ids: torch.Tensor,
+                             geom: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fetch_resample` (same arguments, same
+    result), batched over tiles on any device."""
+    n = ids.shape[0]
+    dt = geom.dtype
+    patch = _patch(block_array[ids[:, 0].long()].to(dt))
+    w = _tents(geom)
+    wm = _tents(geom, -1.0)
+    wp = _tents(geom, 1.0)
+    k = torch.arange(K, device=geom.device).view(1, K, 1)
+    ratio = geom[:, 4].view(n, 1, 1)
+
+    def blend(w, wm, wp):
+        w2 = (0.25 * torch.where(k == 0, w, wm) + 0.5 * w
+              + 0.25 * torch.where(k == K - 1, w, wp))
+        return w + (w2 - w) * ratio
+
+    wx, wy = (blend(*axis) for axis in zip(w, wm, wp))
+    rows = torch.einsum("nkr,nrc->nkc", wy, patch)
+    return torch.einsum("nkc,nlc->nkl", rows, wx) * geom[:, 3].view(n, 1, 1)
+
+
+# ---------------------------------------------------------------------------
 # Build (nvcc -> shared library with a C interface -> ctypes)
 # ---------------------------------------------------------------------------
 
@@ -1022,5 +1172,13 @@ def _library() -> ctypes.CDLL:
             ctypes.c_int, vp,
         ]
         lib.attach_sample_launch.restype = ctypes.c_int
+        lib.fetch_resample_cached_launch.argtypes = [
+            vp, ctypes.c_longlong, vp, vp, vp, vp, ctypes.c_int, vp,
+        ]
+        lib.fetch_resample_cached_launch.restype = ctypes.c_int
+        lib.fetch_resample_launch.argtypes = [
+            vp, ctypes.c_longlong, vp, vp, vp, ctypes.c_int, vp,
+        ]
+        lib.fetch_resample_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB

@@ -1,5 +1,8 @@
-"""CDLOD-morphed terrain mesh generation around the fused mesh kernels —
-torch twin of the fused path of the JAX package's ``ops/meshgen.py``.
+"""CDLOD-morphed terrain mesh generation — torch twin of the JAX package's
+``ops/meshgen.py``: the fused path (one mesh kernel), the staged grid path
+(:func:`generate_mesh_grid`: the half-grid kernel or the staged half-grid
+functions, then the per-vertex geometry in torch ops) and the per-vertex
+path (:func:`generate_mesh`: bilinear gathers from the attachment slab).
 
 :func:`generate_mesh_fused` plans the frame's patch fetches
 (patch_sampling.plan_patch_batch), packs the kernel's per-tile and frame
@@ -21,9 +24,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from bevy_terrain_tpu_torch.ops import coords, kernels
+from bevy_terrain_tpu_torch.ops import coords, kernels, sampling
 from bevy_terrain_tpu_torch.ops import patch_sampling as ps
 from bevy_terrain_tpu_torch.ops.params import FrameUniforms, StaticTerrainConfig
 from bevy_terrain_tpu_torch.ops.refinement import RefinementOutput
@@ -38,6 +42,203 @@ class GridMeshOutput:
     uvs: torch.Tensor  # (F, G+1, G+1, 2) f32 morphed tile-space uv
     heights: torch.Tensor  # (F, G+1, G+1) f32
     tile_mask: torch.Tensor  # (F,) bool
+
+
+@dataclasses.dataclass
+class MeshOutput:
+    """Per-vertex-path frame mesh, in the reference's degenerate-strip
+    vertex order (functions.wgsl:64-71), V = vertices_per_tile."""
+
+    positions: torch.Tensor  # (F, V, 3) f32 world positions
+    normals: torch.Tensor  # (F, V, 3) f32 world normals (geometric, pre-height)
+    uvs: torch.Tensor  # (F, V, 2) f32 morphed tile-space uv
+    heights: torch.Tensor  # (F, V) f32 sampled terrain height
+    tile_mask: torch.Tensor  # (F,) bool: lanes below tile_count
+
+
+def vertex_grid_uv(cfg: StaticTerrainConfig, device="cpu") -> torch.Tensor:
+    """Per-vertex grid uv table of the strip order (functions.wgsl:64-71),
+    (V, 2) f32."""
+    vid = torch.arange(cfg.vertices_per_tile, dtype=torch.int32, device=device)
+    return coords.compute_tile_uv(vid, cfg)
+
+
+def grid_to_strip_order(grid_values, cfg: StaticTerrainConfig) -> np.ndarray:
+    """Expand (F, G+1, G+1, ...) grid values to the reference's
+    degenerate-strip vertex order, on the host (a comparison utility)."""
+    uv = vertex_grid_uv(cfg).numpy()
+    ix = np.round(uv[:, 0] * cfg.grid_size).astype(int)
+    iy = np.round(uv[:, 1] * cfg.grid_size).astype(int)
+    vals = grid_values.cpu().numpy() if isinstance(grid_values, torch.Tensor) else np.asarray(
+        grid_values)
+    return vals[:, iy, ix]
+
+
+def _vertex_geometry(side, lod, xy, tile_uv, uniforms: FrameUniforms,
+                     cfg: StaticTerrainConfig, planar_componentwise: bool):
+    """The per-vertex geometry both staged paths share (vertex.wgsl:30-71):
+    the approximate view distance (the Taylor distance inside the precision
+    threshold), the CDLOD morph, and the morphed world position and normal
+    (in the near field the Taylor position and the unmorphed normal).
+    ``planar_componentwise``: a planar frame without the Taylor path takes
+    the componentwise distance of refinement and the per-tile lookup (the
+    grid path), not the world-position chain (the per-vertex path).
+    ``side``, ``lod`` (..., V), ``xy``, ``tile_uv`` (..., V, 2). Returns
+    (view_distance, morphed_uv, morph_world, morph_normal)."""
+    hp = None
+    if cfg.spherical or cfg.high_precision or not planar_componentwise:
+        local = coords.compute_local_position(side, lod, xy, tile_uv, cfg.spherical)
+        world = coords.position_local_to_world(local, uniforms.world_from_local)
+        normal = coords.normal_local_to_world(local, uniforms.normal_matrix, cfg.spherical)
+        view_distance = coords.norm3(
+            world + uniforms.approximate_height * normal - uniforms.view_world_position)
+    else:
+        view_distance = coords.planar_view_distance(lod, xy, tile_uv, uniforms)
+    if cfg.high_precision:
+        relative = coords.compute_relative_position(
+            side, lod, xy, tile_uv, uniforms.taylor, cfg.origin_lod, cfg.side_count)
+        hp_distance = coords.norm3(relative + uniforms.approximate_height * normal)
+        hp = view_distance < uniforms.precision_threshold_distance
+        view_distance = torch.where(hp, hp_distance, view_distance)
+
+    morphed_uv = coords.compute_morph(lod, tile_uv, view_distance, uniforms, cfg)
+
+    morph_local = coords.compute_local_position(side, lod, xy, morphed_uv, cfg.spherical)
+    morph_world = coords.position_local_to_world(morph_local, uniforms.world_from_local)
+    morph_normal = coords.normal_local_to_world(morph_local, uniforms.normal_matrix,
+                                                cfg.spherical)
+    if cfg.high_precision:
+        hp_relative = coords.compute_relative_position(
+            side, lod, xy, morphed_uv, uniforms.taylor, cfg.origin_lod, cfg.side_count)
+        hp_world = uniforms.view_world_position + hp_relative
+        morph_world = torch.where(hp[..., None], hp_world, morph_world)
+        morph_normal = torch.where(hp[..., None], normal, morph_normal)
+    return view_distance, morphed_uv, morph_world, morph_normal
+
+
+def generate_mesh_grid(tiles: RefinementOutput, block_array: torch.Tensor,
+                       uniforms: FrameUniforms, cfg: StaticTerrainConfig, plan,
+                       max_value: float, assume_sorted: bool = False):
+    """The staged mesh stage on the (G+1)^2 grid layout, for every frame
+    configuration (any grid size; planar or spherical, with or without the
+    Taylor high-precision path): the JAX package's generate_mesh_grid.
+
+    The half-grid heights come from :func:`kernels.fetch_resample_cached`
+    at grid size 16 (one launch per frame), else from the staged functions
+    (patch_sampling.fetch_patches, halfgrid_resample). The blend toward the
+    coarser data lod is the half-grid's, at the tile-centre ratio; with
+    ``cfg.blend_per_vertex`` the plain half-grid and its 1-2-1 smoothed
+    copy are both interpolated and mixed by the per-vertex ratio. Morph,
+    positions and normals are torch ops on a flat (F, (G+1)^2) layout.
+
+    Returns (GridMeshOutput, sorted_tiles): the tile list reordered by atlas
+    quad id, the order of the mesh rows (a tile list is a set, so any
+    deterministic order is valid). Pair the mesh with the returned tiles.
+    """
+    F = cfg.tile_capacity
+    G = cfg.grid_size
+    tiles, batch = ps.plan_patch_batch(tiles, uniforms, cfg, plan, block_array.shape[0],
+                                       assume_sorted=assume_sorted)
+    dev = block_array.device
+    t_side = tiles.tile_side[:F]
+    t_lod = tiles.tile_lod[:F].clamp(min=0)
+    t_xy = tiles.tile_xy[:F]
+
+    per_vertex = cfg.blend and cfg.blend_per_vertex
+    if G == 16:
+        count = tiles.tile_count.reshape(1).to(torch.int32)
+        h_mix = kernels.fetch_resample_cached(block_array, batch.ids, batch.geom, count)[:F]
+        h_mix = h_mix / max_value
+    else:
+        patch = ps.fetch_patches(block_array, batch.ids[:F, None])
+        h_mix = ps.halfgrid_resample(
+            patch, batch.geom[:F, 0:2], batch.geom[:F, 2], cfg,
+            ratio=batch.geom[:F, 4] if (cfg.blend and not per_vertex) else None,
+        ) / max_value
+        h_mix = ps.permute_halfgrid(h_mix * batch.geom[:F, 3][:, None, None])
+    if per_vertex:
+        h_coarse = ps.smooth_halfgrid_permuted(h_mix)
+
+    NV = (G + 1) * (G + 1)
+    g = torch.arange(G + 1, dtype=torch.float32, device=dev) / G
+    guv = torch.stack(torch.meshgrid(g, g, indexing="xy"), dim=-1)  # (G+1, G+1, 2)
+    tile_uv = guv.reshape(1, NV, 2).expand(F, NV, 2)
+    side = t_side[:, None].expand(F, NV)
+    lod_b = t_lod[:, None].expand(F, NV)
+    xy = t_xy[:, None, :].expand(F, NV, 2)
+    view_distance, morphed_uv, morph_world, morph_normal = _vertex_geometry(
+        side, lod_b, xy, tile_uv, uniforms, cfg, planar_componentwise=True)
+
+    morphed_grid = morphed_uv.reshape(F, G + 1, G + 1, 2)
+    h_norm = ps.vertex_values_from_halfgrid(h_mix, morphed_grid, cfg).reshape(F, NV)
+    if per_vertex:
+        _, v_ratio = coords.compute_blend(view_distance, uniforms, cfg)
+        h_coarse_v = ps.vertex_values_from_halfgrid(h_coarse, morphed_grid, cfg).reshape(F, NV)
+        h_norm = h_norm + (h_coarse_v - h_norm) * v_ratio
+    height = uniforms.min_height + (uniforms.max_height - uniforms.min_height) * h_norm
+    positions = morph_world + height[..., None] * morph_normal
+
+    tile_mask = torch.arange(F, dtype=torch.int32, device=dev) < tiles.tile_count
+    mask = tile_mask[:, None]
+
+    def grid(x, ch=None):
+        return x.reshape((F, G + 1, G + 1) + ((ch,) if ch else ()))
+
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    mesh = GridMeshOutput(
+        positions=grid(torch.where(mask[..., None], positions, zero), 3),
+        normals=grid(torch.where(mask[..., None], morph_normal, zero), 3),
+        uvs=grid(torch.where(mask[..., None], morphed_uv, zero), 2),
+        heights=grid(torch.where(mask, height, zero)),
+        tile_mask=tile_mask,
+    )
+    return mesh, tiles
+
+
+def generate_mesh(tiles: RefinementOutput, height_slab: torch.Tensor,
+                  uniforms: FrameUniforms, cfg: StaticTerrainConfig,
+                  attachment_scale: float, attachment_offset: float) -> MeshOutput:
+    """The per-vertex mesh stage (vertex.wgsl:30-98): per (tile, vertex) the
+    morphed world position and a bilinear height gathered from
+    ``height_slab``, attachment 0's mip-0 slab (A, H, W, 1) uint16, blended
+    between two atlas lods. The path of a height attachment too small for
+    the patch plan; it runs no hand-written kernel (the JAX package's
+    generate_mesh runs none either)."""
+    F = cfg.tile_capacity
+    V = cfg.vertices_per_tile
+    dev = height_slab.device
+    side = tiles.tile_side[:F, None].expand(F, V)
+    lod_b = tiles.tile_lod[:F, None].clamp(min=0).expand(F, V)
+    xy = tiles.tile_xy[:F, None, :].expand(F, V, 2)
+    tile_uv = vertex_grid_uv(cfg, dev)[None].expand(F, V, 2)
+    view_distance, morphed_uv, morph_world, morph_normal = _vertex_geometry(
+        side, lod_b, xy, tile_uv, uniforms, cfg, planar_componentwise=False)
+
+    # height sample with blend between two atlas lods (vertex.wgsl:85-98)
+    blend_lod, blend_ratio = coords.compute_blend(view_distance, uniforms, cfg)
+    a_idx, _, _, a_uv = coords.lookup_tile(
+        uniforms.entries, side, lod_b, xy, morphed_uv, blend_lod, cfg, lod_offset=0)
+    height = sampling.sample_height(height_slab, a_idx, a_uv, uniforms, attachment_scale,
+                                    attachment_offset)
+    if cfg.blend:
+        a_idx2, _, _, a_uv2 = coords.lookup_tile(
+            uniforms.entries, side, lod_b, xy, morphed_uv, blend_lod, cfg, lod_offset=1)
+        height2 = sampling.sample_height(height_slab, a_idx2, a_uv2, uniforms,
+                                         attachment_scale, attachment_offset)
+        height = torch.where(blend_ratio > 0.0, height + (height2 - height) * blend_ratio,
+                             height)
+    positions = morph_world + height[..., None] * morph_normal
+
+    tile_mask = torch.arange(F, dtype=torch.int32, device=dev) < tiles.tile_count
+    mask3 = tile_mask[:, None, None]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return MeshOutput(
+        positions=torch.where(mask3, positions, zero),
+        normals=torch.where(mask3, morph_normal, zero),
+        uvs=torch.where(mask3, morphed_uv, zero),
+        heights=torch.where(tile_mask[:, None], height, zero),
+        tile_mask=tile_mask,
+    )
 
 
 def check_fused_config(cfg: StaticTerrainConfig) -> None:

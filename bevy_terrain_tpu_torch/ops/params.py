@@ -10,7 +10,8 @@ The counterpart of the JAX package's ``ops/params.py``:
 * :class:`FrameUniforms` / :class:`TaylorParams` — dataclasses of torch
   tensors, rebuilt on the device from the blob by
   :func:`unpack_frame_uniforms` (slices and one ``.view(torch.float32)``
-  bitcast; no host round trip).
+  bitcast; no host round trip). :func:`make_frame_uniforms` goes from the
+  host state to them in one call.
 """
 
 from __future__ import annotations
@@ -262,3 +263,25 @@ def unpack_frame_uniforms(blob: torch.Tensor, side_count: int, lod_count: int,
         view_tile_frac=view_tile_frac,
         culling_planes=culling_planes,
     )
+
+
+def make_frame_uniforms(
+    model,
+    view_world_position,
+    approx,
+    origins: np.ndarray,
+    entries: np.ndarray,
+    view_tile_int: np.ndarray,
+    view_tile_frac: np.ndarray,
+    view_config,
+    view_proj: np.ndarray | None = None,
+    device="cpu",
+) -> FrameUniforms:
+    """Assemble FrameUniforms on ``device`` from host-side f64 state (the
+    JAX package's make_frame_uniforms): the packed blob, one host-to-device
+    copy, unpacked there. Each value rounds from f64 to f32 once, as in the
+    JAX function."""
+    blob = pack_frame_uniforms(model, view_world_position, approx, origins, entries,
+                               view_tile_int, view_tile_frac, view_config, view_proj)
+    S, L, T = entries.shape[0], entries.shape[1], entries.shape[2]
+    return unpack_frame_uniforms(torch.from_numpy(blob).to(device), S, L, T)

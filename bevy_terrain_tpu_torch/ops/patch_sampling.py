@@ -1,5 +1,6 @@
-"""Gather-based patch plan: per-tile atlas lookup, patch geometry and the
-quad-sorted fetch schedule — torch twin of the JAX package's ``ops/patch_sampling.py``.
+"""Gather-based patch plan: per-tile atlas lookup, patch geometry, the
+quad-sorted fetch schedule and the staged half-grid functions — torch twin
+of the JAX package's ``ops/patch_sampling.py``.
 
 Each tile of a frame samples ONE 16 KB quad of 2x2 texel blocks of its
 atlas tile's mip chain (the quad covers the tile's uv window at the mip
@@ -7,10 +8,19 @@ whose texel density matches the vertex half-grid). The host block
 builders (:func:`quad_rows`, :func:`blocks_from_tile`) are copied from the
 JAX package unchanged; :func:`plan_patch_batch` computes the same
 :class:`PatchBatch` on the device with torch ops, field for field.
+
+The half-grid functions (:func:`fetch_patches`, :func:`halfgrid_resample`,
+:func:`smooth_halfgrid`, :func:`permute_halfgrid`,
+:func:`smooth_halfgrid_permuted`, :func:`vertex_values_from_halfgrid`) are
+the staged path for any grid size: plain torch ops, as the JAX package
+leaves them to XLA. Their matrix products run in full f32 whatever the
+process-wide TF32 switch says (:func:`full_f32_matmul`): a TF32 product
+would quantise 16-bit heights to 11 bits.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import NamedTuple
@@ -352,6 +362,155 @@ def patch_geometry(
     return ids, p0, dp
 
 
+# ---------------------------------------------------------------------------
+# Staged half-grid functions (any grid size)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Run the enclosed CUDA matrix products in full f32: TF32 off for the
+    block, the caller's setting restored after."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def fetch_patches(block_array: torch.Tensor, ids: torch.Tensor,
+                  keep_int: bool = False) -> torch.Tensor:
+    """Staged patch assembly: one quad gather per tile, (F, 64, 64) in
+    natural texel order (the JAX package's fetch_patches_xla).
+
+    ``block_array`` is (N, 32, 128) quad storage (:func:`quad_rows`); only
+    column 0 of ``ids`` (F, 1 or 4) is fetched, the quad holds the other
+    three blocks. ``keep_int`` keeps the int32 words of a packed
+    multi-channel array (the caller unpacks, then casts)."""
+    q = block_array[ids[:, 0].long()]  # (F, 32, 128)
+    if not keep_int:
+        q = q.to(torch.float32)
+    return torch.cat([q[:, :, :64], q[:, :, 64:]], dim=-2)
+
+
+def halfgrid_resample(patch: torch.Tensor, p0: torch.Tensor, dp: torch.Tensor,
+                      cfg: StaticTerrainConfig, ratio=None) -> torch.Tensor:
+    """Exact bilinear of the patch at the (HG+1)^2 half-grid points, as two
+    batched tent-weight matrix products. Returns (F, HG+1, HG+1) f32 raw
+    texel values in natural order.
+
+    With ``ratio`` (per-tile blend fraction toward the coarser data lod) the
+    tent weights are crossfaded toward their 1-2-1 form ``0.25 t(p - dp) +
+    0.5 t(p) + 0.25 t(p + dp)`` (the boundary rows keep ``t(p)``), so the
+    coarse sample costs no further products."""
+    K = 2 * cfg.grid_size + 1
+    k = torch.arange(K, dtype=torch.float32, device=patch.device)
+    r = torch.arange(64, dtype=torch.float32, device=patch.device)
+
+    def tents(start, koff):
+        p = (start[:, None] + (k[None, :] + koff) * dp[:, None]).clamp(0.0, 63.0)
+        return (1.0 - torch.abs(p[..., None] - r)).clamp(min=0.0)  # (F, K, 64)
+
+    def weights(start):
+        w = tents(start, 0.0)
+        if ratio is None:
+            return w
+        wm = torch.where((k == 0)[None, :, None], w, tents(start, -1.0))
+        wp = torch.where((k == K - 1)[None, :, None], w, tents(start, 1.0))
+        w2 = 0.25 * wm + 0.5 * w + 0.25 * wp
+        return w + (w2 - w) * ratio[:, None, None]
+
+    wx = weights(p0[:, 0])
+    wy = weights(p0[:, 1])
+    with full_f32_matmul():
+        rows = torch.einsum("fkp,fpq->fkq", wy, patch)
+        return torch.einsum("fkq,flq->fkl", rows, wx)
+
+
+def smooth_halfgrid(half: torch.Tensor) -> torch.Tensor:
+    """1-2-1 separable smoothing with duplicated boundary rows, about the
+    next-coarser mip's bilinear: the blend's coarse sample."""
+
+    def smooth_axis(x, axis):
+        n = x.shape[axis]
+        lo = torch.cat([x.narrow(axis, 0, 1), x.narrow(axis, 0, n - 1)], dim=axis)
+        hi = torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)], dim=axis)
+        return 0.25 * lo + 0.5 * x + 0.25 * hi
+
+    return smooth_axis(smooth_axis(half, 1), 2)
+
+
+def halfgrid_perm(K: int) -> np.ndarray:
+    """Evens-first half-grid index order [0, 2, .., 1, 3, ..] (see _window9)."""
+    return np.concatenate([np.arange(0, K, 2), np.arange(1, K, 2)])
+
+
+def permute_halfgrid(half: torch.Tensor) -> torch.Tensor:
+    """A natural (F, K, K) half-grid in evens-first rows and columns (the
+    order kernels.fetch_resample_cached writes and _window9 reads)."""
+    p = torch.from_numpy(halfgrid_perm(half.shape[-1])).to(half.device)
+    return half[:, p][:, :, p]
+
+
+def smooth_halfgrid_permuted(half_p: torch.Tensor) -> torch.Tensor:
+    """:func:`smooth_halfgrid` on an evens-first half-grid: two batched
+    products with the permuted 1-2-1 matrix (equal up to f32 summation
+    order)."""
+    K = half_p.shape[-1]
+    A = np.zeros((K, K), np.float32)
+    for i in range(K):
+        A[i, max(i - 1, 0)] += 0.25
+        A[i, i] += 0.5
+        A[i, min(i + 1, K - 1)] += 0.25
+    p = halfgrid_perm(K)
+    Ap = torch.from_numpy(A[np.ix_(p, p)]).to(half_p.device)
+    with full_f32_matmul():
+        out = torch.einsum("kl,fln->fkn", Ap, half_p)
+        return torch.einsum("fkn,ln->fkl", out, Ap)
+
+
+def _window9(half_p: torch.Tensor, G: int) -> dict:
+    """The nine terms of the per-vertex 3x3 windows of an evens-first half
+    grid. Vertex i's window covers the natural half-grid indices
+    {max(2i - 2, 0) + b}; evens-first these are unit-stride slices of the
+    even block (b = 0: e[max(i - 1, 0)], b = 2: e[i]) and of the odd block
+    (b = 1: o[i - 1], e[0] at i = 0). Returns {(b, a): (F, G+1, G+1)}."""
+    E = G + 1  # even block size
+
+    def sel(x, axis, o):
+        if o == 2:  # natural {0, 2, .., 2G} -> e[0..G]
+            return x.narrow(axis, 0, G + 1)
+        # o == 0: natural {0, 0, 2, .., 2G-2} -> e[0], e[0..G-1]
+        # o == 1: natural {0, 1, 3, .., 2G-1} -> e[0], o[0..G-1]
+        body = x.narrow(axis, 0 if o == 0 else E, G)
+        return torch.cat([x.narrow(axis, 0, 1), body], dim=axis)
+
+    return {(b, a): sel(sel(half_p, 2, a), 1, b) for b in range(3) for a in range(3)}
+
+
+def vertex_values_from_halfgrid(half_p: torch.Tensor, morphed_uv: torch.Tensor,
+                                cfg: StaticTerrainConfig) -> torch.Tensor:
+    """Interpolate half-grid values at morphed vertex uvs.
+
+    ``half_p``: (F, HG+1, HG+1) in evens-first order (:func:`permute_halfgrid`
+    or kernels.fetch_resample_cached). ``morphed_uv``: (F, G+1, G+1, 2) with
+    u in [even_u, u] per vertex. Returns (F, G+1, G+1) f32."""
+    G = cfg.grid_size
+    HG = 2 * G
+    win = _window9(half_p, G)
+    i = torch.arange(G + 1, device=half_p.device)
+    xbase = (2 * i - 2).clamp(min=0).to(torch.float32)
+    lx = morphed_uv[..., 0] * HG - xbase[None, None, :]
+    ly = morphed_uv[..., 1] * HG - xbase[None, :, None]
+
+    value = None
+    for (b, a), term in win.items():
+        w = (1.0 - torch.abs(ly - b)).clamp(min=0.0) * (1.0 - torch.abs(lx - a)).clamp(min=0.0)
+        value = w * term if value is None else value + w * term
+    return value
+
+
 def sample_attachment_vertices(
     block_arrays,  # list per channel of (N, 32, 128) quad block arrays
     tiles: RefinementOutput,  # the frame's quad-id-sorted tile list
@@ -365,28 +524,39 @@ def sample_attachment_vertices(
     packed_bits: int = 0,
 ) -> torch.Tensor:
     """Sample an attachment at the frame's morphed vertex uvs (the fragment
-    stage's attachment fetch, attachments.wgsl:12-43) through the fused
-    sampler kernels: one :func:`kernels.attach_sample_fused` launch per
-    channel array, or one :func:`kernels.attach_sample_fused_packed` launch
-    for ``packed_channels`` channels of ``packed_bits`` bits in one array.
-    Returns (F, G+1, G+1, C) f32 in [0, 1].
+    stage's attachment fetch, attachments.wgsl:12-43). Returns (F, G+1, G+1,
+    C) f32 in [0, 1].
 
-    The tiles keep the frame's order: the attachment's plan must be the
-    height attachment's (``plan_matches_frame``), so that its quad ids are
-    sorted in the same order. Another plan (e.g. a border-1 albedo beside a
-    border-2 height) needs the JAX package's per-tile fallback sampler,
-    which is not ported yet.
+    The tiles keep the frame's order. When the attachment's plan is the
+    height attachment's (``plan_matches_frame``, the common case) its quad
+    ids are sorted in the same order, and at grid size 16 the fused sampler
+    kernels run: one :func:`kernels.attach_sample_fused` launch per channel
+    array, or one :func:`kernels.attach_sample_fused_packed` launch for
+    ``packed_channels`` channels of ``packed_bits`` bits in one array.
+    Another plan (e.g. a border-1 albedo beside a border-2 height) or
+    another grid size takes the staged sampler per channel:
+    :func:`fetch_patches`, :func:`halfgrid_resample`,
+    :func:`vertex_values_from_halfgrid`.
     """
-    if not plan_matches_frame:
-        raise NotImplementedError(
-            "an attachment whose patch plan differs from the height attachment's "
-            "needs the per-tile fallback sampler, which is not ported yet")
-    if cfg.grid_size != 16:
-        raise NotImplementedError(
-            f"the attachment sampler kernels need grid_size 16, got {cfg.grid_size}")
     F = cfg.tile_capacity
     _, batch = plan_patch_batch(tiles, uniforms, cfg, plan, block_arrays[0].shape[0],
                                 assume_sorted=True)
+    if not (plan_matches_frame and cfg.grid_size == 16):
+        ids = batch.ids[:F, None]
+        p0, dp, valid = batch.geom[:F, 0:2], batch.geom[:F, 2], batch.geom[:F, 3]
+
+        def staged_channel(patch):
+            half = halfgrid_resample(patch, p0, dp, cfg) / max_value
+            half = permute_halfgrid(half * valid[:, None, None])
+            return vertex_values_from_halfgrid(half, morphed_uv, cfg)
+
+        if packed_channels:
+            packed = fetch_patches(block_arrays[0], ids, keep_int=True)
+            return torch.stack(
+                [staged_channel(kernels.unpack(packed, c, packed_bits).to(torch.float32))
+                 for c in range(packed_channels)], dim=-1)
+        return torch.stack([staged_channel(fetch_patches(b, ids)) for b in block_arrays],
+                           dim=-1)
     # attachments sample one data lod: the crossfade column is zero
     geom = batch.geom.clone()
     geom[:, 4] = 0.0

@@ -1,34 +1,43 @@
 """The per-frame terrain pipeline: host prologue + the device frame stage.
 
-Torch twin of the fused branch of the JAX package's ``render/pipeline.py``:
+Torch twin of the JAX package's ``render/pipeline.py``:
 
 1. a host prologue per view (f64 numpy): request scan, residency update,
    best-tile entries, approximate height, Taylor approximation, and ONE
    packed int32 uniform blob;
 2. the device stage, eager torch on the atlas's device: unpack the blob,
-   refine the tile list, plan the patch fetches, and run the fused mesh
-   kernel (``ops/kernels.mesh_fused_planar`` for planar terrains,
-   ``ops/kernels.mesh_fused_spherical`` for spheres and ellipsoids, with
-   the Taylor high-precision path);
-3. with ``set_shading``, the material stage. A planar frame lit by a
+   refine the tile list, then the mesh by one of three paths:
+
+   * fused (grid size 16; planar without the Taylor high-precision path,
+     or spherical with it): plan the patch fetches and run the fused mesh
+     kernel (``ops/kernels.mesh_fused_planar`` for planar terrains,
+     ``ops/kernels.mesh_fused_spherical`` for spheres and ellipsoids);
+   * staged (any other view configuration: a sphere without the Taylor
+     path, a planar terrain with it, another grid size):
+     ``ops/meshgen.generate_mesh_grid``, whose half-grid comes from
+     ``ops/kernels.fetch_resample_cached`` at grid size 16;
+   * per vertex (a height attachment too small for the patch plan):
+     ``ops/meshgen.generate_mesh``, bilinear gathers from the height slab,
+     no hand-written kernel;
+3. with ``set_shading``, on the fused and staged paths, the material stage.
+   A planar fused frame lit by a
    :class:`~render.material.StandardMaterial` whose base colour is the one
    sampled packed Rgba8 albedo (``albedo_material``), with the height
    attachment's patch plan, no debug view, no wireframe and no shadow
    hook, runs it inside the mesh kernel (``ops/kernels.mesh_fused_shaded``,
    the colours ride the raw tensor). Any other material is staged: the
-   named attachments
-   sampled at the mesh's morphed uvs
-   (``ops/kernels.attach_sample_fused[_packed]``), then
-   ``render/material.shade``.
+   named attachments sampled at the mesh's morphed uvs (an attachment with
+   the height attachment's patch plan, at grid size 16, through
+   ``ops/kernels.attach_sample_fused[_packed]``; one with another plan, or
+   at another grid size, through the staged sampler of
+   ``ops/patch_sampling``), then ``render/material.shade``.
 
 The device stage reads no device value on the host except the refinement
 spill loop's queue count, so PyTorch's asynchronous launches let the next
 frame's host prologue overlap most of it.
 
-Grid size 16 only. Another grid size, a sphere without the high-precision
-path, an attachment without a usable patch plan, and a sampled attachment
-whose patch plan differs from the height attachment's (the per-tile
-fallback sampler) raise ``NotImplementedError``.
+A sampled attachment without a usable patch plan and the multi-tap
+gradient sampler raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,28 +73,32 @@ class FusedMaterial(NamedTuple):
 
 
 class TerrainFrameOutput:
-    """One view's frame products: the sorted tile list + the kernel's mesh.
+    """One view's frame products: the sorted tile list + the mesh.
 
-    ``tiles`` and ``raw_mesh`` live on the device. ``mesh`` (the
-    GridMeshOutput view), ``colors`` (of an in-kernel shade), ``tile_count``
+    ``tiles`` and the mesh live on the device. On the fused path the frame
+    holds the kernel's ``raw_mesh`` and ``mesh`` (the GridMeshOutput view)
+    is made on first access; the staged and per-vertex paths hand over a
+    ready ``mesh`` (a GridMeshOutput, or a MeshOutput in strip order) and
+    have no raw tensor. ``colors`` (of an in-kernel shade), ``tile_count``
     and ``overflow`` are computed on first access; the two counts read the
     device (one sync each).
     """
 
-    def __init__(self, tiles: refinement.RefinementOutput, raw: torch.Tensor,
-                 cfg: StaticTerrainConfig, mesh_inputs: tuple,
-                 colors: Optional[torch.Tensor] = None, shaded_channels: int = 0):
+    def __init__(self, tiles: refinement.RefinementOutput, raw: Optional[torch.Tensor],
+                 cfg: StaticTerrainConfig, mesh_inputs: tuple = (),
+                 colors: Optional[torch.Tensor] = None, shaded_channels: int = 0, mesh=None):
         self.tiles = tiles
         self._raw = raw
         self._cfg = cfg
-        self._mesh = None
+        self._mesh = mesh
         self._colors = colors
         self._shaded_channels = shaded_channels
         self.mesh_inputs = mesh_inputs
 
     @property
-    def raw_mesh(self) -> torch.Tensor:
-        """The fused kernel's product, rows paired with ``tiles``, on the
+    def raw_mesh(self) -> Optional[torch.Tensor]:
+        """The fused kernel's product (None on the staged and per-vertex
+        paths), rows paired with ``tiles``, on the
         (row = v, column = u) vertex grid: (Fp, 6, 17, 17) f32 for a planar
         terrain, per tile the channels [height, pos x, pos y, pos z,
         morphed u, morphed v], followed by the shaded linear RGBA (or RGB)
@@ -95,7 +108,7 @@ class TerrainFrameOutput:
         return self._raw
 
     @property
-    def mesh(self) -> meshgen.GridMeshOutput:
+    def mesh(self) -> "meshgen.GridMeshOutput | meshgen.MeshOutput":
         if self._mesh is None:
             self._mesh = meshgen.fused_to_grid(self._raw, self.tiles, self._cfg)
         return self._mesh
@@ -144,10 +157,9 @@ class Terrain:
         self.config = config
         self.device = torch.device(device)
         self.atlas = TileAtlas(config, self.device)
-        if not self.atlas.attachments[0].patch_plan.usable:
-            raise NotImplementedError(
-                "the height attachment is too small for the patch plan; the "
-                "per-vertex mesh path is not ported to the torch package yet")
+        # the patch pipeline (fused or staged grid mesh); a height attachment
+        # too small for it falls back to the exact per-vertex path
+        self.use_grid_mesh = self.atlas.attachments[0].patch_plan.usable
         self.tile_trees: dict[object, TileTree] = {}
         self.view_configs: dict[object, TerrainViewConfig] = {}
         self._static_cfgs: dict[object, StaticTerrainConfig] = {}
@@ -183,7 +195,6 @@ class Terrain:
                 **static_overrides,
             },
         )
-        meshgen.check_fused_config(cfg)
         self.view_configs[view_id] = view_config
         self.tile_trees[view_id] = TileTree(self.atlas, view_config)
         self._static_cfgs[view_id] = cfg
@@ -205,16 +216,18 @@ class Terrain:
         ``sample_attachments``: attachment indices (e.g. ``(1,)`` for the
         planar example's albedo) sampled at the frame's morphed vertex uvs
         and handed to the material as ``ShadeContext.attachment_samples``.
-        Each must have the height attachment's patch plan: another plan
-        needs the per-tile fallback sampler, not ported yet."""
+        An attachment with the height attachment's patch plan goes through
+        the sampler kernels, one with another plan (a border-1 albedo beside
+        a border-2 height) through the staged sampler; one without a usable
+        patch plan raises ``NotImplementedError``. The per-vertex path (a
+        height attachment too small for the patch plan) does not shade."""
         height = self.atlas.attachments[0]
         for idx in sample_attachments:
             att = self.atlas.attachments[idx]
-            if att.block_array is None or att.patch_plan != height.patch_plan:
+            if att.block_array is None:
                 raise NotImplementedError(
-                    f"attachment {idx} ({att.name!r}) does not share the height "
-                    f"attachment's patch plan; its per-tile fallback sampler is not "
-                    f"ported yet")
+                    f"attachment {idx} ({att.name!r}) is too small for the patch plan "
+                    f"and cannot be sampled at the mesh's vertices")
         self.shading_fn = material
         self._shade_opts = (
             (lighting, debug_view, height.config.texture_size, wireframe,
@@ -254,23 +267,51 @@ class Terrain:
     # -- device stage --
 
     @staticmethod
+    def use_fused(cfg: StaticTerrainConfig) -> bool:
+        """The single-kernel fused mesh path covers planar and
+        spherical-with-Taylor frames at grid size 16 (its blend is always
+        per vertex); every other view configuration takes the staged path."""
+        return cfg.grid_size == 16 and cfg.spherical == cfg.high_precision
+
+    @staticmethod
     def frame_step(block_array: torch.Tensor, uniform_blob: torch.Tensor,
                    cfg: StaticTerrainConfig, plan, max_value: float, albedo_blocks=None,
                    albedo_channels: int = 0, albedo_bits: int = 0, shade_spec=None):
-        """unpack -> refine -> patch plan -> fused mesh kernel (with the
-        albedo and its shade fused in when given; meshgen.fused_kernel_args).
+        """unpack -> refine -> the mesh: patch plan + fused mesh kernel (with
+        the albedo and its shade fused in when given;
+        meshgen.fused_kernel_args) where :meth:`use_fused` holds, else
+        meshgen.generate_mesh_grid.
 
-        Returns (sorted tiles, raw mesh, mesh kernel inputs, uniforms)."""
+        Returns (sorted tiles, the fused kernel's raw mesh or the staged
+        path's GridMeshOutput, mesh kernel inputs (fused only), uniforms)."""
         uniforms = unpack_frame_uniforms(
             uniform_blob, cfg.side_count, cfg.lod_count, cfg.tree_size
         )
         tiles = refinement.refine_tiles(uniforms, cfg)
+        if not Terrain.use_fused(cfg):
+            mesh, tiles = meshgen.generate_mesh_grid(tiles, block_array, uniforms, cfg, plan,
+                                                     max_value)
+            return tiles, mesh, (), uniforms
         tiles, _, args = meshgen.fused_kernel_args(
             tiles, block_array, uniforms, cfg, plan, max_value, albedo_blocks,
             albedo_channels, albedo_bits, shade_spec,
         )
         kernel = meshgen.mesh_kernel(cfg, albedo_channels, shade_spec is not None)
         return tiles, kernel(*args), args, uniforms
+
+    @staticmethod
+    def frame_step_vertex(height_slab: torch.Tensor, uniform_blob: torch.Tensor,
+                          cfg: StaticTerrainConfig, attachment_scale: float,
+                          attachment_offset: float):
+        """The per-vertex device stage: unpack -> refine ->
+        meshgen.generate_mesh on the height slab. Returns (tiles,
+        MeshOutput)."""
+        uniforms = unpack_frame_uniforms(
+            uniform_blob, cfg.side_count, cfg.lod_count, cfg.tree_size
+        )
+        tiles = refinement.refine_tiles(uniforms, cfg)
+        return tiles, meshgen.generate_mesh(tiles, height_slab, uniforms, cfg,
+                                            attachment_scale, attachment_offset)
 
     def _sample(self, idx: int, tiles, mesh, uniforms, cfg) -> torch.Tensor:
         """Attachment ``idx`` at the mesh's morphed vertex uvs, (F, G+1, G+1,
@@ -284,13 +325,12 @@ class Terrain:
             packed_bits=att.packed_bits,
         )
 
-    def _maybe_shade(self, raw, tiles, uniforms, cfg) -> Optional[torch.Tensor]:
+    def _maybe_shade(self, mesh, tiles, uniforms, cfg) -> Optional[torch.Tensor]:
         """The staged material stage: sample the named attachments, then
         render.material.shade on the mesh."""
         if self._shade_opts is None:
             return None
         lighting, debug_view, texture_size, wireframe, samples = self._shade_opts
-        mesh = meshgen.fused_to_grid(raw, tiles, cfg)
         attachment_samples = {idx: self._sample(idx, tiles, mesh, uniforms, cfg)
                               for idx in samples} or None
         return mat.shade(
@@ -341,20 +381,34 @@ class Terrain:
             )
             blob_dev = interop.blob_to_device(blob, self.device)  # ONE copy per frame
             cfg = self._static_cfgs[view_id]
-            fused = None if cfg.spherical else self._fused_material
+            self._last_blobs[view_id] = blob_dev
+            if not self.use_grid_mesh:
+                tiles, mesh = self.frame_step_vertex(
+                    height.slabs[0], blob_dev, cfg, height.config.scale, height.config.offset)
+                outputs[view_id] = TerrainFrameOutput(tiles, None, cfg, mesh=mesh)
+                continue
+            fused = None
+            if self.use_fused(cfg) and not cfg.spherical:
+                fused = self._fused_material
             albedo = {}
             if fused is not None:
                 albedo = dict(albedo_blocks=self.atlas.attachments[fused.index].block_array,
                               albedo_channels=fused.channels, albedo_bits=fused.bits,
                               shade_spec=fused.shade)
-            tiles, raw, args, uniforms = self.frame_step(
+            tiles, product, args, uniforms = self.frame_step(
                 height.block_array, blob_dev, cfg, height.patch_plan,
                 height.config.format.max_value, **albedo,
             )
-            colors = None if fused is not None else self._maybe_shade(raw, tiles, uniforms, cfg)
-            outputs[view_id] = TerrainFrameOutput(tiles, raw, cfg, args, colors,
-                                                  fused.channels if fused else 0)
-            self._last_blobs[view_id] = blob_dev
+            # the fused step hands over the kernel's raw tensor (its grid
+            # view is made on first access), the staged step a ready mesh
+            raw = product if isinstance(product, torch.Tensor) else None
+            colors = None
+            if fused is None and self._shade_opts is not None:
+                mesh = product if raw is None else meshgen.fused_to_grid(raw, tiles, cfg)
+                colors = self._maybe_shade(mesh, tiles, uniforms, cfg)
+            outputs[view_id] = TerrainFrameOutput(
+                tiles, raw, cfg, args, colors, fused.channels if fused else 0,
+                mesh=product if raw is None else None)
         self.frame_index += 1
         return outputs
 
@@ -371,11 +425,13 @@ class Terrain:
         multi-tap sampler) is not ported yet."""
         if grad_taps > 1:
             raise NotImplementedError("the multi-tap gradient sampler is not ported yet")
+        if not self.use_grid_mesh:
+            raise RuntimeError("sample_attachment_grid requires the grid mesh path")
         att = self.atlas.attachments[attachment_index]
-        if att.block_array is None or att.patch_plan != self.atlas.attachments[0].patch_plan:
+        if att.block_array is None:
             raise NotImplementedError(
-                f"attachment {attachment_index} ({att.name!r}) does not share the height "
-                f"attachment's patch plan; its per-tile fallback sampler is not ported yet")
+                f"attachment {attachment_index} ({att.name!r}) is too small for the patch "
+                f"plan and cannot be sampled at the mesh's vertices")
         cfg = self._static_cfgs[view_id]
         uniforms = unpack_frame_uniforms(self._last_blobs[view_id], cfg.side_count,
                                          cfg.lod_count, cfg.tree_size)

@@ -14,9 +14,10 @@ twin of the reference's ``TileAtlas``, tile_atlas.rs):
   int32 block-quad tensor (patch_sampling.quad_rows) on the atlas's
   device, updated by one ``index_copy_`` per frame; a multi-channel format
   (Rgba8, Rg16) packs its channels into each int32 word
-  (patch_sampling.blocks_from_tile_packed). The JAX package's per-mip
-  slabs (read only by its per-vertex path and the queries) are not ported
-  yet.
+  (patch_sampling.blocks_from_tile_packed). Beside it one slab per mip,
+  ``(atlas_size, size >> m, size >> m, channels)`` in the attachment's
+  native integer dtype, which the per-vertex mesh path gathers from
+  (ops/sampling.py).
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ from bevy_terrain_tpu_torch.terrain_data import attachment as attachment_io
 
 INVALID_ATLAS_INDEX = -1
 INVALID_LOD = -1
+
+_SLAB_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.uint16): torch.uint16}
 
 # Slot budgets (reference tile_atlas.rs:318-323).
 DEFAULT_LOAD_SLOTS = 64
@@ -73,7 +76,8 @@ class _TileState:
 
 
 class AtlasAttachment:
-    """One attachment of the atlas: host payloads + device block quads + IO.
+    """One attachment of the atlas: host payloads + device mip slabs and
+    block quads + IO.
 
     Mirrors ``AtlasAttachment`` (tile_atlas.rs:153-258) with the GPU side of
     ``GpuAtlasAttachment`` (gpu_tile_atlas.rs:180-347) folded in.
@@ -89,6 +93,15 @@ class AtlasAttachment:
         self.device = torch.device(device)
         # host mirror of resident payloads (mip 0), for CPU sampling + saving
         self.data: list[Optional[np.ndarray]] = [None] * atlas_size
+        # device slabs per mip
+        fmt = config.format
+        self.slabs: list[torch.Tensor] = [
+            torch.zeros(
+                (atlas_size, config.mip_size(m), config.mip_size(m), fmt.channels),
+                dtype=_SLAB_DTYPES[fmt.dtype], device=self.device,
+            )
+            for m in range(config.mip_level_count)
+        ]
         # unified blocked mip array for the patch sampler
         # (ops/patch_sampling.py); None when the attachment is too small
         self.patch_plan = make_patch_plan(
@@ -171,17 +184,32 @@ class AtlasAttachment:
                 still_saving.append(fut)
         self.saving = still_saving
 
+    def upload_slabs(self, staged) -> None:
+        """Copy ``staged`` tiles, (atlas_index, [mip arrays]) each, into the
+        device slabs: one host-to-device copy and one ``index_copy_`` per
+        mip."""
+        if not staged:
+            return
+        slots = torch.tensor([i for i, _ in staged], dtype=torch.int64).to(self.device)
+        for m, slab in enumerate(self.slabs):
+            vals = np.stack([mips[m] for _, mips in staged])
+            if slab.dtype == torch.uint16:
+                # index_copy_ takes no uint16: write the same bits as int16
+                slab, vals = slab.view(torch.int16), vals.view(np.int16)
+            slab.index_copy_(0, slots, torch.from_numpy(vals).to(self.device))
+
     def flush_uploads(self) -> int:
-        """Copy the staged tiles' block quads into the device block array:
-        one host-to-device copy and one ``index_copy_`` per frame (the
-        replacement for per-tile ``write_texture`` uploads,
-        gpu_tile_atlas.rs:309-336). Call from the thread that owns the
-        device stream."""
+        """Copy the staged tiles into the device slabs and block array: per
+        mip, and for the block quads, one host-to-device copy and one
+        ``index_copy_`` per frame (the replacement for per-tile
+        ``write_texture`` uploads, gpu_tile_atlas.rs:309-336). Call from the
+        thread that owns the device stream."""
         if not self._staged:
             return 0
+        self.upload_slabs(self._staged)
+        indices = np.array([i for i, _ in self._staged], np.int64)
         if self.block_array is not None:
             per_slot = self.patch_plan.total_blocks_per_slot
-            indices = np.array([i for i, _ in self._staged], np.int64)
             block_idx = (indices[:, None] * per_slot + np.arange(per_slot)[None, :]).reshape(-1)
             quads = blocks_from_tile_packed if self.block_packed else blocks_from_tile
             block_vals = np.stack(

@@ -23,16 +23,30 @@
    point and spot lights; fast and exact albedo) and the attachment
    samplers (Rgba8, Rg16 and one raw channel), each against its plain
    version, timed and bounded.
-5. Main paths: a synthetic 8k^2 planar dataset, then a synthetic six-side
-   planet, then the 8k^2 dataset with an Rgba8 albedo lit by a
-   StandardMaterial (then opaque, the staged unlit albedo, the albedo in
-   the mesh kernel through ``meshgen.generate_mesh_fused``, and one
-   attachment grid), each streamed through ``Terrain(config).update`` on the
-   card until
-   quiescent; every frame must go through its kernels (launch counts, set
-   to 0 just before each path and read just after), the output must be
-   finite, in range and match the plain version; a torch.profiler pass
-   breaks each device stage's time down by kernel.
+5. Half-grid kernel phase, at the bench.py frame: ``fetch_resample_cached``
+   (K6) against its plain version with the plan's tile-centre ratio and
+   with ``blend_per_vertex``; ``fetch_resample`` (K7) against its plain
+   version on the inputs of tools/fetch_kernel_sweep.py (4096 random quads,
+   8192 tiles) and, re-ordered, against K6 on the bench frame; the staged
+   half-grid functions against K6; each kernel timed and bounded. Then the
+   staged mesh (``meshgen.generate_mesh_grid``) against the fused mesh
+   kernel on the same tiles.
+6. Main paths: a synthetic 8k^2 planar dataset; a synthetic six-side
+   planet, fused (the Taylor path) and then staged (``add_view(...,
+   high_precision=False)``: ``generate_mesh_grid``, K6 once per frame and no
+   mesh kernel), the two stages timed in turns; the 8k^2 dataset with an
+   Rgba8 albedo lit by a StandardMaterial (then opaque, the staged unlit
+   albedo, the albedo in the mesh kernel through
+   ``meshgen.generate_mesh_fused``, one attachment grid, and an albedo with
+   border 1, whose plan is not the height's: the staged sampler, no sampler
+   kernel); a terrain of 32^2 height tiles, too small for the patch plan
+   (the per-vertex path: no kernel at all); and ``kernels.fetch_resample``
+   called as the sweep tool calls it. Each is streamed through
+   ``Terrain(config).update`` on the card until quiescent; every frame must
+   go through its kernels (launch counts, set to 0 just before each path
+   and read just after), the output must be finite, in range and match the
+   plain version; a torch.profiler pass breaks each device stage's time
+   down by kernel.
 
 Exits non-zero (and prints no result line) when there is no CUDA card or
 any check fails. The last line of stdout is the JSON result.
@@ -41,6 +55,7 @@ any check fails. The last line of stdout is the JSON result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -67,6 +82,10 @@ KERNELS = [
      "bevy_terrain_tpu/ops/pallas_kernels.py:1552"),
     ("attach_sample_fused_packed", "cuda", "bevy_terrain_tpu_torch/csrc/attach_sample.cu",
      "bevy_terrain_tpu/ops/pallas_kernels.py:1608"),
+    ("fetch_resample_cached", "cuda", "bevy_terrain_tpu_torch/csrc/fetch_resample.cu",
+     "bevy_terrain_tpu/ops/pallas_kernels.py:230"),
+    ("fetch_resample", "cuda", "bevy_terrain_tpu_torch/csrc/fetch_resample.cu",
+     "bevy_terrain_tpu/ops/pallas_kernels.py:1296"),
 ]
 # kernel vs plain version: both f32, differing in summation order and libm
 # ulps; positions reach 8 km, where one f32 ulp is ~0.5 mm
@@ -93,6 +112,17 @@ TOL_ALB_EXACT = 1e-5
 TOL_ALB_FAST = 2.0 / 255.0
 TOL_SHADED_EXACT = 1e-3
 TOL_SHADE_EXACT = 1e-4
+# half-grid kernels vs their plain versions, in raw texel units on values up
+# to 65535 (0.05 is 8e-7 of full scale): all sums f32 on both sides (the TPU
+# kernels ran their dots in bf16 passes), differing in summation order (the
+# plain versions' dense products against the kernels' sums over each row's
+# support) and, for K6, in the patch mean (an exact integer sum in the
+# kernel, a float mean in the plain version). The same bound holds K7,
+# re-ordered evens-first, to K6 (weights crossfaded against values blended)
+TOL_HALFGRID = 0.05
+# staged mesh vs fused mesh kernel on the same tiles: the JAX package's
+# fused-vs-staged yardsticks (tests/test_fused_mesh.py:95-97)
+TOL_STAGED_POS, TOL_STAGED_UV = 2e-2, 1e-6
 
 TEXTURE_SIZE, BORDER, LOD_COUNT, SIDE = 512, 2, 5, 8000.0
 VIEW = (SIDE * 0.03, 120.0, -SIDE * 0.02)
@@ -133,6 +163,15 @@ OPS_ALB_VERTEX = 29
 OPS_ATTACH_VERTEX = 22
 OPS_SHADE_VERTEX = 60
 OPS_SHADE_LIGHT = {"dir": 110, "point": 135, "spot": 145}
+# half-grid kernels, counted from csrc/fetch_resample.cu the same way. K6 per
+# live tile: the 33x33 tent resample (40 each), the two blend passes (a
+# 1-2-1 tap and the crossfade, 8 each), the mean back and x valid (2). K7
+# per tile: 2 x 33 x 64 crossfaded weights (three clipped tents, their 1-2-1
+# form and the crossfade: 32 each), then a multiply and an add per texel of
+# each weight row's support in the two contractions (counted from this
+# run's geometry: k7_support), x valid
+OPS_K6_TILE = 33 * 33 * (40 + 8 + 8 + 2)
+OPS_K7_WEIGHTS = 2 * 33 * 64 * 32
 
 
 def card_line() -> str:
@@ -695,6 +734,200 @@ def material_kernel_phase(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# -- half-grid kernel phase ------------------------------------------------------
+
+
+def sweep_inputs():
+    """The inputs of tools/fetch_kernel_sweep.py (lines 28-45), on the card:
+    4096 random quads of 8x8-block mip runs, 8192 tiles at random patch
+    positions with steps 0.5-1 and blend ratios 0-1, ``default_rng(0)``.
+    Returns (block_array, ids (F, 4), geom (F, 8))."""
+    import numpy as np
+    import torch
+
+    from bevy_terrain_tpu_torch.ops import patch_sampling
+
+    rng = np.random.default_rng(0)
+    N, F, g = 4096, 8192, 8
+    blocks = patch_sampling.quad_rows(
+        rng.integers(0, 30000, size=(N, 32, 32)).astype(np.int32), g)
+    tl = rng.integers(0, N - g - 2, size=(F,)).astype(np.int32)
+    ids = np.stack([tl, tl + 1, tl + g, tl + g + 1], axis=-1).astype(np.int32)
+    geom = np.concatenate([
+        rng.uniform(0, 30, size=(F, 2)).astype(np.float32),
+        rng.uniform(0.5, 1.0, size=(F, 1)).astype(np.float32),
+        np.ones((F, 1), np.float32),
+        rng.uniform(0.0, 1.0, size=(F, 1)).astype(np.float32),
+        np.zeros((F, 3), np.float32),
+    ], axis=1)
+    return tuple(torch.from_numpy(a).cuda() for a in (blocks, ids, geom))
+
+
+def k7_support(geom):
+    """The texels under the 33 crossfaded weight rows of each axis, summed
+    over rows and tiles: (x, y). Row k's support spans the texels under the
+    tent centres of rows k - 1 .. k + 1 (csrc/fetch_resample.cu, lo / hi)."""
+    import torch
+
+    k = torch.arange(33, dtype=torch.float32, device=geom.device)
+    dp = geom[:, 2:3]
+
+    def axis(p0):
+        pa = (p0[:, None] + (k - 1.0).clamp(min=0.0) * dp).clamp(0.0, 63.0)
+        pb = (p0[:, None] + (k + 1.0).clamp(max=32.0) * dp).clamp(0.0, 63.0)
+        lo = torch.minimum(pa, pb).floor()
+        hi = (torch.maximum(pa, pb).floor() + 1.0).clamp(max=63.0)
+        return float((hi - lo + 1.0).sum())
+
+    return axis(geom[:, 0]), axis(geom[:, 1])
+
+
+def hold(err: float, tol: float, what: str) -> float:
+    if not err <= tol:
+        raise AssertionError(f"{what}: {err} > {tol}")
+    return err
+
+
+def halfgrid_kernel_phase(results: dict) -> None:
+    """K6 and K7 against their plain versions and against each other, and
+    the staged mesh against the fused mesh kernel, at the bench.py frame
+    (its random height blocks); K7 also on the sweep tool's inputs."""
+    import numpy as np
+    import torch
+
+    from bevy_terrain_tpu_torch.ops import kernels, meshgen, refinement
+    from bevy_terrain_tpu_torch.ops import patch_sampling as ps
+    from bevy_terrain_tpu_torch.ops.params import unpack_frame_uniforms
+
+    cfg, vc, blob, plan, rng = bench_frame()
+    n_blocks = 1024 * plan.total_blocks_per_slot
+    blocks = torch.from_numpy(
+        rng.integers(0, 65535, (n_blocks, 32, 128)).astype(np.int32)).cuda()
+    u = unpack_frame_uniforms(torch.from_numpy(blob).cuda(), 1, LOD_COUNT, vc.tree_size)
+    refined = refinement.refine_tiles(u, cfg)
+    k6, k6_plain = kernels.fetch_resample_cached, kernels.fetch_resample_cached_reference
+    k7, k7_plain = kernels.fetch_resample, kernels.fetch_resample_reference
+    err6 = err7 = 0.0
+    for per_vertex in (False, True):
+        what = "blend per vertex" if per_vertex else "tile-centre ratio"
+        tiles, batch = ps.plan_patch_batch(
+            refined, u, dataclasses.replace(cfg, blend_per_vertex=per_vertex), plan, n_blocks)
+        n, n_unique, Fp = int(tiles.tile_count), int(batch.n_unique), batch.ids.shape[0]
+        geom = batch.geom
+        args = (blocks, batch.ids, geom, tiles.tile_count.reshape(1).to(torch.int32))
+        got = k6(*args)
+        torch.cuda.synchronize()
+        err = float((got - k6_plain(*args)).abs().max())
+        ratio_max = float(geom[:n, 4].max())
+        if (ratio_max > 0.0) == per_vertex:
+            raise AssertionError(f"{what}: the plan's ratio column reaches {ratio_max}")
+        invalid = geom[:n, 3] == 0.0
+        if got[n:].any() or got[:n][invalid].any() or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: dead or invalid tiles are not zero, or not finite")
+        # K7 on the same plan, re-ordered evens-first, is K6 (K7 knows no
+        # tile_count: dead rows have valid = 0 in a plan)
+        ids4 = batch.ids[:, None].expand(-1, 4).contiguous()
+        both = float((ps.permute_halfgrid(k7(blocks, ids4, geom)) - got).abs().max())
+        # the staged functions (the half-grid of another grid size), at this one
+        valid = geom[:, 3].view(-1, 1, 1)
+        staged = ps.permute_halfgrid(ps.halfgrid_resample(
+            ps.fetch_patches(blocks, batch.ids[:, None]), geom[:, 0:2], geom[:, 2], cfg,
+            ratio=geom[:, 4]) * valid)
+        staged[n:] = 0.0
+        fallback = float((staged - got).abs().max())
+        print(f"fetch_resample_cached ({what}): {n} tiles of {Fp}, {n_unique} unique quads, "
+              f"{int(invalid.sum())} without data, ratio up to {ratio_max:.3f}, values up to "
+              f"{float(got.max()):.0f}; max |kernel - plain| {err:.3e}, |permute(K7) - K6| "
+              f"{both:.3e}, |staged functions - K6| {fallback:.3e} raw texel units (tol "
+              f"{TOL_HALFGRID})")
+        err6 = max(err6, hold(err, TOL_HALFGRID, f"K6 vs plain ({what})"))
+        err7 = max(err7, hold(both, TOL_HALFGRID, f"permute(K7) vs K6 ({what})"))
+        hold(fallback, TOL_HALFGRID, f"staged half-grid functions vs K6 ({what})")
+        if not per_vertex:  # the staged pipeline's default blend
+            ms, flushed = device_ms(lambda: k6(*args)), cold_ms(lambda: k6(*args))
+            plain_ms = device_ms(lambda: k6_plain(*args))
+            print(f"fetch_resample_cached: {ms:.4f} ms (device, L2 warm), {flushed:.4f} ms (L2 "
+                  f"flushed); plain PyTorch version {plain_ms:.4f} ms (device)")
+            nbytes = n_unique * QUAD_BYTES + tensor_bytes(*args[1:]) + Fp * 33 * 33 * 4
+            results["fetch_resample_cached"] = dict(
+                ms=ms, plain_ms=plain_ms, **bound(nbytes, n * OPS_K6_TILE), library_ms=None)
+        del got, staged
+    results["fetch_resample_cached"]["max_abs_err"] = err6
+
+    # the staged mesh against the fused mesh kernel on the same tiles (the
+    # kernel's blend is per vertex)
+    cfg_v = dataclasses.replace(cfg, blend_per_vertex=True)
+    mesh, stiles = meshgen.generate_mesh_grid(refined, blocks, u, cfg_v, plan, 65535.0)
+    raw, ftiles = meshgen.generate_mesh_fused(refined, blocks, u, cfg_v, plan, 65535.0)
+    fused = meshgen.fused_to_grid(raw, ftiles, cfg_v)
+    for field in ("tile_side", "tile_lod", "tile_xy", "tile_count"):
+        if not torch.equal(getattr(stiles, field), getattr(ftiles, field)):
+            raise AssertionError(f"staged and fused tile lists differ: {field}")
+    gaps = {f: float((getattr(mesh, f) - getattr(fused, f)).abs().max())
+            for f in ("heights", "positions", "uvs")}
+    print("staged mesh vs fused mesh kernel (bench frame, blend per vertex): max |staged - "
+          "fused| " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" (tol {TOL_STAGED_POS} m, uvs {TOL_STAGED_UV})")
+    hold(max(gaps["heights"], gaps["positions"]), TOL_STAGED_POS, "staged vs fused mesh")
+    hold(gaps["uvs"], TOL_STAGED_UV, "staged vs fused uvs")
+    del blocks, mesh, raw, fused
+    torch.cuda.empty_cache()
+
+    # K7 on the sweep tool's inputs
+    sblocks, sids, sgeom = sweep_inputs()
+    got = k7(sblocks, sids, sgeom)
+    torch.cuda.synchronize()
+    err = float((got - k7_plain(sblocks, sids, sgeom)).abs().max())
+    n_unique = int(torch.unique(sids[:, 0]).numel())
+    print(f"fetch_resample (sweep inputs): {sids.shape[0]} tiles, {n_unique} unique quads of "
+          f"{sblocks.shape[0]}, values up to {float(got.max()):.0f}; max |kernel - plain| "
+          f"{err:.3e} raw texel units (tol {TOL_HALFGRID})")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("fetch_resample: not finite")
+    err7 = max(err7, hold(err, TOL_HALFGRID, "K7 vs plain (sweep inputs)"))
+    ms, flushed = device_ms(lambda: k7(sblocks, sids, sgeom)), cold_ms(
+        lambda: k7(sblocks, sids, sgeom))
+    plain_ms = device_ms(lambda: k7_plain(sblocks, sids, sgeom), n=5)
+    print(f"fetch_resample: {ms:.4f} ms (device, L2 warm), {flushed:.4f} ms (L2 flushed); "
+          f"plain PyTorch version {plain_ms:.4f} ms (device)")
+    F = sids.shape[0]
+    sx, sy = k7_support(sgeom)
+    nbytes = n_unique * QUAD_BYTES + tensor_bytes(sids, sgeom) + F * 33 * 33 * 4
+    ops = F * (OPS_K7_WEIGHTS + 33 * 33) + 2 * (64 * sy + 33 * sx)
+    results["fetch_resample"] = dict(max_abs_err=err7, ms=ms, plain_ms=plain_ms,
+                                     **bound(nbytes, ops), library_ms=None)
+    del sblocks, got
+    torch.cuda.empty_cache()
+
+
+def sweep_path() -> int:
+    """``kernels.fetch_resample`` as its one caller drives it, the sweep tool
+    of the JAX package (tools/fetch_kernel_sweep.py): one call for all 8192
+    tiles, a few times. Returns the launches."""
+    import torch
+
+    from bevy_terrain_tpu_torch.ops import kernels
+
+    blocks, ids, geom = sweep_inputs()
+    reset_counts()
+    calls = 5
+    for _ in range(calls):
+        out = kernels.fetch_resample(blocks, ids, geom)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"sweep path: {calls} calls of fetch_resample on {ids.shape[0]} tiles, launches "
+          f"{counts}; values in [{float(out.min()):.1f}, {float(out.max()):.1f}]")
+    if counts["fetch_resample"] != calls or any(
+            v for k, v in counts.items() if k != "fetch_resample"):
+        raise AssertionError("the sweep did not launch fetch_resample once per call, and "
+                             "nothing else")
+    # a crossfaded tent resample is a convex mix of the quad's texels
+    if not (bool(torch.isfinite(out).all()) and 0.0 <= float(out.min())
+            and float(out.max()) <= 30000.0 and float(out.std()) > 1000.0):
+        raise AssertionError("the sweep's half-grids are not finite texel mixes")
+    return counts["fetch_resample"]
+
+
 # -- main paths ----------------------------------------------------------------
 
 
@@ -711,11 +944,12 @@ def read_counts() -> dict:
     return {name: getattr(kernels, name).launches for name, *_ in KERNELS}
 
 
-def stream(terrain, view, view_proj, kernel_name: str, what: str, absent=()):
-    """Stream ``terrain`` to quiescence, then 30 timed frames. The launch
-    counts are set to 0 just before and read just after; every frame must
-    have launched ``kernel_name``, and none the kernels in ``absent``.
-    Returns (last output, launches, update walls in s)."""
+def stream(terrain, view, view_proj, kernel_name, what: str, absent=(), timed: int = 30):
+    """Stream ``terrain`` to quiescence, then ``timed`` timed frames. The
+    launch counts are set to 0 just before and read just after; every frame
+    must have launched ``kernel_name`` (None: no kernel at all), and none
+    the kernels in ``absent``. Returns (last output, frames, update walls in
+    s)."""
     import torch
 
     reset_counts()
@@ -731,7 +965,7 @@ def stream(terrain, view, view_proj, kernel_name: str, what: str, absent=()):
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     walls = []
-    for _ in range(30):
+    for _ in range(timed):
         t0 = time.perf_counter()
         out = terrain.update({"cam": view}, {"cam": view_proj})["cam"]
         torch.cuda.synchronize()
@@ -740,10 +974,14 @@ def stream(terrain, view, view_proj, kernel_name: str, what: str, absent=()):
     counts = read_counts()
     print(f"{what}: streamed to quiescence in {stream_s:.1f} s; {frames} frames, "
           f"launches {counts}")
-    if counts[kernel_name] != frames or any(counts[k] for k in absent):
+    if kernel_name is None:
+        absent = tuple(counts)
+    elif counts[kernel_name] != frames:
         raise AssertionError(f"{kernel_name} launched {counts[kernel_name]} times in "
-                             f"{frames} frames ({', '.join(absent)} must not launch)")
-    return out, counts[kernel_name], walls
+                             f"{frames} frames")
+    if any(counts[k] for k in absent):
+        raise AssertionError(f"{what}: {', '.join(absent)} must not launch")
+    return out, frames, walls
 
 
 def stage_timing(terrain, what: str, n: int, hmin: float, hmax: float, walls) -> None:
@@ -818,10 +1056,32 @@ def main_path_phase() -> int:
         return launches
 
 
-def sphere_main_path_phase() -> int:
+def check_sphere_mesh(mesh, n: int, model, what: str):
+    """Finite output, heights in the model's range, unit normals. Returns
+    the height range."""
+    import torch
+
+    for field in ("heights", "positions", "uvs", "normals"):
+        if not bool(torch.isfinite(getattr(mesh, field)[:n]).all()):
+            raise AssertionError(f"{what}: non-finite {field}")
+    h = mesh.heights[:n]
+    hmin, hmax = float(h.min()), float(h.max())
+    if not (model.min_height <= hmin and hmax <= model.max_height):
+        raise AssertionError(f"{what}: heights [{hmin}, {hmax}] outside the model's range")
+    norm = torch.linalg.vector_norm(mesh.normals[:n].double(), dim=-1)
+    unit_err = float((norm - 1.0).abs().max())
+    if unit_err > TOL_UNIT:
+        raise AssertionError(f"{what}: normals off unit length by {unit_err}")
+    return hmin, hmax
+
+
+def sphere_main_path_phase() -> dict:
     """A synthetic six-side planet (3 data lods of 512^2 R16 tiles) streamed
     through ``Terrain(config)`` (the card by default) under the Earth
-    scene's camera."""
+    scene's camera: with the Taylor path (the fused spherical kernel), then
+    with ``high_precision=False`` (the staged mesh, ``generate_mesh_grid``:
+    the half-grid kernel once per frame and no mesh kernel). Returns the
+    launches of each path's kernel."""
     import torch
 
     from bevy_terrain_tpu_torch import Terrain
@@ -841,33 +1101,82 @@ def sphere_main_path_phase() -> int:
               f"0-{SPH_DATA_LODS - 1}) in {time.perf_counter() - t0:.1f} s")
         config = TerrainConfig(lod_count=SPH_LODS, model=model, atlas_size=SPH_ATLAS,
                                path="smoke_sphere", attachments=(att,), assets_root=tmp)
-        terrain = Terrain(config)
-        if terrain.device.type != "cuda":
-            raise AssertionError(f"Terrain(config) runs on {terrain.device}, not the card")
-        terrain.add_view("cam", TerrainViewConfig(tile_capacity=SPH_CAPACITY),
-                         queue_capacity=2048, culling=True)
-        out, launches, walls = stream(terrain, view, view_proj, "mesh_fused_spherical", what)
 
+        def planet(**view_kw):
+            terrain = Terrain(config)
+            if terrain.device.type != "cuda":
+                raise AssertionError(f"Terrain(config) runs on {terrain.device}, not the card")
+            terrain.add_view("cam", TerrainViewConfig(tile_capacity=SPH_CAPACITY),
+                             queue_capacity=2048, culling=True, **view_kw)
+            return terrain
+
+        terrain = planet()
+        out, launches, walls = stream(terrain, view, view_proj, "mesh_fused_spherical", what,
+                                      absent=("fetch_resample_cached",))
         n = out.tile_count
         if n <= 100 or out.overflow != 0:
             raise AssertionError(f"{what} frame: tile_count {n}, overflow {out.overflow}")
-        mesh = out.mesh
-        for field in ("heights", "positions", "uvs", "normals"):
-            if not bool(torch.isfinite(getattr(mesh, field)[:n]).all()):
-                raise AssertionError(f"{what}: non-finite {field}")
-        h = mesh.heights[:n]
-        hmin, hmax = float(h.min()), float(h.max())
-        if not (model.min_height <= hmin and hmax <= model.max_height):
-            raise AssertionError(f"{what}: heights [{hmin}, {hmax}] outside the model's range")
-        norm = torch.linalg.vector_norm(mesh.normals[:n].double(), dim=-1)
-        unit_err = float((norm - 1.0).abs().max())
-        if unit_err > TOL_UNIT:
-            raise AssertionError(f"{what}: normals off unit length by {unit_err}")
+        hmin, hmax = check_sphere_mesh(out.mesh, n, model, what)
         compare_spherical(out.raw_mesh,
                           kernels.mesh_fused_spherical_reference(*out.mesh_inputs),
                           f"{what} last frame")
         stage_timing(terrain, what, n, hmin, hmax, walls)
-        return launches
+
+        # the staged path: the same planet without the Taylor path
+        swhat = "staged main path"
+        staged = planet(high_precision=False)
+        mesh_kernels = tuple(k for k, *_ in KERNELS if k.startswith("mesh_fused"))
+        sout, staged_launches, swalls = stream(staged, view, view_proj,
+                                               "fetch_resample_cached", swhat,
+                                               absent=mesh_kernels)
+        sn = sout.tile_count
+        if sn <= 100 or sout.overflow != 0 or sout.raw_mesh is not None:
+            raise AssertionError(f"{swhat} frame: tile_count {sn}, overflow {sout.overflow}, "
+                                 f"or a raw tensor on the staged path")
+        shmin, shmax = check_sphere_mesh(sout.mesh, sn, model, swhat)
+
+        def staged_step():
+            cfg, height = staged._static_cfgs["cam"], staged.atlas.attachments[0]
+            return staged.frame_step(height.block_array, staged._last_blobs["cam"], cfg,
+                                     height.patch_plan, height.config.format.max_value)
+
+        # the same stage with the half-grid from K6's plain version
+        wrapper = kernels.fetch_resample_cached
+        kernels.fetch_resample_cached = kernels.fetch_resample_cached_reference
+        try:
+            _, plain, _, _ = staged_step()
+        finally:
+            kernels.fetch_resample_cached = wrapper
+        errs = {f: float((getattr(sout.mesh, f) - getattr(plain, f)).abs().max())
+                for f in ("heights", "positions", "uvs", "normals")}
+        tols = {"heights": TOL_SPH_H, "positions": TOL_SPH_POS, "uvs": TOL_SPH_UV,
+                "normals": TOL_SPH_N}
+        print(f"{swhat} last frame: max |kernel - plain| " + ", ".join(
+            f"{k} {v:.3e} (tol {tols[k]:.0e})" for k, v in errs.items()))
+        for f in errs:
+            hold(errs[f], tols[f], f"{swhat}: {f} with K6 against its plain version")
+        # the two paths on the same planet, tile by tile where the lists agree
+        same = (sn == n and all(torch.equal(getattr(sout.tiles, f)[:n], getattr(out.tiles, f)[:n])
+                                for f in ("tile_side", "tile_lod", "tile_xy")))
+        if same:
+            gap = {f: float((getattr(sout.mesh, f)[:n] - getattr(out.mesh, f)[:n]).abs().max())
+                   for f in ("heights", "positions", "uvs", "normals")}
+            print(f"{swhat} vs sphere main path (same {n} tiles): max |staged - fused| "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in gap.items()))
+        else:
+            print(f"{swhat}: {sn} tiles against the fused path's {n}; lists differ, meshes "
+                  f"not compared")
+        stage_timing(staged, swhat, sn, shmin, shmax, swalls)
+
+        def fused_step():
+            cfg, height = terrain._static_cfgs["cam"], terrain.atlas.attachments[0]
+            return terrain.frame_step(height.block_array, terrain._last_blobs["cam"], cfg,
+                                      height.patch_plan, height.config.format.max_value)
+
+        turns = [cuda_ms(f, n=10) for f in (fused_step, staged_step, staged_step, fused_step)]
+        print(f"{swhat}: stage span in turns, fused / staged / staged / fused: "
+              + " / ".join(f"{t:.4f}" for t in turns) + " ms")
+        return {"mesh_fused_spherical": launches, "fetch_resample_cached": staged_launches}
 
 
 def material_main_path_phase() -> dict:
@@ -1001,10 +1310,107 @@ def material_main_path_phase() -> dict:
             raise AssertionError("sample_attachment_grid did not launch attach_sample_fused")
         if not bool(torch.isfinite(heights).all()):
             raise AssertionError("height attachment grid is not finite")
+        # an albedo whose plan is not the height's (border 1 beside border
+        # 2, the layout of the JAX package's examples/planar.py): the staged
+        # sampler, no sampler kernel
+        fwhat = "fallback sampler path"
+        albedo1 = AttachmentConfig(name="albedo1", format=AttachmentFormat.RGBA8,
+                                   **{**kw, "border_size": 1})
+        generate_planar_dataset("smoke", LOD_COUNT, albedo1, root=tmp)
+        terrain1 = Terrain(dataclasses.replace(config, attachments=(atts[0], albedo1)))
+        terrain1.add_view("cam", TerrainViewConfig(tile_capacity=vc.tile_capacity),
+                          queue_capacity=1024, culling=True)
+        terrain1.set_shading(material.albedo_material(1), lighting=False,
+                             sample_attachments=(1,))
+        if terrain1.atlas.attachments[1].patch_plan == terrain1.atlas.attachments[0].patch_plan:
+            raise AssertionError(f"{fwhat}: the border-1 albedo has the height's patch plan")
+        out1, _, _ = stream(terrain1, view, view_proj, "mesh_fused_planar", fwhat,
+                            absent=tuple(k for k, *_ in KERNELS if k != "mesh_fused_planar"),
+                            timed=3)
+        c1 = out1.colors
+        grid1 = terrain1.sample_attachment_grid("cam", out1, 1)
+        mask1 = out1.mesh.tile_mask
+        own = float((c1[mask1] - grid1[mask1]).abs().max())
+
+        def by_key(o):
+            """(rows of the live tiles ordered by (lod, x, y), the sorted keys)."""
+            t, live = o.tiles, o.tile_count
+            key = ((t.tile_lod[:live].long() << 40) | (t.tile_xy[:live, 0].long() << 20)
+                   | t.tile_xy[:live, 1].long())
+            return torch.argsort(key), key.sort().values
+
+        (rows1, keys1), (rows2, keys2) = by_key(out1), by_key(out)
+        if not torch.equal(keys1, keys2):
+            raise AssertionError(f"{fwhat}: the tile set differs from the material path's")
+        # both albedos hold the same analytic colour field on texel grids
+        # half a texel apart: 8-bit steps (2/255) plus the bilinear error of
+        # the blue wave at the coarsest sampled mip (~6e-3 each)
+        gap = float((c1[:n][rows1] - out.colors[:n][rows2]).abs().max())
+        print(f"{fwhat}: {out1.tile_count} tiles, colours in [{float(c1[mask1].min()):.4f}, "
+              f"{float(c1[mask1].max()):.4f}]; vs sample_attachment_grid {own:.3e}; vs the "
+              f"border-2 albedo through attach_sample_fused_packed {gap:.3e} (tol 3e-2)")
+        if not (bool(torch.isfinite(c1).all()) and 0.0 <= float(c1.min())
+                and float(c1.max()) <= 1.0 + 1e-6 and own <= 1e-6 and gap <= 3e-2):
+            raise AssertionError(f"{fwhat}: colours out of range or off the sampled field")
+
         return {"mesh_fused_shaded": shaded_launches,
                 "mesh_fused_albedo": albedo_counts["mesh_fused_albedo"],
                 "attach_sample_fused_packed": staged["attach_sample_fused_packed"],
                 "attach_sample_fused": grid_counts["attach_sample_fused"]}
+
+
+def vertex_main_path_phase() -> None:
+    """The bench scene over 32^2 height tiles, too small for the patch plan:
+    ``Terrain(config).update`` takes the per-vertex path
+    (``meshgen.generate_mesh``, bilinear gathers from the mip-0 slab), which
+    has no hand-written kernel in either package: every launch count must
+    stay 0. The last frame is held to the same stage on the CPU."""
+    import torch
+
+    from bevy_terrain_tpu_torch import Terrain
+    from bevy_terrain_tpu_torch.config import AttachmentConfig, TerrainConfig, TerrainViewConfig
+    from bevy_terrain_tpu_torch.ops import meshgen
+    from bevy_terrain_tpu_torch.utils.synthetic import generate_planar_dataset
+
+    model, vc, view, view_proj = bench_scene()
+    att = AttachmentConfig(name="height", texture_size=32, border_size=1, mip_level_count=2)
+    what = "per-vertex path"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vertex_") as tmp:
+        generate_planar_dataset("smoke_small", LOD_COUNT, att, root=tmp)
+        config = TerrainConfig(lod_count=LOD_COUNT, model=model, atlas_size=1024,
+                               path="smoke_small", attachments=(att,), assets_root=tmp)
+        terrain = Terrain(config)
+        if terrain.device.type != "cuda" or terrain.use_grid_mesh:
+            raise AssertionError(f"{what}: on {terrain.device}, grid mesh "
+                                 f"{terrain.use_grid_mesh}")
+        terrain.add_view("cam", TerrainViewConfig(tile_capacity=vc.tile_capacity),
+                         queue_capacity=1024, culling=True)
+        out, frames, walls = stream(terrain, view, view_proj, None, what, timed=5)
+        n, mesh = out.tile_count, out.mesh
+        if n <= 0 or out.overflow != 0 or not isinstance(mesh, meshgen.MeshOutput):
+            raise AssertionError(f"{what} frame: tile_count {n}, overflow {out.overflow}")
+        for field in ("heights", "positions", "uvs", "normals"):
+            if not bool(torch.isfinite(getattr(mesh, field)).all()):
+                raise AssertionError(f"{what}: non-finite {field}")
+        h = mesh.heights[:n]
+        hmin, hmax = float(h.min()), float(h.max())
+        if not (model.min_height <= hmin and hmax <= model.max_height and hmax - hmin > 10.0):
+            raise AssertionError(f"{what}: heights [{hmin}, {hmax}]")
+        cfg, height = terrain._static_cfgs["cam"], terrain.atlas.attachments[0]
+        ctiles, cmesh = terrain.frame_step_vertex(
+            height.slabs[0].cpu(), terrain._last_blobs["cam"].cpu(), cfg, height.config.scale,
+            height.config.offset)
+        for field in ("tile_side", "tile_lod", "tile_xy", "tile_count"):
+            if not torch.equal(getattr(out.tiles, field).cpu(), getattr(ctiles, field)):
+                raise AssertionError(f"{what}: the card's tile list differs from the CPU's")
+        errs = {f: float((getattr(mesh, f).cpu() - getattr(cmesh, f)).abs().max())
+                for f in ("heights", "positions", "uvs")}
+        print(f"{what}: {frames} frames, no kernel launched; {n} tiles of "
+              f"{cfg.vertices_per_tile} strip vertices, heights [{hmin:.2f}, {hmax:.2f}] m; "
+              f"update {statistics.median(walls) * 1e3:.3f} ms median wall; max |card - CPU| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        hold(max(errs["heights"], errs["positions"]), TOL_POS, f"{what}: card vs CPU")
+        hold(errs["uvs"], TOL_UV, f"{what}: card vs CPU uvs")
 
 
 def profile_stage(device_stage, what: str) -> None:
@@ -1025,13 +1431,14 @@ def profile_stage(device_stage, what: str) -> None:
     print(f"profile ({what}): {total / 10 / 1e3:.4f} ms device kernel time per stage, "
           f"{n_kernels / 10:.0f} device ops per stage")
     for i, e in enumerate(rows):
-        if getattr(e, "self_device_time_total", 0.0) > 0 and (i < 15 or "mesh_fused" in e.key):
+        if getattr(e, "self_device_time_total", 0.0) > 0 and (
+                i < 15 or "mesh_fused" in e.key or "fetch_resample" in e.key):
             print(f"profile:   {e.key[:60]:60s} {e.count // 10:4d}x "
                   f"{e.self_device_time_total / 10 / 1e3:.4f} ms")
 
 
 # ptxas names of the kernel instances: mesh_fused_kernel<SPHERICAL,
-# ELLIPSOIDAL, ALBEDO, SHADE> and the sampler
+# ELLIPSOIDAL, ALBEDO, SHADE>, the sampler and the half-grid kernels
 INSTANCES = {
     "mesh_fused_kernelILb0ELb0ELb0ELb0E": "mesh_fused_planar",
     "mesh_fused_kernelILb1ELb0ELb0ELb0E": "mesh_fused_spherical (sphere)",
@@ -1039,6 +1446,8 @@ INSTANCES = {
     "mesh_fused_kernelILb0ELb0ELb1ELb0E": "mesh_fused_albedo",
     "mesh_fused_kernelILb0ELb0ELb1ELb1E": "mesh_fused_shaded",
     "attach_sample_kernel": "attach_sample_fused[_packed]",
+    "fetch_resample_cached_kernel": "fetch_resample_cached",
+    "fetch_resample_kernel": "fetch_resample",
 }
 
 
@@ -1084,9 +1493,12 @@ def main() -> int:
     kernel_phase(results)
     sphere_kernel_phase(results)
     material_kernel_phase(results)
+    halfgrid_kernel_phase(results)
     counts = {"mesh_fused_planar": main_path_phase(),
-              "mesh_fused_spherical": sphere_main_path_phase(),
-              **material_main_path_phase()}
+              **sphere_main_path_phase(),
+              **material_main_path_phase(),
+              "fetch_resample": sweep_path()}
+    vertex_main_path_phase()
 
     print(json.dumps({"kernels": [
         {"name": k, "route": route, "source": src, "replaces": rep,

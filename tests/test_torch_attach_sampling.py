@@ -191,13 +191,21 @@ def test_sample_attachment_vertices_matches_jax(frame, fmt):
 
 
 def test_mismatched_plan_raises(frame):
-    """An attachment with another patch plan needs the per-tile fallback
-    sampler, which is not ported: it raises instead of sampling wrongly."""
-    with pytest.raises(NotImplementedError):
-        ps.sample_attachment_vertices(
-            [torch.from_numpy(frame["data"]["raw"])], frame["tiles"],
-            torch.from_numpy(frame["uv"]), frame["u"], frame["cfg"], frame["plan"], 65535.0,
-            plan_matches_frame=False)
+    """An attachment declared with another patch plan
+    (``plan_matches_frame=False``) used to raise; it now takes the staged
+    sampler (fetch_patches, halfgrid_resample, the 3x3 window). On the same
+    plan that is the sampler kernels' function: equal within :data:`TOL` of
+    full scale, raw and packed."""
+    tiles, n = frame["tiles"], int(frame["tiles"].tile_count)
+    uv = torch.from_numpy(frame["uv"])
+    for key, kw in (("raw", dict(max_value=65535.0)),
+                    ("rgba8", dict(max_value=255.0, packed_channels=4, packed_bits=8))):
+        blocks = [torch.from_numpy(frame["data"][key])]
+        staged, fused = (ps.sample_attachment_vertices(
+            blocks, tiles, uv, frame["u"], frame["cfg"], frame["plan"],
+            plan_matches_frame=match, **kw) for match in (False, True))
+        assert staged.shape == fused.shape
+        np.testing.assert_allclose(staged[:n].numpy(), fused[:n].numpy(), rtol=0, atol=TOL)
 
 
 def test_dead_tiles_are_zero(frame):

@@ -8,6 +8,8 @@ conftest (which configures jax):
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -265,3 +267,68 @@ def test_attach_kernel_matches_plain_version(channels, bits):
     full = 65535.0 if bits in (0, 16) else 255.0
     assert float((got - want).abs().max()) <= TOL_EXACT * full
     assert not got[int(tiles.tile_count):].any()
+
+
+# -- half-grid kernels (K6 fetch_resample_cached, K7 fetch_resample) vs their
+# plain versions, in raw texel units on values up to 65535: f32 sums on both
+# sides, differing in summation order and, for K6, in the patch mean (an exact
+# integer sum in the kernel)
+TOL_HALFGRID = 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio", [None, 0.0, 1.0], ids=["planned", "ratio0", "ratio1"])
+def test_halfgrid_kernels_match_plain_versions(ratio):
+    dev = _card()
+    blob, blocks, cfg, plan = _scene(256)
+    cfg = dataclasses.replace(cfg, blend_per_vertex=False)  # the plan carries the ratio
+    u = unpack_frame_uniforms(torch.from_numpy(blob).to(dev), 1, LODS, 8)
+    tiles, batch = patch_sampling.plan_patch_batch(refinement.refine_tiles(u, cfg), u, cfg, plan,
+                                                   blocks.shape[0])
+    geom = batch.geom.clone()
+    if ratio is not None:
+        geom[:, 4] = ratio
+    quads = torch.from_numpy(blocks).to(dev)
+    count = tiles.tile_count.reshape(1).to(torch.int32)
+    n = int(count)
+    before = kernels.fetch_resample_cached.launches, kernels.fetch_resample.launches
+    k6 = kernels.fetch_resample_cached(quads, batch.ids, geom, count)
+    ids4 = batch.ids[:, None].expand(-1, 4).contiguous()
+    k7 = kernels.fetch_resample(quads, ids4, geom)
+    torch.cuda.synchronize()
+    assert (kernels.fetch_resample_cached.launches, kernels.fetch_resample.launches) == (
+        before[0] + 1, before[1] + 1)
+    want6 = kernels.fetch_resample_cached_reference(quads, batch.ids, geom, count)
+    want7 = kernels.fetch_resample_reference(quads, ids4, geom)
+    assert float((k6 - want6).abs().max()) <= TOL_HALFGRID
+    assert float((k7 - want7).abs().max()) <= TOL_HALFGRID
+    assert float(k6.abs().max()) > 30000.0 and not k6[n:].any()
+    # K7 re-ordered evens-first is K6 on the live tiles (K7 knows no tile_count)
+    both = patch_sampling.permute_halfgrid(k7)[:n] - k6[:n]
+    assert float(both.abs().max()) <= TOL_HALFGRID
+    # a shorter tile_count zeroes the tail, whatever the tiles' valid flags
+    cut = kernels.fetch_resample_cached(quads, batch.ids, geom,
+                                        torch.tensor([5], dtype=torch.int32, device=dev))
+    assert torch.equal(cut[:5], k6[:5]) and not cut[5:].any()
+
+
+@pytest.mark.cuda
+def test_staged_mesh_launches_the_halfgrid_kernel():
+    """generate_mesh_grid on the card: K6 once, no mesh kernel, and the mesh
+    within the fused-vs-staged yardsticks of the fused kernel's."""
+    dev = _card()
+    blob, blocks, cfg, plan = _scene(256)
+    cfg = dataclasses.replace(cfg, blend_per_vertex=True)
+    u = unpack_frame_uniforms(torch.from_numpy(blob).to(dev), 1, LODS, 8)
+    refined = refinement.refine_tiles(u, cfg)
+    quads = torch.from_numpy(blocks).to(dev)
+    before = kernels.fetch_resample_cached.launches, kernels.mesh_fused_planar.launches
+    mesh, tiles = meshgen.generate_mesh_grid(refined, quads, u, cfg, plan, 65535.0)
+    assert (kernels.fetch_resample_cached.launches, kernels.mesh_fused_planar.launches) == (
+        before[0] + 1, before[1])
+    raw, ftiles = meshgen.generate_mesh_fused(refined, quads, u, cfg, plan, 65535.0)
+    fused = meshgen.fused_to_grid(raw, ftiles, cfg)
+    assert torch.equal(tiles.tile_xy, ftiles.tile_xy)
+    assert float((mesh.heights - fused.heights).abs().max()) <= 2e-2
+    assert float((mesh.positions - fused.positions).abs().max()) <= 2e-2
+    assert float((mesh.uvs - fused.uvs).abs().max()) <= 1e-6

@@ -33,8 +33,10 @@ FRAMES = {
 }
 
 
-def _blobs(name):
-    """The frame packed by each package from its own host modules."""
+def _blobs(name, fn="pack_frame_uniforms"):
+    """The frame packed by each package from its own host modules (or, with
+    ``fn="make_frame_uniforms"``, assembled into each package's
+    FrameUniforms): (JAX product, port product)."""
     (pos, side, hmin, hmax), view, target, height = FRAMES[name]
     view = np.asarray(view, np.float64)
     rng = np.random.default_rng(7)
@@ -42,9 +44,9 @@ def _blobs(name):
     out = []
     for Model, Approx, ViewConfig, anchors, fr, pack in (
         (JModel, JApprox, JViewConfig, jtile_tree.compute_view_anchors, jfrustum,
-         jparams.pack_frame_uniforms),
+         getattr(jparams, fn)),
         (TerrainModel, TerrainModelApproximation, TerrainViewConfig,
-         tile_tree.compute_view_anchors, frustum, params.pack_frame_uniforms),
+         tile_tree.compute_view_anchors, frustum, getattr(params, fn)),
     ):
         model = Model.planar(pos, side, hmin, hmax)
         vc = ViewConfig(tile_capacity=512)
@@ -74,11 +76,7 @@ def _flat_fields(u, prefix=""):
             yield prefix + f.name, v
 
 
-@pytest.mark.parametrize("name", sorted(FRAMES))
-def test_unpack_fields_exact(name):
-    _, blob = _blobs(name)
-    ju = jparams.unpack_frame_uniforms(jnp.asarray(blob), 1, LODS, 8)
-    tu = params.unpack_frame_uniforms(torch.from_numpy(blob), 1, LODS, 8)
+def _assert_fields_exact(ju, tu):
     jf, tf = dict(_flat_fields(ju)), dict(_flat_fields(tu))
     assert jf.keys() == tf.keys()
     for key, jv in jf.items():
@@ -87,6 +85,20 @@ def test_unpack_fields_exact(name):
         assert tv.dtype == jv.dtype, (key, tv.dtype, jv.dtype)
         assert tv.shape == jv.shape, (key, tv.shape, jv.shape)
         np.testing.assert_array_equal(tv, jv, err_msg=key)
+
+
+@pytest.mark.parametrize("name", sorted(FRAMES))
+def test_unpack_fields_exact(name):
+    _, blob = _blobs(name)
+    _assert_fields_exact(jparams.unpack_frame_uniforms(jnp.asarray(blob), 1, LODS, 8),
+                         params.unpack_frame_uniforms(torch.from_numpy(blob), 1, LODS, 8))
+
+
+@pytest.mark.parametrize("name", sorted(FRAMES))
+def test_make_frame_uniforms_fields_exact(name):
+    """The one-call assembly (the per-vertex path's in the JAX pipeline)
+    gives the JAX function's fields exactly."""
+    _assert_fields_exact(*_blobs(name, "make_frame_uniforms"))
 
 
 def test_unpack_rejects_non_int32():

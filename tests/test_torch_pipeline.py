@@ -35,6 +35,8 @@ from bevy_terrain_tpu_torch.config import (
     AttachmentConfig, AttachmentFormat, TerrainConfig, TerrainViewConfig,
 )
 from bevy_terrain_tpu_torch.math import TerrainModel
+from bevy_terrain_tpu_torch.ops import meshgen
+from bevy_terrain_tpu_torch.ops.params import unpack_frame_uniforms
 from bevy_terrain_tpu_torch.render.material import StandardMaterial, albedo_material
 from bevy_terrain_tpu_torch.render.pipeline import Terrain
 from bevy_terrain_tpu_torch.utils.synthetic import generate_planar_dataset
@@ -196,29 +198,44 @@ def test_interop_carries_jax_atlas(dataset, port_frame, jax_terrain):
 
 @pytest.mark.parametrize("case", ["spherical", "grid_size", "small_attachment", "shading"])
 def test_unported_configurations_raise(tmp_path, case):
-    """Configurations outside the ported slice raise NotImplementedError
-    instead of silently taking another path. A sphere is ported with the
-    Taylor high-precision path only (the JAX fused kernel's own rule); a
-    sampled attachment must share the height attachment's patch plan (a
-    border-1 albedo beside the border-2 height needs the per-tile fallback
-    sampler, not ported)."""
+    """What lies outside the ported slices raises NotImplementedError instead
+    of silently taking another path: the fused albedo on a sphere (the
+    spherical kernel's albedo variant), the fused kernel at another grid
+    size (the pipeline sends such a view through the staged path), a sampled
+    attachment too small for the patch plan, and the multi-tap gradient
+    sampler."""
     atts = (AttachmentConfig(**ATT),)
     model = TerrainModel.planar(np.zeros(3), 1000.0, 0.0, 100.0)
     if case == "spherical":
         model = TerrainModel.sphere(np.zeros(3), 6.4e6, 0.0, 9000.0)
     if case == "small_attachment":
-        atts = (AttachmentConfig(name="height", texture_size=32, border_size=1),)
+        atts += (AttachmentConfig(name="albedo", texture_size=32, border_size=1,
+                                  format=AttachmentFormat.RGBA8),)
     if case == "shading":
         atts += (AttachmentConfig(name="albedo", texture_size=512, border_size=1,
                                   mip_level_count=4, format=AttachmentFormat.RGBA8),)
     config = TerrainConfig(model=model, attachments=atts, assets_root=str(tmp_path),
                            **{**TERRAIN, "atlas_size": 4})
+    terrain = Terrain(config, device="cpu")
+    terrain.add_view("cam", TerrainViewConfig(grid_size=8 if case == "grid_size" else 16,
+                                              tile_capacity=64), queue_capacity=256)
+    cfg = terrain._static_cfgs["cam"]
+    height = terrain.atlas.attachments[0]
     with pytest.raises(NotImplementedError):
-        terrain = Terrain(config, device="cpu")
-        if case == "spherical":
-            terrain.add_view("cam", TerrainViewConfig(), high_precision=False)
-        elif case == "grid_size":
-            terrain.add_view("cam", TerrainViewConfig(grid_size=8))
-        elif case == "shading":
+        if case in ("spherical", "grid_size"):
+            out = terrain.update({"cam": VIEW * (1e5 if case == "spherical" else 1.0)})["cam"]
+            assert (out.raw_mesh is None) == (case == "grid_size")
+            meshgen.fused_kernel_args(
+                out.tiles, height.block_array,
+                unpack_frame_uniforms(terrain._last_blobs["cam"], cfg.side_count,
+                                      cfg.lod_count, cfg.tree_size),
+                cfg, height.patch_plan, 65535.0, albedo_blocks=height.block_array,
+                albedo_channels=4 if case == "spherical" else 0, albedo_bits=8)
+        elif case == "small_attachment":
             terrain.set_shading(StandardMaterial(base_color=albedo_material(1)),
                                 sample_attachments=(1,))
+        else:
+            terrain.set_shading(StandardMaterial(base_color=albedo_material(1)),
+                                sample_attachments=(1,))
+            out = terrain.update({"cam": VIEW})["cam"]
+            terrain.sample_attachment_grid("cam", out, 1, grad_taps=4)
