@@ -10,13 +10,20 @@ imports jax).
 
 Ported so far: the planar and the spherical frame (host prologue, packed
 uniforms, refinement, patch plan and the fused mesh kernels,
-``csrc/mesh_fused.cu``), and the material frame: packed Rgba8 / Rg16
-attachments, ``render/material.py``, the attachment samplers
-(``csrc/attach_sample.cu``) and, for a planar StandardMaterial over a
-packed albedo with the height's patch plan, the albedo and PBR shade fused
-into the mesh kernel.
+``csrc/mesh_fused.cu``, with a packed albedo fused in on both); the
+material frame: packed Rgba8 / Rg16 attachments, ``render/material.py``,
+the attachment samplers (``csrc/attach_sample.cu``) and, for a planar
+StandardMaterial over a packed albedo with the height's patch plan, the
+albedo and PBR shade fused into the mesh kernel (a planet's material is
+staged: mesh kernel, sampler, ``material.shade``); the staged and
+per-vertex mesh paths (``csrc/fetch_resample.cu``); the device-side
+queries (``Terrain.query_heights`` / ``query_attachment``), the debug
+toggles with freeze, ``tune_view`` and adaptive capacity with its
+same-frame overflow guard. Every TPU kernel of the JAX package has its
+CUDA counterpart in ``ops/kernels.py``.
 """
 
+from bevy_terrain_tpu_torch.debug import DebugTerrain
 from bevy_terrain_tpu_torch.config import (
     AttachmentConfig,
     AttachmentFormat,
@@ -44,6 +51,7 @@ __all__ = [
     "AttachmentConfig",
     "AttachmentFormat",
     "Coordinate",
+    "DebugTerrain",
     "DirectionalLight",
     "PointLight",
     "SpotLight",

@@ -40,22 +40,26 @@
 // [h, px, py, pz, u, v]; (n_tiles, 9, 17, 17) for spheres, adding the unit
 // world normal [nx, ny, nz]; in the sorted tile order of the patch plan.
 //
-// The planar kernel also has the material variants of the same TPU kernel:
+// The material variants of the same TPU kernel:
 //
 // * K3, albedo (mesh_fused with albedo_channels / albedo_bits / albedo_fast /
-//   albedo_combined): per tile a second 16 KB quad of packed texels (C
-//   channels of B bits in one int32 word, channel c in bits [cB, (c+1)B)),
-//   from its own block array or from rows 32:64 of a combined (N, 64, 128)
-//   array, resampled with the height's tents and read at the morphed uv
-//   through the height's window weights; C rows of raw texel values
-//   x valid x live follow the mesh rows: (n_tiles, 6 + C, 17, 17). The exact
+//   albedo_combined), planar and spherical: per tile a second 16 KB quad of
+//   packed texels (C channels of B bits in one int32 word, channel c in bits
+//   [cB, (c+1)B)), from its own block array or from rows 32:64 of a combined
+//   (N, 64, 128) array, resampled with the height's tents and read at the
+//   morphed uv through the height's window weights; C rows of raw texel
+//   values x valid x live follow the mesh rows: (n_tiles, 6 + C, 17, 17)
+//   for a planar terrain, (n_tiles, 9 + C, 17, 17) for a sphere (in the
+//   Taylor near field the normal is the unmorphed one while the albedo is
+//   still read at the morphed uv, as in the TPU kernel). The exact
 //   path is K1's mean-centred f32 resample per channel. The fast path
 //   (B = 8) is the TPU kernel's bf16 MXU path emulated on the CUDA cores:
 //   tent weights rounded to bf16 (round to nearest even), no centring, the
 //   y contraction summed in f32 and rounded to bf16, then the x contraction
 //   in f32. A tent has at most two taps and a byte times a bf16 weight is
 //   exact in f32, so each sum rounds once, as on the TPU.
-// * K4, shaded (mesh_fused with shade=, _kernel_pbr_shade): K3 plus the
+// * K4, shaded (mesh_fused with shade=, _kernel_pbr_shade), planar only (its
+//   normals are a planar central difference): K3 plus the
 //   fragment stage on the per-vertex values already in registers --
 //   central-difference normals over the tile's heights (one-sided at the
 //   tile edge, as the TPU kernel's clamped lane shift), Filament GGX +
@@ -65,9 +69,9 @@
 //   material and no cap on the light count.
 //
 // Channels, bits, fast and combined are launch arguments, uniform across
-// the grid; only ALBEDO and SHADE are template parameters. K1's phases
-// compile unchanged in every instance, so the mesh rows of K3 and K4 are
-// bit-identical to K1's on the same inputs. Shared memory stays static
+// the grid; only ALBEDO and SHADE are template parameters. K1's and K2's
+// phases compile unchanged in every instance, so the mesh rows of K3 and K4
+// are bit-identical to K1's (to K2's on a sphere) on the same inputs. Shared memory stays static
 // (under 48 KB): the albedo quad reuses the height patch buffer once the
 // height resample is done, and the shade's height grid reuses X once the
 // smoothing is done.
@@ -307,8 +311,9 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
                   const int* __restrict__ hp_steps,       // (n / 64,), spheres only
                   const int* __restrict__ tile_count,     // (1,)
                   int origin_lod, AlbedoArgs alb, float* __restrict__ out) {
-  static_assert(!(SPHERICAL && ALBEDO) && (ALBEDO || !SHADE), "planar material only");
-  const int out_ch = (SPHERICAL ? 9 : 6) + (ALBEDO ? alb.channels : 0);
+  static_assert(!(SPHERICAL && SHADE) && (ALBEDO || !SHADE), "the shade is planar, over an albedo");
+  constexpr int BASE_CH = SPHERICAL ? 9 : 6;  // mesh rows before the albedo's
+  const int out_ch = BASE_CH + (ALBEDO ? alb.channels : 0);
   const int out_per_tile = out_ch * GV * GV;
   constexpr int N_PARAMS = SPHERICAL ? SPH_PARAMS : 4;
   const long long stride = ALBEDO ? alb.stride : QUAD_WORDS;
@@ -572,7 +577,7 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
     }
     if (active) {
       for (int ch = 0; ch < alb.channels; ++ch)
-        o[(6 + ch) * GV * GV + vtx] = col[ch] * valid * live;
+        o[(BASE_CH + ch) * GV * GV + vtx] = col[ch] * valid * live;
     }
   }
   if (!active) return;
@@ -625,8 +630,28 @@ extern "C" int mesh_fused_spherical_launch(const void* blocks, long long n_block
   return (int)cudaGetLastError();
 }
 
-// K3 (shade == nullptr) and K4. Combined: one (N, 64, 128) array, heights
-// in rows 0:32 and the packed albedo in rows 32:64 of each quad.
+namespace {
+
+// Check the albedo's launch arguments and pack them. Combined: one (N, 64,
+// 128) array, heights in rows 0:32 and the packed albedo in rows 32:64 of
+// each quad.
+bool albedo_args(const void* blocks, const void* albedo, int channels, int bits, int fast,
+                 int combined, const void* shade, AlbedoArgs& alb) {
+  if (channels < 1 || channels > MAX_CH || (bits != 8 && bits != 16) ||
+      channels * bits > 32 || (fast && bits != 8))
+    return false;
+  alb.stride = combined ? 2 * QUAD_WORDS : QUAD_WORDS;
+  alb.blocks = combined ? (const int*)blocks + QUAD_WORDS : (const int*)albedo;
+  alb.channels = channels;
+  alb.bits = bits;
+  alb.fast = fast;
+  alb.shade = (const float*)shade;
+  return true;
+}
+
+}  // namespace
+
+// K3 (shade == nullptr) and K4 on a planar terrain.
 extern "C" int mesh_fused_material_launch(const void* blocks, long long n_blocks,
                                           const void* ids, const void* geom,
                                           const void* tile_params, const void* fs,
@@ -635,16 +660,9 @@ extern "C" int mesh_fused_material_launch(const void* blocks, long long n_blocks
                                           const void* shade, void* out, int n_tiles,
                                           void* stream) {
   if (n_tiles <= 0) return 0;
-  if (channels < 1 || channels > MAX_CH || (bits != 8 && bits != 16) ||
-      channels * bits > 32 || (fast && bits != 8))
-    return (int)cudaErrorInvalidValue;
   AlbedoArgs alb;
-  alb.stride = combined ? 2 * QUAD_WORDS : QUAD_WORDS;
-  alb.blocks = combined ? (const int*)blocks + QUAD_WORDS : (const int*)albedo;
-  alb.channels = channels;
-  alb.bits = bits;
-  alb.fast = fast;
-  alb.shade = (const float*)shade;
+  if (!albedo_args(blocks, albedo, channels, bits, fast, combined, shade, alb))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (shade) {
     mesh_fused_kernel<false, false, true, true><<<n_tiles, NTHREADS, 0, s>>>(
@@ -656,6 +674,32 @@ extern "C" int mesh_fused_material_launch(const void* blocks, long long n_blocks
         (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
         (const float*)tile_params, (const float*)fs, nullptr, (const int*)tile_count, 0, alb,
         (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K3 on a sphere or an ellipsoid: the spherical launch's arguments, then the
+// albedo's.
+extern "C" int mesh_fused_spherical_albedo_launch(
+    const void* blocks, long long n_blocks, const void* ids, const void* geom,
+    const void* tile_params, const void* fs, const void* hp_steps, const void* tile_count,
+    const void* albedo, int channels, int bits, int fast, int combined, void* out,
+    int n_tiles, int origin_lod, int ellipsoidal, void* stream) {
+  if (n_tiles <= 0) return 0;
+  AlbedoArgs alb;
+  if (!albedo_args(blocks, albedo, channels, bits, fast, combined, nullptr, alb))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ellipsoidal) {
+    mesh_fused_kernel<true, true, true, false><<<n_tiles, NTHREADS, 0, s>>>(
+        (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
+        (const float*)tile_params, (const float*)fs, (const int*)hp_steps,
+        (const int*)tile_count, origin_lod, alb, (float*)out);
+  } else {
+    mesh_fused_kernel<true, false, true, false><<<n_tiles, NTHREADS, 0, s>>>(
+        (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
+        (const float*)tile_params, (const float*)fs, (const int*)hp_steps,
+        (const int*)tile_count, origin_lod, alb, (float*)out);
   }
   return (int)cudaGetLastError();
 }

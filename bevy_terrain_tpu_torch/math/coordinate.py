@@ -8,8 +8,10 @@ The unit cube sphere uses six faces (sides 0-5). A :class:`Coordinate` is a
 (coordinate.rs:96-97 forward, :112-114 inverse).
 
 All formula helpers are dtype-polymorphic: they take an ``xp`` array
-namespace (``numpy`` for host f64, ``jax.numpy`` for device f32) and work on
-arbitrarily batched arrays. The host classes below wrap the scalar case.
+namespace (``numpy`` for host f64) and work on arbitrarily batched arrays;
+:func:`sigmoid_warp_forward` and :func:`pick_cube_face` also take ``torch``
+for f32 tensors on the device (ops/sampling.py). The host classes below wrap
+the scalar case.
 """
 
 from __future__ import annotations
@@ -113,12 +115,13 @@ FACE_UV_DEN = np.array(
 
 
 # ---------------------------------------------------------------------------
-# dtype-polymorphic formula helpers (xp = numpy or jax.numpy)
+# dtype-polymorphic formula helpers (xp = numpy; torch where stated)
 # ---------------------------------------------------------------------------
 
 
 def sigmoid_warp_forward(uv, xp=np):
-    """Raw cube-plane coordinate -> warped uv in [0,1].
+    """Raw cube-plane coordinate -> warped uv in [0,1] (``xp`` numpy or
+    torch).
 
     ``w = uv * sqrt((1 + C) / (1 + C * uv^2)); uv = 0.5 w + 0.5``
     (reference src/math/coordinate.rs:96-97).
@@ -138,7 +141,8 @@ def sigmoid_warp_inverse(uv, xp=np):
 
 
 def pick_cube_face(normal, xp=np):
-    """Local unit-sphere normal(s) (..., 3) -> side index (...,) int32.
+    """Local unit-sphere normal(s) (..., 3) -> side index (...,) int32
+    (``xp`` numpy or torch).
 
     Vectorized form of the branch chain in reference
     src/math/coordinate.rs:76-94.
@@ -152,7 +156,7 @@ def pick_cube_face(normal, xp=np):
         xp.where(x < 0.0, 0, 3),
         xp.where(z_dom, xp.where(z > 0.0, 1, 4), xp.where(y > 0.0, 2, 5)),
     )
-    return side.astype(np.int32) if xp is np else side.astype("int32")
+    return side.astype(np.int32) if xp is np else side.to(xp.int32)
 
 
 def face_raw_uv(normal, side, xp=np):

@@ -371,3 +371,33 @@ def lookup_tile(entries, side, lod, xy, uv, blend_lod, cfg: StaticTerrainConfig,
     safe_lod = torch.where(atlas_lod < 0, t_lod, atlas_lod)
     a_lod, a_xy, a_uv = coordinate_change_lod(t_lod, t_xy, t_uv, safe_lod)
     return atlas_index, a_lod, a_xy, a_uv
+
+
+def compute_tile_tree_uv(origins, side, lod, xy, uv, cfg: StaticTerrainConfig):
+    """Position of a coordinate within the wrapping tree window
+    (functions.wgsl:190-195). Used by :func:`lookup_best`."""
+    origin_xy = origins[side.long(), lod.long()]  # (..., 2)
+    tree_size = tile_count(lod).clamp(max=float(cfg.tree_size))[..., None]
+    return ((xy - origin_xy).to(torch.float32) + uv) / tree_size
+
+
+def lookup_best(entries, origins, side, lod, xy, uv, cfg: StaticTerrainConfig):
+    """Walk down lods while the coordinate stays inside the tree window, then
+    take that entry (functions.wgsl:209-230): the fixed-trip-count form of
+    the WGSL while-loop, as in the JAX package.
+
+    Returns (atlas_index, atlas_lod, atlas_xy, atlas_uv).
+    """
+    best_lod = torch.zeros_like(lod)
+    for cand in range(1, cfg.lod_count):
+        c_lod, c_xy, c_uv = coordinate_change_lod(lod, xy, uv, cand)
+        tuv = compute_tile_tree_uv(origins, side, c_lod, c_xy, c_uv, cfg)
+        inside = torch.all((tuv > 0.0) & (tuv < 1.0), dim=-1)
+        # the WGSL keeps ascending while inside; once outside it stops
+        keep = inside & (best_lod == cand - 1)
+        best_lod = torch.where(keep, cand, best_lod)
+    b_lod, b_xy, b_uv = coordinate_change_lod(lod, xy, uv, best_lod)
+    atlas_index, atlas_lod = lookup_tile_tree_entry(entries, side, b_lod, b_xy, cfg)
+    safe_lod = torch.where(atlas_lod < 0, b_lod, atlas_lod)
+    a_lod, a_xy, a_uv = coordinate_change_lod(b_lod, b_xy, b_uv, safe_lod)
+    return atlas_index, a_lod, a_xy, a_uv

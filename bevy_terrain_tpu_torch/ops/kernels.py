@@ -427,15 +427,20 @@ def rsqrt(x: torch.Tensor) -> torch.Tensor:
 def _check_spherical_args(block_array, ids, geom, tile_params, fs, hp_steps, tile_count,
                           origin_lod) -> int:
     n = _check_mesh_args(block_array, ids, geom, tile_params, fs, tile_count, SPH_PARAMS)
+    _check_step_args(n, hp_steps, block_array.device, origin_lod)
+    return n
+
+
+def _check_step_args(n: int, hp_steps, device, origin_lod) -> None:
+    """The spherical kernels' step flags and Taylor origin lod."""
     if n % TILES_PER_STEP:
         raise ValueError(f"the tile count {n} is not a multiple of {TILES_PER_STEP}")
-    if (hp_steps.device != block_array.device or hp_steps.dtype != torch.int32
+    if (hp_steps.device != device or hp_steps.dtype != torch.int32
             or tuple(hp_steps.shape) != (n // TILES_PER_STEP,) or not hp_steps.is_contiguous()):
         raise ValueError(f"hp_steps: want int32 ({n // TILES_PER_STEP},) on the blocks' "
                          f"device, got {hp_steps.dtype} {tuple(hp_steps.shape)}")
     if not 0 <= origin_lod < 31:
         raise ValueError(f"origin_lod {origin_lod} out of range")
-    return n
 
 
 def mesh_fused_spherical(block_array: torch.Tensor, ids: torch.Tensor, geom: torch.Tensor,
@@ -492,6 +497,17 @@ def mesh_fused_spherical_reference(block_array: torch.Tensor, ids: torch.Tensor,
     kernel's operation order. It computes in the dtype of ``geom``,
     ``tile_params`` and ``fs``: float32 is the kernel's function; float64
     evaluates the same arithmetic nearly exactly (the tests' referee)."""
+    rows, _, _, _ = _spherical_stage(block_array, ids, geom, tile_params, fs, hp_steps,
+                                     origin_lod, ellipsoidal)
+    return _dead_to_zero(rows, tile_count)
+
+
+def _spherical_stage(block_array, ids, geom, tile_params, fs, hp_steps, origin_lod,
+                     ellipsoidal):
+    """The spherical kernel's per-vertex stage, batched over tiles: (the
+    nine mesh rows (n, 9, 17, 17) before the dead-tile mask, ``interp9``
+    the 3x3 window at the morphed uv (:func:`_window`), ``valid`` and
+    ``live`` (n, 1, 1))."""
     n = ids.shape[0]
     dev = block_array.device
     dt, i32 = geom.dtype, torch.int32
@@ -573,8 +589,8 @@ def mesh_fused_spherical_reference(block_array: torch.Tensor, ids: torch.Tensor,
     near = (d2_w0 < fs[45]) & hp_on
     d2 = torch.where(near, dhx * dhx + dhy * dhy + dhz * dhz, d2_w0)
     log2_dist = 0.5 * torch.log2(d2)
-    height, mu, mv, _ = _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs,
-                                             gi, i, j, u, v)
+    height, mu, mv, interp9 = _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs,
+                                                   gi, i, j, u, v)
 
     (wxm, wym, wzm), (nxm, nym, nzm) = far_geom(mu, mv)
     rxm, rym, rzm = taylor_rel(mu, mv)
@@ -585,9 +601,9 @@ def mesh_fused_spherical_reference(block_array: torch.Tensor, ids: torch.Tensor,
     py = torch.where(near, fs[40] + rym, wym) + height * ny_f
     pz = torch.where(near, fs[41] + rzm, wzm) + height * nz_f
 
-    out = torch.stack([height, px * live, py * live, pz * live, mu * live, mv * live,
-                       nx_f * live, ny_f * live, nz_f * live], dim=1)
-    return _dead_to_zero(out, tile_count)
+    rows = torch.stack([height, px * live, py * live, pz * live, mu * live, mv * live,
+                        nx_f * live, ny_f * live, nz_f * live], dim=1)
+    return rows, interp9, valid, live
 
 
 # ---------------------------------------------------------------------------
@@ -734,8 +750,9 @@ def pbr_shade_reference(shade, cols, height, px, py, pz, fs, lodf):
 
 
 def _check_material_args(block_array, ids, geom, tile_params, fs, tile_count, albedo_blocks,
-                         channels: int, bits: int, combined: bool, shade=None) -> int:
-    n = _check_mesh_args(block_array, ids, geom, tile_params, fs, tile_count,
+                         channels: int, bits: int, combined: bool, shade=None,
+                         n_params: int = 4) -> int:
+    n = _check_mesh_args(block_array, ids, geom, tile_params, fs, tile_count, n_params,
                          quad_rows=64 if combined else 32)
     if not (1 <= channels <= MAX_CHANNELS and bits in (8, 16) and channels * bits <= 32):
         raise ValueError(f"{channels} channels of {bits} bits do not pack into an int32 word")
@@ -860,6 +877,76 @@ def mesh_fused_shaded_reference(block_array, ids, geom, tile_params, fs, tile_co
     same result), batched over tiles on any device."""
     return _mesh_material_reference(block_array, ids, geom, tile_params, fs, tile_count,
                                     albedo_blocks, channels, bits, fast, combined, shade)
+
+
+def mesh_fused_spherical_albedo(block_array: torch.Tensor, ids: torch.Tensor,
+                                geom: torch.Tensor, tile_params: torch.Tensor,
+                                fs: torch.Tensor, hp_steps: torch.Tensor,
+                                tile_count: torch.Tensor, origin_lod: int, ellipsoidal: bool,
+                                albedo_blocks: torch.Tensor | None, channels: int, bits: int,
+                                fast: bool = True, combined: bool = False) -> torch.Tensor:
+    """The spherical vertex stage (:func:`mesh_fused_spherical`) with a
+    packed albedo fused in (the JAX kernel's ``spherical=True`` with
+    ``albedo_channels``): per tile the albedo quad of the same quad id,
+    resampled with the height's tents and read at the morphed uv through
+    the height's window weights. In the Taylor near field the normal is the
+    unmorphed one; the albedo is read at the morphed uv all the same.
+
+    Args:
+      block_array, ids, geom, tile_params, fs, hp_steps, tile_count,
+        origin_lod, ellipsoidal: as :func:`mesh_fused_spherical`; with
+        ``combined`` the blocks are (N, 64, 128): heights in rows 0:32, the
+        packed albedo in rows 32:64.
+      albedo_blocks, channels, bits, fast, combined: as
+        :func:`mesh_fused_albedo`.
+
+    Returns (Fp, 9 + C, 17, 17) f32: the nine mesh channels, bit-identical
+    to :func:`mesh_fused_spherical`'s, then C channels of raw texel values
+    x valid x live.
+
+    On a CUDA tensor this launches ``csrc/mesh_fused.cu`` (and raises if it
+    cannot); on a CPU tensor it returns the plain version.
+    """
+    n = _check_material_args(block_array, ids, geom, tile_params, fs, tile_count,
+                             albedo_blocks, channels, bits, combined, n_params=SPH_PARAMS)
+    _check_step_args(n, hp_steps, block_array.device, origin_lod)
+    fast = bool(fast) and bits <= 8
+    if block_array.device.type == "cpu":
+        return mesh_fused_spherical_albedo_reference(
+            block_array, ids, geom, tile_params, fs, hp_steps, tile_count, origin_lod,
+            ellipsoidal, albedo_blocks, channels, bits, fast, combined)
+    out = torch.empty((n, SPH_CH + channels, GV, GV), dtype=torch.float32,
+                      device=block_array.device)
+    if n == 0:
+        return out
+    _launch(mesh_fused_spherical_albedo, block_array.device,
+            "mesh_fused_spherical_albedo_launch", block_array.data_ptr(),
+            block_array.shape[0], ids.data_ptr(), geom.data_ptr(), tile_params.data_ptr(),
+            fs.data_ptr(), hp_steps.data_ptr(), tile_count.data_ptr(),
+            None if combined else albedo_blocks.data_ptr(), channels, bits, int(fast),
+            int(combined), out.data_ptr(), n, int(origin_lod), int(bool(ellipsoidal)))
+    return out
+
+
+mesh_fused_spherical_albedo.launches = 0
+
+
+def mesh_fused_spherical_albedo_reference(block_array, ids, geom, tile_params, fs, hp_steps,
+                                          tile_count, origin_lod: int, ellipsoidal: bool,
+                                          albedo_blocks, channels: int, bits: int,
+                                          fast: bool = True,
+                                          combined: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`mesh_fused_spherical_albedo` (same
+    arguments, same result), batched over tiles on any device: the
+    spherical plain version's mesh rows, then the albedo half-grids
+    (:func:`_channel_halfgrids`) through its window at the morphed uv."""
+    heights = block_array[:, :32] if combined else block_array
+    words = (block_array[:, 32:] if combined else albedo_blocks)[ids.long()]
+    rows, interp9, valid, live = _spherical_stage(heights, ids, geom, tile_params, fs,
+                                                  hp_steps, origin_lod, ellipsoidal)
+    A = _channel_halfgrids(words, geom, channels, bits, bool(fast) and bits <= 8)
+    cols = torch.stack([interp9(A[:, c]) * valid * live for c in range(channels)], dim=1)
+    return _dead_to_zero(torch.cat([rows, cols], dim=1), tile_count)
 
 
 def _check_attach_args(block_array, ids, geom, uvs, tile_count, channels, bits) -> int:
@@ -1167,6 +1254,11 @@ def _library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, vp, vp, ctypes.c_int, vp,
         ]
         lib.mesh_fused_material_launch.restype = ctypes.c_int
+        lib.mesh_fused_spherical_albedo_launch.argtypes = [
+            vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp,
+        ]
+        lib.mesh_fused_spherical_albedo_launch.restype = ctypes.c_int
         lib.attach_sample_launch.argtypes = [
             vp, ctypes.c_longlong, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, vp,
             ctypes.c_int, vp,

@@ -8,14 +8,15 @@ path (:func:`generate_mesh`: bilinear gathers from the attachment slab).
 (patch_sampling.plan_patch_batch), packs the kernel's per-tile and frame
 scalars, and runs :func:`kernels.mesh_fused_planar` (planar frames),
 :func:`kernels.mesh_fused_spherical` (cube-sphere frames, with the Taylor
-high-precision path), or for a planar frame with a packed albedo
-:func:`kernels.mesh_fused_albedo` (the albedo fused in) or
-:func:`kernels.mesh_fused_shaded` (albedo and PBR shade fused in). Its
+high-precision path), or with a packed albedo
+:func:`kernels.mesh_fused_albedo` (planar, the albedo fused in),
+:func:`kernels.mesh_fused_shaded` (planar, albedo and PBR shade fused in)
+or :func:`kernels.mesh_fused_spherical_albedo` (a sphere's albedo). Its
 ``raw`` product is (Fp, C, 17, 17) f32 in the sorted tile order, on the
 (row = v, column = u) vertex grid: the 6 planar channels [height, pos x,
 pos y, pos z, morphed u, morphed v], or 9 for spheres, which add [normal
-x, normal y, normal z]; a planar frame with an albedo adds its C channels
-after those 6 (raw texel values, or the shaded linear colour).
+x, normal y, normal z]; an albedo adds its C channels after those (raw
+texel values, or on a planar frame the shaded linear colour).
 :func:`fused_to_grid` is a view of it as a :class:`GridMeshOutput`, and
 :func:`fused_albedo_to_grid` one of the colour channels.
 """
@@ -255,6 +256,12 @@ def check_fused_config(cfg: StaticTerrainConfig) -> None:
 def mesh_kernel(cfg: StaticTerrainConfig, albedo_channels: int = 0, shaded: bool = False):
     """The mesh kernel's wrapper for the frame configuration (and a fused
     albedo of ``albedo_channels`` channels, ``shaded`` or not)."""
+    if albedo_channels and cfg.spherical:
+        if shaded:
+            raise NotImplementedError(
+                "the in-kernel shade is planar (its normals are a planar central "
+                "difference): shade a sphere with render/material.shade")
+        return kernels.mesh_fused_spherical_albedo
     if albedo_channels:
         return kernels.mesh_fused_shaded if shaded else kernels.mesh_fused_albedo
     return kernels.mesh_fused_spherical if cfg.spherical else kernels.mesh_fused_planar
@@ -282,23 +289,20 @@ def fused_kernel_args(tiles: RefinementOutput, block_array: torch.Tensor,
                       albedo_combined: bool = False):
     """Plan the patch fetches and pack the mesh kernel's arguments.
 
-    With ``albedo_channels`` (a planar frame) the kernel also samples the
+    With ``albedo_channels`` the kernel also samples the
     first ``albedo_channels`` channels of ``albedo_bits`` bits of the packed
     ``albedo_blocks`` (same plan as the heights), or of rows 32:64 of
     ``albedo_combined`` (N, 64, 128) blocks; ``albedo_fast`` takes the bf16
     resample for 8-bit channels. ``shade_spec`` (a
     material.kernel_shade_spec, or its kernels.pack_shade_spec buffer)
-    shades the albedo in the kernel.
+    shades the albedo in the kernel (planar frames only).
 
     Returns (sorted_tiles, PatchBatch, args) where ``args`` is the argument
     tuple of the frame's kernel (:func:`mesh_kernel`) and of its plain
     version.
     """
     check_fused_config(cfg)
-    if albedo_channels and cfg.spherical:
-        raise NotImplementedError(
-            "the fused albedo runs on planar frames; the spherical kernel's albedo "
-            "variant is not ported yet")
+    mesh_kernel(cfg, albedo_channels, shade_spec is not None)  # raises for a shaded sphere
     F = cfg.tile_capacity
     tiles, batch = ps.plan_patch_batch(tiles, uniforms, cfg, plan, block_array.shape[0])
     Fp = batch.ids.shape[0]
@@ -361,6 +365,9 @@ def fused_kernel_args(tiles: RefinementOutput, block_array: torch.Tensor,
     hp_steps = torch.where(live_steps, torch.where(hp_any, 2, 1), 0).to(torch.int32)
     args = (block_array, batch.ids, batch.geom, tile_params, fs, hp_steps, count,
             cfg.origin_lod, cfg.ellipsoidal)
+    if albedo_channels:
+        args += (albedo_blocks, albedo_channels, albedo_bits,
+                 albedo_fast and albedo_bits <= 8, albedo_combined)
     return tiles, batch, args
 
 
@@ -374,7 +381,7 @@ def generate_mesh_fused(tiles: RefinementOutput, block_array: torch.Tensor,
     Planar, or spherical with the Taylor high-precision path; grid_size 16,
     per-vertex blend (the kernel's crossfade). The albedo arguments are
     :func:`fused_kernel_args`'s. Returns (raw, sorted_tiles): ``raw`` is
-    (Fp, 6 + C or 9, 17, 17) f32 (see the module docstring); its rows pair
+    (Fp, 6 + C or 9 + C, 17, 17) f32 (see the module docstring); its rows pair
     with ``sorted_tiles``, the tile list reordered by atlas quad id (a tile
     list is a set, so any deterministic order is valid).
     """
@@ -410,8 +417,9 @@ def fused_to_grid(raw: torch.Tensor, tiles: RefinementOutput,
 
 def fused_albedo_to_grid(raw: torch.Tensor, cfg: StaticTerrainConfig, channels: int,
                          max_value: float) -> torch.Tensor:
-    """The fused kernel's trailing ``channels`` colour channels as (F, G+1,
-    G+1, C) f32, divided by ``max_value`` (the JAX package's
+    """The fused kernel's trailing ``channels`` colour channels (after the
+    6 planar or 9 spherical mesh channels of ``raw``) as (F, G+1, G+1, C)
+    f32, divided by ``max_value`` (the JAX package's
     fused_albedo_to_grid)."""
     F = cfg.tile_capacity
     return raw[:F, raw.shape[1] - channels:].permute(0, 2, 3, 1) / max_value

@@ -12,8 +12,9 @@ JAX package unchanged; :func:`plan_patch_batch` computes the same
 The half-grid functions (:func:`fetch_patches`, :func:`halfgrid_resample`,
 :func:`smooth_halfgrid`, :func:`permute_halfgrid`,
 :func:`smooth_halfgrid_permuted`, :func:`vertex_values_from_halfgrid`) are
-the staged path for any grid size: plain torch ops, as the JAX package
-leaves them to XLA. Their matrix products run in full f32 whatever the
+the staged path for any grid size, and :func:`grad_tile_span` /
+:func:`sample_attachment_vertices_grad` the multi-tap gradient sampler on
+top of them: plain torch ops, as the JAX package leaves them to XLA. Their matrix products run in full f32 whatever the
 process-wide TF32 switch says (:func:`full_f32_matmul`): a TF32 product
 would quantise 16-bit heights to 11 bits.
 """
@@ -209,8 +210,6 @@ def plan_patch_batch(
     this plan already (true for a sibling attachment with the height
     attachment's plan) and the sort is skipped, keeping the row order.
     """
-    if cfg.tile_tree_lod:
-        raise NotImplementedError("tile_tree_lod is not ported to the torch package yet")
     F = cfg.tile_capacity
     dev = tiles.tile_side.device
     i32 = torch.int32
@@ -224,7 +223,15 @@ def plan_patch_batch(
     center_uv = torch.full((F, 2), 0.5, dtype=torch.float32, device=dev)
     dist = coords.approximate_view_distance(t_side, t_lod, t_xy, center_uv, uniforms, cfg)
     blend_lod, center_ratio = coords.compute_blend(dist, uniforms, cfg)
-    t0 = torch.minimum(blend_lod, t_lod)
+    if cfg.tile_tree_lod:
+        # TILE_TREE_LOD (functions.wgsl:232-246, the #ifdef branch): the
+        # deepest tree window containing the tile centre instead of the
+        # computed blend lod (a debug mode)
+        _, walk_lod, _, _ = coords.lookup_best(
+            uniforms.entries, uniforms.origins, t_side, t_lod, t_xy, center_uv, cfg)
+        t0 = torch.minimum(walk_lod, t_lod)
+    else:
+        t0 = torch.minimum(blend_lod, t_lod)
     e_lod, e_xy, _ = coords.coordinate_change_lod(
         t_lod, t_xy, zeros_uv, t0.clamp(0, cfg.lod_count - 1)
     )
@@ -573,3 +580,102 @@ def sample_attachment_vertices(
         raw = torch.cat([kernels.attach_sample_fused(b, batch.ids, geom, uvs, count)
                          for b in block_arrays], dim=1)
     return raw[:F].permute(0, 2, 3, 1) / max_value
+
+
+def grad_tile_span(mesh, uniforms, cfg: StaticTerrainConfig,
+                   max_anisotropy: float = 16.0) -> torch.Tensor:
+    """Per-tile anisotropic footprint, the SAMPLE_GRAD answer for colour
+    attachments (reference attachments.wgsl:12-24, textureSampleGrad with
+    anisotropy 16).
+
+    The reference's footprint is the screen-pixel preimage, elongated at
+    grazing angles along the view direction's surface projection. On the
+    vertex grid: project the view ray onto the surface tangent plane,
+    express that direction in tile-uv space through the grid's own
+    world-per-uv Jacobian (finite differences, no extra fetches), and
+    stretch it by tan(theta) = |tangential| / (view . normal), clamped to
+    ``max_anisotropy``. The isotropic unit is the half-grid sample spacing
+    1 / (2 G), the density the mip selection pins to (:func:`patch_geometry`).
+    The per-vertex spans are reduced to one span per tile (grid mean); the
+    taps are applied at the half-grid resample
+    (:func:`sample_attachment_vertices_grad`).
+
+    Returns (F, 2) f32: the footprint's full extent in tile-uv units, along
+    the view's surface projection.
+    """
+    pos = mesh.positions  # (F, G1, G1, 3)
+    n = mesh.normals
+
+    def diff(x, axis):
+        size = x.shape[axis]
+        lo = torch.cat([x.narrow(axis, 0, 1), x.narrow(axis, 0, size - 1)], dim=axis)
+        hi = torch.cat([x.narrow(axis, 1, size - 1), x.narrow(axis, size - 1, 1)], dim=axis)
+        return (hi - lo) * 0.5
+
+    def norm(x):
+        return coords.norm3(x)[..., None]
+
+    # world-per-uv Jacobian columns from the grid itself (du along columns,
+    # dv along rows; grid spacing = 1 / G in uv)
+    G = cfg.grid_size
+    xu = diff(pos, 2) * G  # d(world) / d(u)
+    xv = diff(pos, 1) * G
+    v = uniforms.view_world_position - pos
+    v = v / norm(v).clamp(min=1e-8)
+    vn = torch.sum(v * n, dim=-1, keepdim=True)
+    t = v - vn * n  # tangential view component
+    tlen = norm(t)
+    aniso = (tlen / vn.abs().clamp(min=1e-3)).clamp(max=max_anisotropy)
+    tdir = t / tlen.clamp(min=1e-8)
+    # uv direction of the tangential view ray (the grid axes are near-orthogonal)
+    du = torch.sum(tdir * xu, dim=-1) / torch.sum(xu * xu, dim=-1).clamp(min=1e-12)
+    dv = torch.sum(tdir * xv, dim=-1) / torch.sum(xv * xv, dim=-1).clamp(min=1e-12)
+    d_uv = torch.stack([du, dv], dim=-1)
+    d_uv = d_uv / torch.sqrt(du * du + dv * dv)[..., None].clamp(min=1e-8)
+    sample_spacing = 1.0 / (2.0 * G)  # half-grid spacing in tile uv
+    span = d_uv * (aniso * sample_spacing)  # the full anisotropic footprint
+    return span.mean(dim=(1, 2))  # (F, 2) per tile
+
+
+def sample_attachment_vertices_grad(
+    block_arrays, tiles: RefinementOutput, morphed_uv: torch.Tensor, mesh, uniforms,
+    cfg: StaticTerrainConfig, plan: PatchPlan, max_value: float, taps: int = 4,
+    max_anisotropy: float = 16.0, packed_channels: int = 0, packed_bits: int = 0,
+) -> torch.Tensor:
+    """Grad-weighted multi-tap attachment sampling (the textureSampleGrad
+    equivalent; see :func:`grad_tile_span`): each tap shifts the half-grid
+    resample's patch-texel start along the per-tile anisotropy axis, and the
+    taps are averaged: a box filter along the grazing direction.
+
+    The patch fetch is shared across taps; per tap the cost is one half-grid
+    resample and one window interpolation. Always the staged sampler (the
+    sampler kernels bake single-tap geometry), as in the JAX package, so
+    it serves an attachment of any patch plan. Returns (F, G+1, G+1, C) f32
+    in [0, 1].
+    """
+    F = cfg.tile_capacity
+    _, batch = plan_patch_batch(tiles, uniforms, cfg, plan, block_arrays[0].shape[0],
+                                assume_sorted=True)
+    ids = batch.ids[:F, None]
+    p0, dp, valid = batch.geom[:F, 0:2], batch.geom[:F, 2], batch.geom[:F, 3]
+    # a tile-uv offset du maps to texels as du * HG * dp (half-grid index k
+    # is tile-uv k / HG and sits at texel p0 + k * dp, patch_geometry)
+    HG = 2 * cfg.grid_size
+    span_tex = grad_tile_span(mesh, uniforms, cfg, max_anisotropy) * (HG * dp)[:, None]
+    ks = (np.arange(taps, dtype=np.float32) + 0.5) / taps - 0.5
+
+    def tap_channel(patch):
+        acc = None
+        for k in ks:
+            half = halfgrid_resample(patch, p0 + float(k) * span_tex, dp, cfg) / max_value
+            half = permute_halfgrid(half * valid[:, None, None])
+            v = vertex_values_from_halfgrid(half, morphed_uv, cfg)
+            acc = v if acc is None else acc + v
+        return acc / taps
+
+    if packed_channels:
+        packed = fetch_patches(block_arrays[0], ids, keep_int=True)
+        return torch.stack(
+            [tap_channel(kernels.unpack(packed, c, packed_bits).to(torch.float32))
+             for c in range(packed_channels)], dim=-1)
+    return torch.stack([tap_channel(fetch_patches(b, ids)) for b in block_arrays], dim=-1)

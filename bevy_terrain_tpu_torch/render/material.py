@@ -100,14 +100,16 @@ def _vertex_lookup(ctx: ShadeContext):
     from bevy_terrain_tpu_torch.ops import coords
 
     cfg = ctx.cfg
-    if cfg.tile_tree_lod:
-        raise NotImplementedError("tile_tree_lod (lookup_best) is not ported yet")
     side, lod, xy = _grid_tiles(ctx)
     view_distance = torch.linalg.vector_norm(
         ctx.mesh.positions - ctx.uniforms.view_world_position, dim=-1)
     blend_lod, blend_ratio = coords.compute_blend(view_distance, ctx.uniforms, cfg)
-    _, a_lod, a_xy, a_uv = coords.lookup_tile(
-        ctx.uniforms.entries, side, lod, xy, ctx.mesh.uvs, blend_lod, cfg)
+    if cfg.tile_tree_lod:
+        _, a_lod, a_xy, a_uv = coords.lookup_best(
+            ctx.uniforms.entries, ctx.uniforms.origins, side, lod, xy, ctx.mesh.uvs, cfg)
+    else:
+        _, a_lod, a_xy, a_uv = coords.lookup_tile(
+            ctx.uniforms.entries, side, lod, xy, ctx.mesh.uvs, blend_lod, cfg)
     return blend_lod, blend_ratio, a_lod, a_xy, a_uv
 
 
@@ -506,10 +508,20 @@ def show_normals(ctx: ShadeContext):
 
 
 def show_tile_tree(ctx: ShadeContext):
-    """Tile-tree debug view (debug.wgsl:95-109): it needs the best-loaded
-    tile-tree walk (coords.lookup_best), which is not ported yet."""
-    raise NotImplementedError("the tile_tree debug view needs lookup_best, which is not "
-                              "ported yet")
+    """Tile-tree debug view (debug.wgsl:95-109): checkerboard of the
+    best-loaded lookup + window outlines from the tree uv."""
+    from bevy_terrain_tpu_torch.ops import coords
+
+    side, lod, xy = _grid_tiles(ctx)
+    _, a_lod, a_xy, a_uv = coords.lookup_best(
+        ctx.uniforms.entries, ctx.uniforms.origins, side, lod, xy, ctx.mesh.uvs, ctx.cfg)
+    color = index_color(a_lod.clamp(min=0))
+    dark = ((a_xy[..., 0] + a_xy[..., 1]) % 2) == 0
+    color = torch.where(dark[..., None], color * 0.5, color)
+    # window outlines (debug.wgsl:21-25) on the best lookup's uv
+    thickness = 0.015
+    inside = torch.all((a_uv > thickness) & (a_uv < 1.0 - thickness), dim=-1)
+    return torch.where(inside[..., None], color, torch.full_like(color, 0.1))
 
 
 def show_data_lod(ctx: ShadeContext):
@@ -518,7 +530,10 @@ def show_data_lod(ctx: ShadeContext):
     darkened near the transition, side-tinted on spheres."""
     blend_lod, blend_ratio, a_lod, a_xy, _ = _vertex_lookup(ctx)
     a_lod = a_lod.clamp(min=0)
-    ratio = torch.where(blend_lod == a_lod, blend_ratio, 0.0)
+    if ctx.cfg.tile_tree_lod:  # debug.wgsl:38-42 #ifdef TILE_TREE_LOD
+        ratio = torch.zeros_like(blend_ratio)
+    else:
+        ratio = torch.where(blend_lod == a_lod, blend_ratio, 0.0)
     # checker_color (debug.wgsl:27-34)
     color = index_color(a_lod)
     parent_color = index_color((a_lod - 1).clamp(min=0))

@@ -25,7 +25,10 @@ Torch twin of the JAX package's ``render/pipeline.py``:
    sampled packed Rgba8 albedo (``albedo_material``), with the height
    attachment's patch plan, no debug view, no wireframe and no shadow
    hook, runs it inside the mesh kernel (``ops/kernels.mesh_fused_shaded``,
-   the colours ride the raw tensor). Any other material is staged: the
+   the colours ride the raw tensor). Any other material, and every
+   material of a planet (the in-kernel shade's normals are a planar
+   central difference; ``shade`` takes the spherical kernel's unit
+   normals), is staged: the
    named attachments sampled at the mesh's morphed uvs (an attachment with
    the height attachment's patch plan, at grid size 16, through
    ``ops/kernels.attach_sample_fused[_packed]``; one with another plan, or
@@ -34,14 +37,24 @@ Torch twin of the JAX package's ``render/pipeline.py``:
 
 The device stage reads no device value on the host except the refinement
 spill loop's queue count, so PyTorch's asynchronous launches let the next
-frame's host prologue overlap most of it.
+frame's host prologue overlap most of it. With adaptive capacity
+(:meth:`Terrain.enable_adaptive_capacity`) the tile count comes back through
+a pinned, non-blocking copy harvested the next frame; only a frame the
+host suspects of a tile-count spike reads its overflow counter at once.
 
-A sampled attachment without a usable patch plan and the multi-tap
-gradient sampler raise ``NotImplementedError``.
+Beside the frame: :meth:`Terrain.query_heights` /
+:meth:`Terrain.query_attachment` (batched world-position queries on the
+terrain's device, against the view's last uniforms, ``ops/sampling.py``),
+:meth:`Terrain.frame_inputs`, :meth:`Terrain.set_debug` (the DebugTerrain
+toggles; ``freeze`` pins the tile list), :meth:`Terrain.tune_view`.
+
+A sampled attachment without a usable patch plan raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -50,8 +63,11 @@ import torch
 from bevy_terrain_tpu_torch import interop
 from bevy_terrain_tpu_torch.config import TerrainConfig, TerrainViewConfig
 from bevy_terrain_tpu_torch.math.approximation import TerrainModelApproximation
-from bevy_terrain_tpu_torch.ops import kernels, meshgen, refinement
-from bevy_terrain_tpu_torch.ops.patch_sampling import sample_attachment_vertices
+from bevy_terrain_tpu_torch.ops import kernels, meshgen, refinement, sampling
+from bevy_terrain_tpu_torch.ops.patch_sampling import (
+    sample_attachment_vertices,
+    sample_attachment_vertices_grad,
+)
 from bevy_terrain_tpu_torch.ops.params import (
     StaticTerrainConfig,
     pack_frame_uniforms,
@@ -164,6 +180,19 @@ class Terrain:
         self.view_configs: dict[object, TerrainViewConfig] = {}
         self._static_cfgs: dict[object, StaticTerrainConfig] = {}
         self._last_blobs: dict[object, torch.Tensor] = {}
+        # the config each view's last frame ran with (an adaptive-capacity
+        # rung where that is on)
+        self._last_frame_cfgs: dict[object, StaticTerrainConfig] = {}
+        self._adaptive: dict[object, dict] = {}
+        # overflow guard bookkeeping (_spike_suspected): (position, height
+        # above the terrain) per view, and two counters
+        self._last_view_pos: dict = {}
+        self.overflow_redispatches = 0
+        self.overflow_checks = 0
+        # freeze (reference debug/mod.rs:186-192: the prepass is skipped and
+        # the last tile list is drawn again from the new camera)
+        self.debug = None
+        self._frozen_tiles: dict[object, refinement.RefinementOutput] = {}
         self.frame_index = 0
         # the material (a callable of render.material.ShadeContext); None
         # with _shade_opts None = vertex buffers only, until set_shading()
@@ -204,9 +233,182 @@ class Terrain:
         tree = self.tile_trees.pop(view_id)
         self.view_configs.pop(view_id)
         self._static_cfgs.pop(view_id)
-        self._last_blobs.pop(view_id, None)
+        self._adaptive.pop(view_id, None)
+        for state in (self._last_blobs, self._last_frame_cfgs, self._last_view_pos,
+                      self._frozen_tiles):
+            state.pop(view_id, None)
         held = tree._collect(tree.tile_requested, tree.tile_xy)
         self.atlas.update(released_tiles=held)
+
+    def set_debug(self, debug) -> None:
+        """Apply a DebugTerrain resource (reference debug/mod.rs:94-260).
+
+        The pipeline-specialization toggles (morph, blend, tile_tree_lod,
+        sample_grad, test1-3) rebuild each view's static config, like the
+        reference's shader-def respecialization; the view toggles select the
+        debug colour output; ``freeze`` pins every view's tile list until
+        released."""
+        self.debug = debug
+        if debug is None:
+            self._frozen_tiles.clear()
+            return
+        for view_id in list(self._static_cfgs):
+            self._static_cfgs[view_id] = dataclasses.replace(
+                self._static_cfgs[view_id], **debug.static_overrides())
+        if debug.debug_view is not None or debug.wireframe or self._shade_opts is not None:
+            self.set_shading(
+                self.shading_fn, lighting=debug.lighting, debug_view=debug.debug_view,
+                wireframe=debug.wireframe,
+                sample_attachments=self._shade_opts[4] if self._shade_opts else ())
+        if not debug.freeze:
+            self._frozen_tiles.clear()
+
+    def tune_view(self, view_id, **changes) -> None:
+        """Runtime view-parameter tuning (reference debug/mod.rs:216-260:
+        morph / blend / load distance and grid-size halving and doubling).
+
+        Distance and range changes flow into the next frame's uniforms;
+        ``grid_size`` / ``tree_size`` / ``tile_capacity`` changes rebuild
+        the TileTree and the static config (a respecialization, like the
+        reference swapping pipelines)."""
+        old = self.view_configs[view_id]
+        new = dataclasses.replace(old, **changes)
+        self.view_configs[view_id] = new
+        tree = self.tile_trees[view_id]
+        if {"tree_size", "grid_size", "tile_capacity"} & set(changes):
+            held = tree._collect(tree.tile_requested, tree.tile_xy)
+            self.atlas.update(released_tiles=held)
+            cfg = self._static_cfgs[view_id]
+            overrides = {f: getattr(cfg, f) for f in (
+                "morph", "blend", "tile_tree_lod", "sample_grad", "culling", "high_precision")}
+            self.add_view(view_id, new, queue_capacity=cfg.queue_capacity, **overrides)
+        else:
+            scale = self.config.model.scale
+            tree.view_config = new
+            tree.morph_distance = new.morph_distance * scale
+            tree.blend_distance = new.blend_distance * scale
+            tree.load_distance = new.load_distance * scale
+            tree.subdivision_distance = (
+                new.morph_distance * scale * (1.0 + new.subdivision_tolerance))
+            tree.morph_range = new.morph_range
+            tree.blend_range = new.blend_range
+        self._frozen_tiles.pop(view_id, None)
+
+    # -- adaptive capacity --
+
+    def enable_adaptive_capacity(self, view_id, ladder=None, headroom: float = 2.0) -> None:
+        """Adapt the frame stage's tile_capacity to the live tile count.
+
+        Every tensor of the stage is ``tile_capacity`` wide, whatever the
+        tiles actually emitted. This runs the stage over a capacity ladder,
+        choosing the smallest rung >= ``headroom`` x the PREVIOUS frame's
+        tile count. The count comes back asynchronously (a non-blocking copy
+        into pinned memory at dispatch, harvested the next frame), so no
+        device sync stalls the loop. A sudden tile-count spike (a teleport,
+        a fast cut) is caught the SAME frame: a host-side heuristic
+        (:meth:`_spike_suspected`: camera jump against the height above the
+        terrain, a burst of the request scan) triggers a synchronous
+        overflow check, and the frame is dispatched again at the next rung
+        until clean (:meth:`_overflow_guard`), so no frame drops geometry;
+        the sync is paid on suspect frames only. Off while freeze debugging
+        pins a tile list (shapes must match the frozen tensors)."""
+        cap = self.view_configs[view_id].tile_capacity
+        if ladder is None:
+            ladder, c = [], cap
+            while c >= 1024:
+                ladder.append(c)
+                c //= 2
+        ladder = sorted({min(int(c), cap) for c in ladder} | {cap})
+        self._adaptive[view_id] = {
+            "ladder": ladder, "headroom": float(headroom),
+            "pending": None, "last_count": cap, "capacity": cap,
+        }
+
+    def disable_adaptive_capacity(self, view_id) -> None:
+        self._adaptive.pop(view_id, None)
+
+    def _adapted_cfg(self, view_id, frozen: bool) -> StaticTerrainConfig:
+        """The frame's static config: the capacity-ladder rung when adaptive
+        capacity is on, else the view's full config. Frozen frames pin the
+        full capacity."""
+        cfg = self._static_cfgs[view_id]
+        ad = self._adaptive.get(view_id)
+        if ad is None or frozen:
+            return cfg
+        if ad["pending"] is not None:
+            host, event = ad["pending"]
+            if event is not None:
+                event.synchronize()  # last frame's copy: long done
+            ad["last_count"] = int(host)
+            ad["pending"] = None
+        want = ad["last_count"] * ad["headroom"]
+        cap = next((c for c in ad["ladder"] if c >= want), ad["ladder"][-1])
+        ad["capacity"] = cap
+        if cap != cfg.tile_capacity:
+            cfg = dataclasses.replace(cfg, tile_capacity=cap)
+        return cfg
+
+    def _read_count_async(self, view_id, tiles) -> None:
+        """Start the tile count's copy to the host for the next frame's
+        :meth:`_adapted_cfg`."""
+        ad = self._adaptive.get(view_id)
+        if ad is None:
+            return
+        count = tiles.tile_count.reshape(1)
+        if count.device.type != "cuda":
+            ad["pending"] = (count.clone(), None)
+            return
+        host = torch.empty(1, dtype=count.dtype, pin_memory=True)
+        host.copy_(count, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        ad["pending"] = (host, event)
+
+    def _spike_suspected(self, view_id, pos, n_requested: int) -> bool:
+        """Host-side tile-count-spike heuristic for the overflow guard.
+
+        The refined tile count is a function of the camera relative to the
+        surface; it can only jump when the camera moves a distance
+        comparable to its height above the terrain (the deepest lod's
+        subdivision radii are O(height)) or when the request scan bursts
+        (new area streaming in). Both signals are free on the host, so the
+        guard's device sync is paid only on suspect frames."""
+        tree = self.tile_trees[view_id]
+        pos = np.asarray(pos, np.float64).reshape(3)
+        surf = np.asarray(
+            self.config.model.surface_position(pos, float(tree.approximate_height)),
+            np.float64)
+        h = float(np.linalg.norm(pos - surf))
+        prev = self._last_view_pos.get(view_id)
+        self._last_view_pos[view_id] = (pos, h)
+        if prev is None:
+            return True  # first frame
+        ppos, ph = prev
+        if float(np.linalg.norm(pos - ppos)) > 0.3 * max(min(ph, h), 1e-9):
+            return True
+        cap = self._adaptive[view_id]["capacity"]
+        return n_requested > max(16, cap // 16)
+
+    def _overflow_guard(self, view_id, pos, n_requested: int, cfg, out, dispatch):
+        """Same-frame adaptive-capacity overflow guard: when a tile-count
+        spike is suspected, read the frame's overflow counter (a sync) and
+        dispatch the SAME frame again at the next capacity rung until clean
+        (the packed uniforms are on the device already). Returns (the config
+        the frame ended on, its output)."""
+        ad = self._adaptive.get(view_id)
+        if ad is None or not self._spike_suspected(view_id, pos, n_requested):
+            return cfg, out
+        ladder = ad["ladder"]
+        while cfg.tile_capacity < ladder[-1]:
+            self.overflow_checks += 1
+            if out.overflow == 0:
+                break
+            nxt = next(c for c in ladder if c > cfg.tile_capacity)
+            cfg = dataclasses.replace(self._static_cfgs[view_id], tile_capacity=nxt)
+            ad["capacity"] = nxt
+            self.overflow_redispatches += 1
+            out = dispatch(cfg)
+        return cfg, out
 
     def set_shading(self, material=None, lighting: bool = True, debug_view=None,
                     enabled: bool = True, wireframe: bool = False,
@@ -276,18 +478,22 @@ class Terrain:
     @staticmethod
     def frame_step(block_array: torch.Tensor, uniform_blob: torch.Tensor,
                    cfg: StaticTerrainConfig, plan, max_value: float, albedo_blocks=None,
-                   albedo_channels: int = 0, albedo_bits: int = 0, shade_spec=None):
+                   albedo_channels: int = 0, albedo_bits: int = 0, shade_spec=None,
+                   tiles=None):
         """unpack -> refine -> the mesh: patch plan + fused mesh kernel (with
         the albedo and its shade fused in when given;
         meshgen.fused_kernel_args) where :meth:`use_fused` holds, else
-        meshgen.generate_mesh_grid.
+        meshgen.generate_mesh_grid. With ``tiles`` (a frozen frame, debug
+        freeze) the GIVEN tile list is meshed from the new camera instead
+        of a refined one.
 
         Returns (sorted tiles, the fused kernel's raw mesh or the staged
         path's GridMeshOutput, mesh kernel inputs (fused only), uniforms)."""
         uniforms = unpack_frame_uniforms(
             uniform_blob, cfg.side_count, cfg.lod_count, cfg.tree_size
         )
-        tiles = refinement.refine_tiles(uniforms, cfg)
+        if tiles is None:
+            tiles = refinement.refine_tiles(uniforms, cfg)
         if not Terrain.use_fused(cfg):
             mesh, tiles = meshgen.generate_mesh_grid(tiles, block_array, uniforms, cfg, plan,
                                                      max_value)
@@ -352,11 +558,13 @@ class Terrain:
         view_projections = view_projections or {}
         # 1. request scans (TileTree::compute_requests, plugin.rs:47)
         released, requested = [], []
+        req_counts = {}
         for view_id, pos in view_positions.items():
             tree = self.tile_trees[view_id]
             tree.compute_requests(pos)
             released.extend(tree.released_tiles)
             requested.extend(tree.requested_tiles)
+            req_counts[view_id] = len(tree.requested_tiles)
 
         # 2. atlas residency + IO (TileAtlas::update, plugin.rs:49)
         self.atlas.update(released, requested)
@@ -380,51 +588,118 @@ class Terrain:
                 view_proj=view_projections.get(view_id),
             )
             blob_dev = interop.blob_to_device(blob, self.device)  # ONE copy per frame
-            cfg = self._static_cfgs[view_id]
             self._last_blobs[view_id] = blob_dev
-            if not self.use_grid_mesh:
-                tiles, mesh = self.frame_step_vertex(
-                    height.slabs[0], blob_dev, cfg, height.config.scale, height.config.offset)
-                outputs[view_id] = TerrainFrameOutput(tiles, None, cfg, mesh=mesh)
-                continue
-            fused = None
-            if self.use_fused(cfg) and not cfg.spherical:
-                fused = self._fused_material
-            albedo = {}
-            if fused is not None:
-                albedo = dict(albedo_blocks=self.atlas.attachments[fused.index].block_array,
-                              albedo_channels=fused.channels, albedo_bits=fused.bits,
-                              shade_spec=fused.shade)
-            tiles, product, args, uniforms = self.frame_step(
-                height.block_array, blob_dev, cfg, height.patch_plan,
-                height.config.format.max_value, **albedo,
-            )
-            # the fused step hands over the kernel's raw tensor (its grid
-            # view is made on first access), the staged step a ready mesh
-            raw = product if isinstance(product, torch.Tensor) else None
-            colors = None
-            if fused is None and self._shade_opts is not None:
-                mesh = product if raw is None else meshgen.fused_to_grid(raw, tiles, cfg)
-                colors = self._maybe_shade(mesh, tiles, uniforms, cfg)
-            outputs[view_id] = TerrainFrameOutput(
-                tiles, raw, cfg, args, colors, fused.channels if fused else 0,
-                mesh=product if raw is None else None)
+            freezing = self.debug is not None and self.debug.freeze
+            frozen = self._frozen_tiles.get(view_id) if freezing and self.use_grid_mesh else None
+            cfg = self._adapted_cfg(view_id, frozen is not None)
+
+            def dispatch(cfg_x, blob_dev=blob_dev, frozen=frozen):
+                return self._device_stage(blob_dev, cfg_x, frozen)
+
+            out = dispatch(cfg)
+            if frozen is None:
+                cfg, out = self._overflow_guard(view_id, pos, req_counts[view_id], cfg, out,
+                                                dispatch)
+                if freezing and self.use_grid_mesh:
+                    self._frozen_tiles[view_id] = out.tiles
+            self._read_count_async(view_id, out.tiles)
+            self._last_frame_cfgs[view_id] = cfg
+            outputs[view_id] = out
         self.frame_index += 1
         return outputs
+
+    def _device_stage(self, blob_dev: torch.Tensor, cfg: StaticTerrainConfig,
+                      frozen=None) -> TerrainFrameOutput:
+        """One view's device stage at ``cfg`` (the view's config, or an
+        adaptive-capacity rung of it): the mesh by the terrain's path, then
+        the material stage. ``frozen``: the pinned tile list of a freeze
+        frame, meshed without the in-kernel material (as the JAX pipeline's
+        frozen step)."""
+        height = self.atlas.attachments[0]
+        if not self.use_grid_mesh:
+            tiles, mesh = self.frame_step_vertex(
+                height.slabs[0], blob_dev, cfg, height.config.scale, height.config.offset)
+            return TerrainFrameOutput(tiles, None, cfg, mesh=mesh)
+        fused = None
+        if self.use_fused(cfg) and not cfg.spherical and frozen is None:
+            fused = self._fused_material
+        albedo = {}
+        if fused is not None:
+            albedo = dict(albedo_blocks=self.atlas.attachments[fused.index].block_array,
+                          albedo_channels=fused.channels, albedo_bits=fused.bits,
+                          shade_spec=fused.shade)
+        tiles, product, args, uniforms = self.frame_step(
+            height.block_array, blob_dev, cfg, height.patch_plan,
+            height.config.format.max_value, tiles=frozen, **albedo,
+        )
+        # the fused step hands over the kernel's raw tensor (its grid view
+        # is made on first access), the staged step a ready mesh
+        raw = product if isinstance(product, torch.Tensor) else None
+        colors = None
+        if fused is None and self._shade_opts is not None:
+            mesh = product if raw is None else meshgen.fused_to_grid(raw, tiles, cfg)
+            colors = self._maybe_shade(mesh, tiles, uniforms, cfg)
+        return TerrainFrameOutput(
+            tiles, raw, cfg, args, colors, fused.channels if fused else 0,
+            mesh=product if raw is None else None)
 
     def last_uniform_blob(self, view_id) -> np.ndarray:
         """The packed uniform blob of the view's last frame, on the host."""
         return self._last_blobs[view_id].cpu().numpy()
+
+    def frame_inputs(self, view_id):
+        """(FrameUniforms, StaticTerrainConfig) of the view's last frame:
+        what a consumer outside the pipeline needs beside the frame output
+        (a rasterizer, custom shading, debug tooling). The uniforms are
+        views of the last blob on the terrain's device; the config is the
+        one the frame ran with (adaptive-capacity rungs included), so its
+        ``tile_capacity`` is the output tensors' leading size. Call after
+        :meth:`update`."""
+        cfg = self._last_frame_cfgs[view_id]
+        return unpack_frame_uniforms(self._last_blobs[view_id], cfg.side_count, cfg.lod_count,
+                                     cfg.tree_size), cfg
+
+    def _query_points(self, positions) -> torch.Tensor:
+        """World positions (N, 3), numpy or tensor, as f32 on the terrain's
+        device."""
+        if not isinstance(positions, torch.Tensor):
+            positions = torch.from_numpy(np.asarray(positions, np.float32))
+        pts = positions.to(device=self.device, dtype=torch.float32)
+        if pts.dim() != 2 or pts.shape[1] != 3:
+            raise ValueError(f"positions must be (N, 3), got {tuple(pts.shape)}")
+        return pts
+
+    def query_heights(self, view_id, positions) -> torch.Tensor:
+        """Batched terrain height queries on the terrain's device
+        (collision, physics, placement): the host sampling API's chain over
+        (N, 3) world positions (ops/sampling.query_heights), against the
+        view's last-frame uniforms, which stay on the device. Call after
+        :meth:`update`. Returns (N,) f32 heights on the terrain's device."""
+        height = self.atlas.attachments[0]
+        uniforms, _ = self.frame_inputs(view_id)
+        return sampling.query_heights(
+            height.slabs[0], uniforms, self._static_cfgs[view_id],
+            self._query_points(positions), height.config.scale, height.config.offset)
+
+    def query_attachment(self, view_id, positions, attachment_index: int) -> torch.Tensor:
+        """Batched attachment queries at (N, 3) world positions on the
+        terrain's device (ops/sampling.query_attachment, the host
+        ``sample_attachment`` chain). Returns (N, C) values in [0, 1]."""
+        att = self.atlas.attachments[attachment_index]
+        uniforms, _ = self.frame_inputs(view_id)
+        return sampling.query_attachment(
+            att.slabs[0], uniforms, self._static_cfgs[view_id], self._query_points(positions),
+            att.config.scale, att.config.offset, att.config.format.max_value)
 
     def sample_attachment_grid(self, view_id, frame_output: TerrainFrameOutput,
                                attachment_index: int, grad_taps: int = 1) -> torch.Tensor:
         """Sample an attachment (albedo, splat, ...) at the frame's morphed
         vertex uvs, the fragment-stage attachment fetch for custom materials
         (attachments.wgsl:12-43), with the view's last uniforms. Returns
-        (F, G+1, G+1, C) f32 in [0, 1]. ``grad_taps > 1`` (the anisotropic
-        multi-tap sampler) is not ported yet."""
-        if grad_taps > 1:
-            raise NotImplementedError("the multi-tap gradient sampler is not ported yet")
+        (F, G+1, G+1, C) f32 in [0, 1]. ``grad_taps > 1`` takes the
+        anisotropic multi-tap sampler, the SAMPLE_GRAD equivalent for colour
+        under grazing angles (``grad_taps`` staged sampler passes,
+        ops/patch_sampling.sample_attachment_vertices_grad)."""
         if not self.use_grid_mesh:
             raise RuntimeError("sample_attachment_grid requires the grid mesh path")
         att = self.atlas.attachments[attachment_index]
@@ -432,8 +707,13 @@ class Terrain:
             raise NotImplementedError(
                 f"attachment {attachment_index} ({att.name!r}) is too small for the patch "
                 f"plan and cannot be sampled at the mesh's vertices")
-        cfg = self._static_cfgs[view_id]
-        uniforms = unpack_frame_uniforms(self._last_blobs[view_id], cfg.side_count,
-                                         cfg.lod_count, cfg.tree_size)
+        uniforms, cfg = self.frame_inputs(view_id)
+        if grad_taps > 1:
+            mesh = frame_output.mesh
+            return sample_attachment_vertices_grad(
+                att.block_arrays, frame_output.tiles, mesh.uvs, mesh, uniforms, cfg,
+                att.patch_plan, att.config.format.max_value, taps=grad_taps,
+                packed_channels=att.config.format.channels if att.block_packed else 0,
+                packed_bits=att.packed_bits)
         return self._sample(attachment_index, frame_output.tiles, frame_output.mesh, uniforms,
                             cfg)

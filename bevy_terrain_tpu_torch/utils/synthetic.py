@@ -5,7 +5,8 @@ analytic height function, so the streaming/rendering stack can be exercised
 and golden-tested without real imagery: a planar terrain
 (:func:`generate_planar_dataset`, with an analytic colour field for a
 multi-channel attachment such as an Rgba8 albedo) or a cube sphere, six
-sides (:func:`generate_spherical_dataset`). The payload layout matches the
+sides (:func:`generate_spherical_dataset`, heights or a colour field of the
+unit cube-sphere position). The payload layout matches the
 reference's disk format exactly (SURVEY.md section 2 "Tile payload files").
 
 These are test and benchmark fixtures. The JAX package's tests make the
@@ -51,6 +52,17 @@ def default_color_fn(u: np.ndarray, v: np.ndarray) -> np.ndarray:
     red = 0.1 + 0.85 * u
     blue = 0.5 + 0.3 * np.sin(2 * np.pi * 4 * (u + 0.5 * v))
     return np.stack([red, v, blue, np.ones_like(u)], axis=-1)
+
+
+def default_sphere_color_fn(p: np.ndarray) -> np.ndarray:
+    """Smooth analytic RGBA in [0, 1] (..., 4) of a unit cube-sphere local
+    position (..., 3): continuous across the six sides, red never zero,
+    opaque alpha."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    red = 0.55 + 0.4 * x
+    green = 0.5 + 0.45 * np.sin(2.5 * y + 0.5) * np.cos(1.5 * z)
+    blue = 0.5 + 0.3 * np.sin(4 * (x + 0.5 * z))
+    return np.stack([red, green, blue, np.ones_like(x)], axis=-1)
 
 
 def _texel_uv(coordinate: TileCoordinate, attachment: AttachmentConfig):
@@ -147,11 +159,18 @@ def generate_spherical_dataset(
     attachment: AttachmentConfig,
     height_fn: Callable[[np.ndarray], np.ndarray] = default_sphere_height_fn,
     root: str = "assets",
+    field_fn: Callable[[np.ndarray], np.ndarray] | None = None,
 ) -> list[TileCoordinate]:
     """Write all tiles of the six cube-sphere sides for lods 0..lod_count-1,
-    in :func:`generate_planar_dataset`'s layout; heights are
-    ``height_fn`` of the unit cube-sphere position (a test fixture: real
-    planets come from the preprocessor)."""
+    in :func:`generate_planar_dataset`'s layout. A one-channel attachment
+    holds ``height_fn`` of the unit cube-sphere position; a multi-channel
+    one (Rgba8, Rg16) holds ``field_fn`` of it, C channels in [0, 1]
+    (default :func:`default_sphere_color_fn`, cut to C channels), channel 0
+    kept non-zero (a test fixture: real planets come from the
+    preprocessor)."""
+    if attachment.format.channels > 1:
+        channels = attachment.format.channels
+        height_fn = field_fn or (lambda p: default_sphere_color_fn(p)[..., :channels])
     data_dir = Path(root) / path / "data" / attachment.name
     data_dir.mkdir(parents=True, exist_ok=True)
     tiles = []

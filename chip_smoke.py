@@ -16,7 +16,12 @@
    for the WGS84-like ellipsoid and for the sphere at 3 km (the Taylor near
    field): refinement and plan on the card against the CPU (only
    subdivision-threshold ties may differ), the spherical kernel against its
-   plain version, timings.
+   plain version, timings. On each of the three frames also the spherical
+   material kernel phase: ``mesh_fused_spherical_albedo`` (K3s: fast, exact,
+   opaque and combined blocks) on a 512-slot random packed Rgba8 albedo of
+   the height's plan against its plain version, its mesh channels against
+   K2's output (bit for bit) and its colours against the packed sampler at
+   the kernel's own morphed uvs, timed and bounded.
 4. Material kernel phase, at the bench.py frame with a 1024-slot random
    packed Rgba8 albedo of the height's plan: the albedo kernel (fast,
    exact, opaque and combined blocks), the shaded kernel (directional,
@@ -34,7 +39,12 @@
 6. Main paths: a synthetic 8k^2 planar dataset; a synthetic six-side
    planet, fused (the Taylor path) and then staged (``add_view(...,
    high_precision=False)``: ``generate_mesh_grid``, K6 once per frame and no
-   mesh kernel), the two stages timed in turns; the 8k^2 dataset with an
+   mesh kernel), the two stages timed in turns; the planet with a
+   synthetic Rgba8 albedo lit by a StandardMaterial (a planet's material is
+   staged: K2 + the packed sampler every frame, no in-kernel material), the
+   stage timed in turns with the height-only one, then the unlit albedo and
+   the albedo in the mesh kernel (K3s) through
+   ``meshgen.generate_mesh_fused``; the 8k^2 dataset with an
    Rgba8 albedo lit by a StandardMaterial (then opaque, the staged unlit
    albedo, the albedo in the mesh kernel through
    ``meshgen.generate_mesh_fused``, one attachment grid, and an albedo with
@@ -47,6 +57,14 @@
    and read just after), the output must be finite, in range and match the
    plain version; a torch.profiler pass breaks each device stage's time
    down by kernel.
+7. Query path, on the streamed planar terrain and on the planet with its
+   albedo: ``Terrain.query_heights`` / ``query_attachment`` on 65 536
+   seeded world points, the card against the same ops on the CPU and
+   against the host sampling API on 256 of them, timed; no kernel launches.
+8. Adaptive capacity path, on the planar terrain: a fly-in and two
+   teleports over the capacity ladder against the same path at the fixed
+   capacity: no frame drops geometry, the teleport re-dispatches its frame,
+   the settled frames are equal.
 
 Exits non-zero (and prints no result line) when there is no CUDA card or
 any check fails. The last line of stdout is the JSON result.
@@ -78,6 +96,8 @@ KERNELS = [
      "bevy_terrain_tpu/ops/pallas_kernels.py:1135"),
     ("mesh_fused_shaded", "cuda", "bevy_terrain_tpu_torch/csrc/mesh_fused.cu",
      "bevy_terrain_tpu/ops/pallas_kernels.py:374"),
+    ("mesh_fused_spherical_albedo", "cuda", "bevy_terrain_tpu_torch/csrc/mesh_fused.cu",
+     "bevy_terrain_tpu/ops/pallas_kernels.py:1135"),
     ("attach_sample_fused", "cuda", "bevy_terrain_tpu_torch/csrc/attach_sample.cu",
      "bevy_terrain_tpu/ops/pallas_kernels.py:1552"),
     ("attach_sample_fused_packed", "cuda", "bevy_terrain_tpu_torch/csrc/attach_sample.cu",
@@ -123,6 +143,15 @@ TOL_HALFGRID = 0.05
 # staged mesh vs fused mesh kernel on the same tiles: the JAX package's
 # fused-vs-staged yardsticks (tests/test_fused_mesh.py:95-97)
 TOL_STAGED_POS, TOL_STAGED_UV = 2e-2, 1e-6
+
+# device-side queries, heights in m: the card against the same torch ops on
+# the CPU (both f32; libm's log2 in the blend ratio and the f32 face uv at
+# 6.4e6 m are what can differ), and against the f64 host sampling API point
+# by point (the CPU parity tests measure 6.5e-5 m planar, 1.0e-3 m on a
+# planet); colours in [0, 1]
+TOL_QUERY = {"planar": (1e-3, 1e-2), "planet": (5e-2, 1e-1)}
+TOL_QUERY_COLOR = (1e-5, 2.0 / 255.0)
+QUERY_POINTS = 65536  # what one physics or placement tick asks
 
 TEXTURE_SIZE, BORDER, LOD_COUNT, SIDE = 512, 2, 5, 8000.0
 VIEW = (SIDE * 0.03, 120.0, -SIDE * 0.02)
@@ -481,7 +510,12 @@ def sphere_kernel_phase(results: dict) -> None:
     rng = np.random.default_rng(1)
     blocks = torch.from_numpy(
         rng.integers(0, 65535, (n_blocks, 32, 128)).astype(np.int32)).cuda()
-    errs = []
+    # the spherical material kernel phase's albedo: 512 slots of random
+    # packed Rgba8 words with the height's plan (default_rng(8))
+    albedo = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 1 << 32, (n_blocks, 32, 128), dtype=np.uint32).view(np.int32)).cuda()
+    combined = torch.cat([blocks, albedo], dim=1)
+    errs, alb_errs = [], []
     for kind, altitude in SPH_CASES:
         what = f"{kind} at {altitude / 1e3:g} km"
         model = sphere_model(kind)
@@ -509,7 +543,7 @@ def sphere_kernel_phase(results: dict) -> None:
             return (u, *meshgen.fused_kernel_args(tiles, block_array, u, cfg, plan,
                                                   65535.0))
 
-        _, tiles, batch, args = plan_frame("cuda", blocks)
+        u, tiles, batch, args = plan_frame("cuda", blocks)
         cu, ctiles, cbatch, _ = plan_frame(
             "cpu", torch.empty((n_blocks, 32, 128), dtype=torch.int32))
         n, cn = int(tiles.tile_count), int(ctiles.tile_count)
@@ -557,10 +591,85 @@ def sphere_kernel_phase(results: dict) -> None:
         if (kind, altitude) == SPH_CASES[0]:
             results["mesh_fused_spherical"] = dict(ms=ms, plain_ms=plain_ms, **bound,
                                                    library_ms=None)
+        row, err = sphere_albedo_case(what, kind, args, got, albedo, combined, u, tiles, batch,
+                                      cfg, plan, n, live_hp)
+        alb_errs.append(err)
+        if (kind, altitude) == SPH_CASES[0]:
+            results["mesh_fused_spherical_albedo"] = row
         del args, got, want
     results["mesh_fused_spherical"]["max_abs_err"] = max(errs)
-    del blocks
+    results["mesh_fused_spherical_albedo"]["max_abs_err"] = max(alb_errs)
+    del blocks, albedo, combined
     torch.cuda.empty_cache()
+
+
+def sphere_albedo_case(what, kind, args, k2, albedo, combined, u, tiles, batch, cfg, plan,
+                       n: int, live_hp: int):
+    """The spherical material kernel phase on one Earth frame: K3s (fast,
+    exact, opaque, combined blocks) against its plain version on the
+    spherical kernel phase's inputs ``args`` and a random packed Rgba8
+    albedo; its mesh channels against K2's output ``k2``; its colours
+    against the packed sampler (K5b) at the kernel's own morphed uvs; timed
+    and bounded. Returns (the fast form's result row, the largest colour
+    gap to the plain version over the forms, of full scale)."""
+    import torch
+
+    from bevy_terrain_tpu_torch.ops import kernels, patch_sampling
+
+    wrapper, plain = (kernels.mesh_fused_spherical_albedo,
+                      kernels.mesh_fused_spherical_albedo_reference)
+    n_unique, Fp, C0 = int(batch.n_unique), args[1].shape[0], kernels.SPH_CH
+    # K5b at the attachment plan (the frame's row order) and K2's morphed uvs
+    _, abatch = patch_sampling.plan_patch_batch(tiles, u, cfg, plan, albedo.shape[0],
+                                                assume_sorted=True)
+    geom = abatch.geom.clone()
+    geom[:, 4] = 0.0
+    sampled = kernels.attach_sample_fused_packed(
+        albedo, abatch.ids, geom, k2[:, 4:6].contiguous(), args[6], 4, 8)
+    # (args, channels, fast)
+    forms = {
+        "fast": ((*args, albedo, 4, 8, True, False), 4, True),
+        "exact": ((*args, albedo, 4, 8, False, False), 4, False),
+        "opaque": ((*args, albedo, 3, 8, True, False), 3, True),
+        "combined": ((combined, *args[1:], None, 4, 8, True, True), 4, True),
+    }
+    worst, row = 0.0, None
+    for form, (fargs, channels, fast) in forms.items():
+        got = wrapper(*fargs)
+        torch.cuda.synchronize()
+        want = plain(*fargs)
+        if got.shape != (Fp, C0 + channels, 17, 17) or not torch.equal(got[:, :C0], k2):
+            raise AssertionError(f"{what} ({form}): the mesh channels differ from "
+                                 f"mesh_fused_spherical's")
+        err = float((got[:, C0:] - want[:, C0:]).abs().max()) / 255.0
+        gap = float((got[:, C0:] - sampled[:, :channels]).abs().max()) / 255.0
+        tol = TOL_ALB_FAST if fast else TOL_ALB_EXACT
+        if not (err <= tol and gap <= tol and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{what} ({form}): colours off the plain version ({err}) or "
+                                 f"the packed sampler ({gap}), tol {tol}")
+        if got[n:].any() or not got[:n, C0:].any():
+            raise AssertionError(f"{what} ({form}): dead tiles not zero, or no colour")
+        ms = device_ms(lambda: wrapper(*fargs))
+        flushed_ms = cold_ms(lambda: wrapper(*fargs))
+        plain_ms = device_ms(lambda: plain(*fargs), n=5)
+        print(f"mesh_fused_spherical_albedo ({what}, {form}): max |kernel - plain| {err:.3e} "
+              f"of full scale (tol {tol:.1e}), vs attach_sample_fused_packed at the kernel's "
+              f"uvs {gap:.3e}; mesh channels equal mesh_fused_spherical's; {ms:.4f} ms "
+              f"(device, L2 warm), {flushed_ms:.4f} ms (L2 flushed); plain PyTorch version "
+              f"{plain_ms:.4f} ms (device)")
+        # unique height and albedo quads, the per-tile and frame arrays,
+        # the output; K2's operations plus the albedo's
+        nbytes = (2 * n_unique * QUAD_BYTES + tensor_bytes(*args[1:7])
+                  + Fp * (C0 + channels) * GV2 * 4)
+        ops = (n * (OPS_TILE + GV2 * OPS_VERTEX[kind]) + live_hp * GV2 * OPS_VERTEX_HP
+               + n * channels * (OPS_ALB_HALF + (0 if fast else OPS_ALB_SUM)
+                                 + GV2 * OPS_ALB_VERTEX))
+        b = bound(nbytes, ops)
+        worst = max(worst, err)
+        if form == "fast":  # meshgen.generate_mesh_fused's default
+            row = dict(ms=ms, plain_ms=plain_ms, **b, library_ms=None)
+        del got, want
+    return row, worst
 
 
 # -- material kernel phase ----------------------------------------------------
@@ -944,12 +1053,13 @@ def read_counts() -> dict:
     return {name: getattr(kernels, name).launches for name, *_ in KERNELS}
 
 
-def stream(terrain, view, view_proj, kernel_name, what: str, absent=(), timed: int = 30):
+def stream(terrain, view, view_proj, kernel_name, what: str, absent=(), timed: int = 30,
+           also=()):
     """Stream ``terrain`` to quiescence, then ``timed`` timed frames. The
     launch counts are set to 0 just before and read just after; every frame
-    must have launched ``kernel_name`` (None: no kernel at all), and none
-    the kernels in ``absent``. Returns (last output, frames, update walls in
-    s)."""
+    must have launched ``kernel_name`` (None: no kernel at all) and each
+    kernel in ``also`` once, and none the kernels in ``absent``. Returns
+    (last output, frames, update walls in s)."""
     import torch
 
     reset_counts()
@@ -976,9 +1086,9 @@ def stream(terrain, view, view_proj, kernel_name, what: str, absent=(), timed: i
           f"launches {counts}")
     if kernel_name is None:
         absent = tuple(counts)
-    elif counts[kernel_name] != frames:
-        raise AssertionError(f"{kernel_name} launched {counts[kernel_name]} times in "
-                             f"{frames} frames")
+    for k in () if kernel_name is None else (kernel_name, *also):
+        if counts[k] != frames:
+            raise AssertionError(f"{k} launched {counts[k]} times in {frames} frames")
     if any(counts[k] for k in absent):
         raise AssertionError(f"{what}: {', '.join(absent)} must not launch")
     return out, frames, walls
@@ -1053,7 +1163,181 @@ def main_path_phase() -> int:
         compare(out.raw_mesh, kernels.mesh_fused_planar_reference(*out.mesh_inputs),
                 "main path last frame")
         stage_timing(terrain, "main path", n, hmin, hmax, walls)
+        query_path(terrain, "planar")
+        adaptive_capacity_path(terrain, view)
         return launches
+
+
+
+def query_points(kind: str, model, n: int):
+    """``n`` seeded world positions (default_rng(11)): over the planar
+    terrain up to its height range, or around the planet camera's nadir
+    (across the neighbouring cube faces) up to 20 km above the sphere."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    if kind == "planet":
+        d = rng.normal(size=(n, 3)) * np.array([0.6, 0.6, 0.2]) + np.array([0.0, 0.0, 1.0])
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        return d * (RADIUS + rng.uniform(0.0, 20_000.0, (n, 1)))
+    return np.stack([rng.uniform(-0.48, 0.48, n) * SIDE, rng.uniform(0.0, 250.0, n),
+                     rng.uniform(-0.48, 0.48, n) * SIDE], axis=-1)
+
+
+def query_path(terrain, kind: str, albedo_index=None) -> None:
+    """The query path on a streamed terrain: ``Terrain.query_heights`` (and
+    ``query_attachment`` of ``albedo_index``) on QUERY_POINTS seeded world
+    points against the view's last uniforms, which stay on the card. Held to
+    the same torch ops on the CPU (the blob and the slab copied over) and,
+    on 256 of the points, to the f64 host sampling API; timed per call
+    (queued back to back, the stream span of one call, and the device kernel
+    time from the profiler). No kernel of csrc/ may launch."""
+    import numpy as np
+    import torch
+
+    from bevy_terrain_tpu_torch.ops import sampling
+    from bevy_terrain_tpu_torch.ops.params import unpack_frame_uniforms
+    from bevy_terrain_tpu_torch.terrain_data.sampling_api import sample_attachment, sample_height
+
+    what = f"query path ({kind})"
+    model = terrain.config.model
+    pts = query_points(kind, model, QUERY_POINTS)
+    pts_dev = torch.from_numpy(pts.astype(np.float32)).cuda()
+    reset_counts()
+    got = terrain.query_heights("cam", pts)  # numpy in, a tensor on the card out
+    torch.cuda.synchronize()
+    if got.device.type != "cuda" or got.shape != (QUERY_POINTS,) or not torch.equal(
+            got, terrain.query_heights("cam", pts_dev)):
+        raise AssertionError(f"{what}: heights {tuple(got.shape)} on {got.device}")
+    cfg = terrain._static_cfgs["cam"]
+    cu = unpack_frame_uniforms(terrain._last_blobs["cam"].cpu(), cfg.side_count,
+                               cfg.lod_count, cfg.tree_size)
+    tree = terrain.tile_trees["cam"]
+    sub = np.random.default_rng(12).choice(QUERY_POINTS, 256, replace=False)
+    tol_cpu, tol_host = TOL_QUERY[kind]
+
+    height = terrain.atlas.attachments[0]
+    want = sampling.query_heights(height.slabs[0].cpu(), cu, cfg, pts_dev.cpu(),
+                                  height.config.scale, height.config.offset)
+    err_cpu = float((got.cpu() - want).abs().max())
+    host = np.array([sample_height(tree, terrain.atlas, pts[i]) for i in sub])
+    err_host = float(np.abs(got.cpu().numpy()[sub] - host).max())
+    # a query is a chain of small torch ops: queued back to back the host's
+    # launches set the pace, so the device's share comes from the profiler
+    ms = device_ms(lambda: terrain.query_heights("cam", pts_dev))
+    span = cuda_ms(lambda: terrain.query_heights("cam", pts_dev), n=10)
+    hmin, hmax = float(got.min()), float(got.max())
+    print(f"{what}: query_heights on {QUERY_POINTS} points, heights [{hmin:.2f}, {hmax:.2f}] "
+          f"m; max |card - CPU| {err_cpu:.3e} m (tol {tol_cpu:.0e}), |card - host sampling "
+          f"API| on {len(sub)} points {err_host:.3e} m (tol {tol_host:.0e}); {ms:.4f} ms "
+          f"per call queued back to back, {span:.4f} ms stream span of one call")
+    profile_stage(lambda: terrain.query_heights("cam", pts_dev), f"{what}, query_heights")
+    if not (bool(torch.isfinite(got).all()) and model.min_height <= hmin
+            and hmax <= model.max_height
+            and float(got.std()) > 0.02 * (model.max_height - model.min_height)):
+        raise AssertionError(f"{what}: heights not finite, out of range or flat")
+    hold(err_cpu, tol_cpu, f"{what}: card vs CPU heights")
+    hold(err_host, tol_host, f"{what}: card vs host sampling API heights")
+
+    if albedo_index is not None:
+        att = terrain.atlas.attachments[albedo_index]
+        colors = terrain.query_attachment("cam", pts_dev, albedo_index)
+        torch.cuda.synchronize()
+        want = sampling.query_attachment(att.slabs[0].cpu(), cu, cfg, pts_dev.cpu(),
+                                         att.config.scale, att.config.offset,
+                                         att.config.format.max_value)
+        cerr_cpu = float((colors.cpu() - want).abs().max())
+        host = np.array([sample_attachment(tree, terrain.atlas, albedo_index, pts[i])
+                         for i in sub])
+        cerr_host = float(np.abs(colors.cpu().numpy()[sub] - host).max())
+        cms = device_ms(lambda: terrain.query_attachment("cam", pts_dev, albedo_index))
+        print(f"{what}: query_attachment {tuple(colors.shape)}, colours in "
+              f"[{float(colors.min()):.4f}, {float(colors.max()):.4f}]; max |card - CPU| "
+              f"{cerr_cpu:.3e} (tol {TOL_QUERY_COLOR[0]:.0e}), |card - host sampling API| "
+              f"{cerr_host:.3e} (tol {TOL_QUERY_COLOR[1]:.1e}); {cms:.4f} ms per call queued "
+              f"back to back")
+        if colors.shape != (QUERY_POINTS, 4) or not float(colors[:, 0].min()) > 0.0:
+            raise AssertionError(f"{what}: colours {tuple(colors.shape)} or an empty channel 0")
+        hold(cerr_cpu, TOL_QUERY_COLOR[0], f"{what}: card vs CPU colours")
+        hold(cerr_host, TOL_QUERY_COLOR[1], f"{what}: card vs host sampling API colours")
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{what}: a query launched a kernel: {counts}")
+
+
+def adaptive_capacity_path(terrain, view) -> None:
+    """Adaptive capacity on the streamed planar terrain: a fly-in from 6 km
+    above the bench camera down to it, a teleport away (3 km off, 5 km up)
+    and a teleport back. The path runs once at the fixed capacity and once
+    over the default ladder (1024 / 2048 / 4096); at each camera the terrain
+    is updated until no tile is loading. Every update of the adaptive pass
+    must report overflow 0, the teleport back must re-dispatch its frame,
+    and each camera's settled frame must equal the fixed-capacity one (tile
+    list and mesh, bit for bit)."""
+    import numpy as np
+    import torch
+
+    from bevy_terrain_tpu_torch.math import frustum
+
+    what = "adaptive capacity path"
+    cameras = [view + np.array([0.0, h, 0.0]) for h in (6000.0, 3000.0, 1500.0, 700.0, 300.0,
+                                                         0.0)]
+    cameras += [view + np.array([3000.0, 5000.0, -2000.0]), view]
+
+    def proj(pos):
+        target = pos + np.array([1000.0, -40.0 - 0.8 * (pos[1] - view[1]), 300.0])
+        return frustum.view_projection(pos, target, np.pi / 3, 16 / 9)
+
+    def fly(adaptive: bool):
+        frames, overflows, rungs = [], 0, []
+        for pos in cameras:
+            for i in range(60):
+                out = terrain.update({"cam": pos}, {"cam": proj(pos)})["cam"]
+                overflows += out.overflow
+                if adaptive:
+                    rungs.append(terrain.frame_inputs("cam")[1].tile_capacity)
+                if i > 0 and not terrain.atlas.state.to_load and not any(
+                        a.loading for a in terrain.atlas.attachments):
+                    break
+            n = out.tile_count
+            frames.append((n, out.tiles.tile_lod[:n].clone(), out.tiles.tile_xy[:n].clone(),
+                           out.raw_mesh[:n].clone()))
+        return frames, overflows, rungs
+
+    fixed, fixed_overflows, _ = fly(False)
+    capacity = terrain.view_configs["cam"].tile_capacity
+    terrain.enable_adaptive_capacity("cam")
+    reset_counts()
+    try:
+        before = (terrain.overflow_checks, terrain.overflow_redispatches)
+        adapted, overflows, rungs = fly(True)
+        checks = terrain.overflow_checks - before[0]
+        redispatches = terrain.overflow_redispatches - before[1]
+        ladder = terrain._adaptive["cam"]["ladder"]
+    finally:
+        terrain.disable_adaptive_capacity("cam")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    updates = len(rungs)
+    print(f"{what}: {len(cameras)} cameras, {updates} updates over the ladder {ladder}; tiles "
+          f"per camera {[f[0] for f in adapted]}; rungs taken {sorted(set(rungs))} "
+          f"({[rungs.count(r) for r in sorted(set(rungs))]} updates); {checks} overflow checks, "
+          f"{redispatches} same-frame re-dispatches; overflow over all updates {overflows} "
+          f"(fixed capacity {fixed_overflows}); mesh kernel launches "
+          f"{counts['mesh_fused_planar']}")
+    if overflows or fixed_overflows:
+        raise AssertionError(f"{what}: a frame dropped geometry")
+    if redispatches < 1 or len(set(rungs)) < 2 or min(rungs) >= capacity:
+        raise AssertionError(f"{what}: the ladder was not walked, or no re-dispatch")
+    if counts["mesh_fused_planar"] != updates + redispatches:
+        raise AssertionError(f"{what}: {counts['mesh_fused_planar']} mesh launches for "
+                             f"{updates} updates and {redispatches} re-dispatches")
+    for i, (a, f) in enumerate(zip(adapted, fixed)):
+        if a[0] != f[0] or not all(torch.equal(x, y) for x, y in zip(a[1:], f[1:])):
+            raise AssertionError(f"{what}: camera {i}'s frame differs from the fixed-capacity "
+                                 f"one")
+    print(f"{what}: every camera's settled frame equals the fixed-capacity one (tile list "
+          f"and mesh rows, bit for bit)")
 
 
 def check_sphere_mesh(mesh, n: int, model, what: str):
@@ -1177,6 +1461,158 @@ def sphere_main_path_phase() -> dict:
         print(f"{swhat}: stage span in turns, fused / staged / staged / fused: "
               + " / ".join(f"{t:.4f}" for t in turns) + " ms")
         return {"mesh_fused_spherical": launches, "fetch_resample_cached": staged_launches}
+
+
+def sphere_material_main_path_phase() -> dict:
+    """The spherical material main path: the six-side planet of the sphere
+    main path plus a synthetic Rgba8 albedo of the height's plan (a colour
+    field of the unit cube-sphere position), lit by a StandardMaterial under
+    the Earth scene's camera. A planet's material is staged in both
+    packages: every frame must go through ``mesh_fused_spherical`` (K2) and
+    ``attach_sample_fused_packed`` (K5b), then ``render/material.shade`` on
+    the kernel's sphere normals, and never through an in-kernel material.
+    The last frame is held to the same stage with the two kernels' plain
+    versions; the stage's span is timed in turns with the height-only
+    spherical stage. Then the unlit albedo, the frame's mesh with the
+    albedo sampled in the kernel through ``meshgen.generate_mesh_fused``
+    (K3s) against the pipeline's colours, and the query path on the
+    planet. Returns K3s's launches."""
+    import torch
+
+    from bevy_terrain_tpu_torch import Terrain
+    from bevy_terrain_tpu_torch.config import (
+        AttachmentConfig, AttachmentFormat, TerrainConfig, TerrainViewConfig,
+    )
+    from bevy_terrain_tpu_torch.ops import kernels, meshgen, refinement
+    from bevy_terrain_tpu_torch.render import material
+    from bevy_terrain_tpu_torch.utils.synthetic import generate_spherical_dataset
+
+    model = sphere_model("sphere")
+    view, view_proj = sphere_view(model)
+    kw = dict(texture_size=TEXTURE_SIZE, border_size=BORDER, mip_level_count=4)
+    atts = (AttachmentConfig(name="height", **kw),
+            AttachmentConfig(name="albedo", format=AttachmentFormat.RGBA8, **kw))
+    what = "sphere material main path"
+    # the sun over the camera's side of the planet
+    lit = material.StandardMaterial(
+        base_color=material.albedo_material(1), perceptual_roughness=0.7, metallic=0.1,
+        reflectance=0.3,
+        lights=(material.DirectionalLight(direction=(-0.3, -0.2, -0.9), color=(1.0, 0.95, 0.9),
+                                          illuminance=0.9),))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sphere_material_") as tmp:
+        t0 = time.perf_counter()
+        tiles = [generate_spherical_dataset("smoke_sphere", SPH_DATA_LODS, att, root=tmp)
+                 for att in atts]
+        print(f"{what}: wrote {len(tiles[0])} tiles each of {TEXTURE_SIZE}^2 R16 height and "
+              f"Rgba8 albedo on 6 sides (lods 0-{SPH_DATA_LODS - 1}) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        config = TerrainConfig(lod_count=SPH_LODS, model=model, atlas_size=SPH_ATLAS,
+                               path="smoke_sphere", attachments=atts, assets_root=tmp)
+        terrain = Terrain(config)
+        if terrain.device.type != "cuda":
+            raise AssertionError(f"Terrain(config) runs on {terrain.device}, not the card")
+        terrain.add_view("cam", TerrainViewConfig(tile_capacity=SPH_CAPACITY),
+                         queue_capacity=2048, culling=True)
+        terrain.set_shading(lit, sample_attachments=(1,))
+        # on a planar frame this material would run in the mesh kernel; on
+        # a planet the pipeline stages it all the same
+        if terrain._fused_material is None:
+            raise AssertionError(f"{what}: the material no longer qualifies for the "
+                                 f"in-kernel shade of a planar frame")
+        staged = ("mesh_fused_spherical", "attach_sample_fused_packed")
+        others = tuple(k for k, *_ in KERNELS if k not in staged)
+        out, frames, walls = stream(terrain, view, view_proj, staged[0], what, absent=others,
+                                    timed=20, also=staged[1:])
+        n, F = out.tile_count, SPH_CAPACITY
+        if n <= 100 or out.overflow != 0 or out.raw_mesh.shape[1] != kernels.SPH_CH:
+            raise AssertionError(f"{what} frame: tile_count {n}, overflow {out.overflow}, raw "
+                                 f"{tuple(out.raw_mesh.shape)}")
+        hmin, hmax = check_sphere_mesh(out.mesh, n, model, what)
+        colors = out.colors
+        if colors.shape != (F, 17, 17, 4) or not bool(torch.isfinite(colors).all()):
+            raise AssertionError(f"{what}: colours {tuple(colors.shape)} or not finite")
+        cfg, blob = terrain._static_cfgs["cam"], terrain._last_blobs["cam"]
+        height, albedo = terrain.atlas.attachments
+
+        def material_stage():
+            return terrain._device_stage(blob, cfg)
+
+        def mesh_stage():
+            return terrain.frame_step(height.block_array, blob, cfg, height.patch_plan,
+                                      height.config.format.max_value)
+
+        # the same stage with K2's and K5b's plain versions
+        wrappers = {k: getattr(kernels, k) for k in staged}
+        for k in staged:
+            setattr(kernels, k, getattr(kernels, k + "_reference"))
+        try:
+            plain = material_stage()
+        finally:
+            for k, w in wrappers.items():
+                setattr(kernels, k, w)
+        rgb = colors[:n, ..., :3]
+        err = float((colors - plain.colors).abs().max())
+        # lit colours carry the kernel-vs-plain height gap (2e-3 m over
+        # tens of metres of vertex spacing) through the normals
+        print(f"{what}: {n} tiles, heights [{hmin:.2f}, {hmax:.2f}] m, linear RGB in "
+              f"[{float(rgb.min()):.4f}, {float(rgb.max()):.4f}] (mean {float(rgb.mean()):.4f}), "
+              f"alpha [{float(colors[:n, ..., 3].min()):.4f}, "
+              f"{float(colors[:n, ..., 3].max()):.4f}]; max |kernels - plain versions| colours "
+              f"{err:.3e} (tol {TOL_SHADE_EXACT:.0e}); update "
+              f"{statistics.median(walls) * 1e3:.3f} ms median wall")
+        if not (err <= TOL_SHADE_EXACT and float(rgb.mean()) > 0.02 and not colors[n:].any()):
+            raise AssertionError(f"{what}: lit colours disagree with the plain versions, are "
+                                 f"dark, or dead tiles are not zero")
+        compare_spherical(out.raw_mesh, kernels.mesh_fused_spherical_reference(
+            *out.mesh_inputs), f"{what} last frame mesh")
+        turns = [cuda_ms(f, n=10) for f in (mesh_stage, material_stage, material_stage,
+                                            mesh_stage)]
+        print(f"{what}: stage span in turns, height-only / material / material / height-only: "
+              + " / ".join(f"{t:.4f}" for t in turns) + " ms (CUDA events, stream span)")
+        profile_stage(material_stage, what)
+
+        # the unlit albedo: the colours are the sampler's values
+        terrain.set_shading(material.albedo_material(1), lighting=False,
+                            sample_attachments=(1,))
+        reset_counts()
+        count = 5
+        for _ in range(count):
+            out = terrain.update({"cam": view}, {"cam": view_proj})["cam"]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(f"{what} (unlit albedo): {count} frames, launches {counts}")
+        if any(counts[k] != (count if k in staged else 0) for k in counts):
+            raise AssertionError(f"{what} (unlit albedo): not K2 + K5b once per frame")
+        mask = out.mesh.tile_mask
+        red = out.colors[mask][..., 0]
+        if not (float(red.min()) > 0.1 and float(out.colors[mask][..., 3].min()) > 0.99):
+            raise AssertionError(f"{what}: the sampled albedo is off the synthetic field")
+
+        # the last frame's mesh with the albedo sampled in the kernel (K3s)
+        uniforms, _ = terrain.frame_inputs("cam")
+        reset_counts()
+        for _ in range(count):
+            raw, _ = meshgen.generate_mesh_fused(
+                refinement.refine_tiles(uniforms, cfg), height.block_array, uniforms, cfg,
+                height.patch_plan, height.config.format.max_value,
+                albedo_blocks=albedo.block_array, albedo_channels=4, albedo_bits=8)
+        torch.cuda.synchronize()
+        k3s_counts = read_counts()
+        rgba = meshgen.fused_albedo_to_grid(raw, cfg, 4, 255.0)
+        err = float((rgba[mask] - out.colors[mask]).abs().max())
+        same_mesh = torch.equal(raw[:, :kernels.SPH_CH], out.raw_mesh)
+        print(f"{what} (mesh + albedo, generate_mesh_fused): {count} calls, launches "
+              f"{k3s_counts}; mesh channels equal the frame's: {same_mesh}; fast albedo vs the "
+              f"pipeline's sampled colours {err:.3e} (tol {TOL_ALB_FAST:.1e})")
+        name = "mesh_fused_spherical_albedo"
+        if k3s_counts[name] != count or any(v for k, v in k3s_counts.items() if k != name):
+            raise AssertionError("generate_mesh_fused with a planet's albedo did not launch "
+                                 f"{name} once per call, and nothing else")
+        if not (same_mesh and err <= TOL_ALB_FAST):
+            raise AssertionError(f"{what}: K3s's mesh channels or colours disagree with the "
+                                 f"frame's")
+        query_path(terrain, "planet", albedo_index=1)
+        return {name: k3s_counts[name]}
 
 
 def material_main_path_phase() -> dict:
@@ -1432,7 +1868,8 @@ def profile_stage(device_stage, what: str) -> None:
           f"{n_kernels / 10:.0f} device ops per stage")
     for i, e in enumerate(rows):
         if getattr(e, "self_device_time_total", 0.0) > 0 and (
-                i < 15 or "mesh_fused" in e.key or "fetch_resample" in e.key):
+                i < 15 or any(k in e.key for k in ("mesh_fused", "fetch_resample",
+                                                    "attach_sample"))):
             print(f"profile:   {e.key[:60]:60s} {e.count // 10:4d}x "
                   f"{e.self_device_time_total / 10 / 1e3:.4f} ms")
 
@@ -1445,6 +1882,8 @@ INSTANCES = {
     "mesh_fused_kernelILb1ELb1ELb0ELb0E": "mesh_fused_spherical (ellipsoid)",
     "mesh_fused_kernelILb0ELb0ELb1ELb0E": "mesh_fused_albedo",
     "mesh_fused_kernelILb0ELb0ELb1ELb1E": "mesh_fused_shaded",
+    "mesh_fused_kernelILb1ELb0ELb1ELb0E": "mesh_fused_spherical_albedo (sphere)",
+    "mesh_fused_kernelILb1ELb1ELb1ELb0E": "mesh_fused_spherical_albedo (ellipsoid)",
     "attach_sample_kernel": "attach_sample_fused[_packed]",
     "fetch_resample_cached_kernel": "fetch_resample_cached",
     "fetch_resample_kernel": "fetch_resample",
@@ -1496,6 +1935,7 @@ def main() -> int:
     halfgrid_kernel_phase(results)
     counts = {"mesh_fused_planar": main_path_phase(),
               **sphere_main_path_phase(),
+              **sphere_material_main_path_phase(),
               **material_main_path_phase(),
               "fetch_resample": sweep_path()}
     vertex_main_path_phase()

@@ -243,6 +243,39 @@ def test_material_kernel_matches_plain_version(form):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["fast", "exact", "opaque", "combined"])
+@pytest.mark.parametrize("kind,altitude", [("sphere", 20_000.0), ("ellipsoid", 20_000.0),
+                                           ("sphere", 3_000.0)])
+def test_spherical_albedo_kernel_matches_plain_version(kind, altitude, form):
+    """K3s: the mesh channels are K2's bit for bit, the colours the plain
+    version's (fast path bit-equal sums, held to 2/255)."""
+    dev = _card()
+    blob, blocks, cfg, plan = _sphere_scene(kind, altitude)
+    albedo = torch.from_numpy(_packed(blocks.shape, 4, 8, 9)).to(dev)
+    u = unpack_frame_uniforms(torch.from_numpy(blob).to(dev), 6, cfg.lod_count, 8)
+    tiles = refinement.refine_tiles(u, cfg)
+    _, _, args = meshgen.fused_kernel_args(tiles, torch.from_numpy(blocks).to(dev), u, cfg,
+                                           plan, 65535.0)
+    channels = 3 if form == "opaque" else 4
+    fast, combined = form != "exact", form == "combined"
+    if combined:
+        kargs = (torch.cat([args[0], albedo], dim=1), *args[1:], None, channels, 8, fast, True)
+    else:
+        kargs = (*args, albedo, channels, 8, fast, False)
+    before = kernels.mesh_fused_spherical_albedo.launches
+    got = kernels.mesh_fused_spherical_albedo(*kargs)
+    torch.cuda.synchronize()
+    assert kernels.mesh_fused_spherical_albedo.launches == before + 1
+    assert got.shape == (args[1].shape[0], 9 + channels, 17, 17)
+    assert torch.equal(got[:, :9], kernels.mesh_fused_spherical(*args))
+    want = kernels.mesh_fused_spherical_albedo_reference(*kargs)
+    err = float((got[:, 9:] - want[:, 9:]).abs().max()) / 255.0
+    assert err <= (TOL_FAST if fast else TOL_EXACT), (form, err)
+    n = int(args[6])
+    assert got[:n, 9:].any() and not got[n:].any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("channels,bits", [(1, 0), (4, 8), (2, 16)])
 def test_attach_kernel_matches_plain_version(channels, bits):
     dev = _card()

@@ -217,11 +217,13 @@ def test_wrapper_checks_arguments(frame):
         kernels.mesh_fused_albedo(*base, albedo[:-1], 4, 8)
     with pytest.raises(ValueError):  # not a material buffer
         kernels.mesh_fused_shaded(*base, albedo, 4, 8, torch.zeros(3))
-    with pytest.raises(NotImplementedError):  # the sphere's albedo variant
-        meshgen.fused_kernel_args(
-            frame["tiles"], torch.from_numpy(frame["blocks"]), frame["u"],
-            dataclasses.replace(frame["cfg"], spherical=True, high_precision=True),
-            frame["plan"], MAX_VALUE, albedo_blocks=albedo, albedo_channels=4, albedo_bits=8)
+    # the sphere's albedo wrapper wants (Fp, 45) tile parameters and step flags
+    steps = torch.ones(base[1].shape[0] // kernels.TILES_PER_STEP, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.mesh_fused_spherical_albedo(*base[:5], steps, base[5], 0, False, albedo, 4, 8)
+    with pytest.raises(NotImplementedError):  # the in-kernel shade is planar
+        meshgen.mesh_kernel(dataclasses.replace(frame["cfg"], spherical=True,
+                                                high_precision=True), 4, shaded=True)
     # a CPU call runs the plain version and does not count as a launch
     before = kernels.mesh_fused_albedo.launches
     kernels.mesh_fused_albedo(*base, albedo, 4, 8)

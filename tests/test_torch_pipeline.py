@@ -17,6 +17,7 @@ blend), streamed until quiescent. Then:
    same frame.
 """
 
+import dataclasses
 import time
 from pathlib import Path
 
@@ -37,7 +38,9 @@ from bevy_terrain_tpu_torch.config import (
 from bevy_terrain_tpu_torch.math import TerrainModel
 from bevy_terrain_tpu_torch.ops import meshgen
 from bevy_terrain_tpu_torch.ops.params import unpack_frame_uniforms
-from bevy_terrain_tpu_torch.render.material import StandardMaterial, albedo_material
+from bevy_terrain_tpu_torch.render.material import (
+    StandardMaterial, albedo_material, kernel_shade_spec,
+)
 from bevy_terrain_tpu_torch.render.pipeline import Terrain
 from bevy_terrain_tpu_torch.utils.synthetic import generate_planar_dataset
 from tests.test_torch_patch_sampling import one_torch_thread  # noqa: F401 (autouse)
@@ -198,22 +201,21 @@ def test_interop_carries_jax_atlas(dataset, port_frame, jax_terrain):
 
 @pytest.mark.parametrize("case", ["spherical", "grid_size", "small_attachment", "shading"])
 def test_unported_configurations_raise(tmp_path, case):
-    """What lies outside the ported slices raises NotImplementedError instead
-    of silently taking another path: the fused albedo on a sphere (the
-    spherical kernel's albedo variant), the fused kernel at another grid
-    size (the pipeline sends such a view through the staged path), a sampled
-    attachment too small for the patch plan, and the multi-tap gradient
-    sampler."""
+    """What the fused kernels do not cover raises NotImplementedError instead
+    of silently taking another path: a sphere without the Taylor path (the
+    pipeline sends such a view through the staged path), the fused kernel at
+    another grid size (staged too), a sampled attachment too small for the
+    patch plan, and the in-kernel shade on a sphere (its normals are a
+    planar central difference; the pipeline shades a planet with
+    render/material.shade)."""
     atts = (AttachmentConfig(**ATT),)
     model = TerrainModel.planar(np.zeros(3), 1000.0, 0.0, 100.0)
-    if case == "spherical":
+    sphere = case in ("spherical", "shading")
+    if sphere:
         model = TerrainModel.sphere(np.zeros(3), 6.4e6, 0.0, 9000.0)
     if case == "small_attachment":
         atts += (AttachmentConfig(name="albedo", texture_size=32, border_size=1,
                                   format=AttachmentFormat.RGBA8),)
-    if case == "shading":
-        atts += (AttachmentConfig(name="albedo", texture_size=512, border_size=1,
-                                  mip_level_count=4, format=AttachmentFormat.RGBA8),)
     config = TerrainConfig(model=model, attachments=atts, assets_root=str(tmp_path),
                            **{**TERRAIN, "atlas_size": 4})
     terrain = Terrain(config, device="cpu")
@@ -222,20 +224,19 @@ def test_unported_configurations_raise(tmp_path, case):
     cfg = terrain._static_cfgs["cam"]
     height = terrain.atlas.attachments[0]
     with pytest.raises(NotImplementedError):
-        if case in ("spherical", "grid_size"):
-            out = terrain.update({"cam": VIEW * (1e5 if case == "spherical" else 1.0)})["cam"]
-            assert (out.raw_mesh is None) == (case == "grid_size")
-            meshgen.fused_kernel_args(
-                out.tiles, height.block_array,
-                unpack_frame_uniforms(terrain._last_blobs["cam"], cfg.side_count,
-                                      cfg.lod_count, cfg.tree_size),
-                cfg, height.patch_plan, 65535.0, albedo_blocks=height.block_array,
-                albedo_channels=4 if case == "spherical" else 0, albedo_bits=8)
-        elif case == "small_attachment":
+        if case == "small_attachment":
             terrain.set_shading(StandardMaterial(base_color=albedo_material(1)),
                                 sample_attachments=(1,))
         else:
-            terrain.set_shading(StandardMaterial(base_color=albedo_material(1)),
-                                sample_attachments=(1,))
-            out = terrain.update({"cam": VIEW})["cam"]
-            terrain.sample_attachment_grid("cam", out, 1, grad_taps=4)
+            out = terrain.update({"cam": VIEW * (1e5 if sphere else 1.0)})["cam"]
+            assert (out.raw_mesh is None) == (case == "grid_size")
+            uniforms, _ = terrain.frame_inputs("cam")
+            if case == "spherical":
+                cfg = dataclasses.replace(cfg, high_precision=False)
+            shade = {}
+            if case == "shading":
+                spec = kernel_shade_spec(StandardMaterial(base_color=albedo_material(0)), 255.0)
+                shade = dict(albedo_blocks=height.block_array, albedo_channels=4,
+                             albedo_bits=8, shade_spec=spec)
+            meshgen.fused_kernel_args(out.tiles, height.block_array, uniforms, cfg,
+                                      height.patch_plan, 65535.0, **shade)
