@@ -170,7 +170,17 @@ fetch_resample_kernel(const int* __restrict__ blocks, long long n_blocks,
   }
 }
 
+const KernelInstance INSTANCES[] = {
+    {"fetch_resample_cached", (const void*)fetch_resample_cached_kernel, 0},
+    {"fetch_resample", (const void*)fetch_resample_kernel, 0},
+};
+
 }  // namespace
+
+int fetch_resample_instances(const KernelInstance** table) {
+  *table = INSTANCES;
+  return (int)(sizeof(INSTANCES) / sizeof(INSTANCES[0]));
+}
 
 // Launch on the caller's stream. Each returns cudaGetLastError() of the
 // launch (0 on success); the kernels allocate nothing and do not

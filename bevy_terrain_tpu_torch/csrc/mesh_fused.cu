@@ -10,25 +10,27 @@
 //
 // * The TPU kernel streams each frame's unique quads through a VMEM ring
 //   (U_MAX / LOOKAHEAD) because a TPU DMA costs ~100 ns to issue. Here each
-//   tile block reads its 16 KB quad straight from device memory with 16-byte
-//   loads. A frame touches a few hundred unique quads (a few MB) for a few
-//   thousand tiles, so repeated reads hit the 50 MB L2: the fetch is L2- and
-//   latency-bound. What bounds the kernel on this card is the bytes it must
-//   move (the output and the unique quads); the per-tile arithmetic (a 33x33
-//   two-tap resample, two 1-2-1 passes, 289 vertices, and for spheres two
-//   cube-sphere evaluations and two Taylor chains per vertex) is small.
+//   tile block of K1 / K2 reads its 16 KB quad straight from device memory
+//   with 16-byte loads. A frame touches a few hundred unique quads (a few
+//   MB) for a few thousand tiles, so repeated reads hit the 50 MB L2: the
+//   fetch is L2- and latency-bound. What bounds the kernel on this card is
+//   the bytes it must move (the output and the unique quads); the per-tile
+//   arithmetic (a 33x33 two-tap resample, two 1-2-1 passes, 289 vertices,
+//   and for spheres two cube-sphere evaluations and two Taylor chains per
+//   vertex) is small.
 // * The TPU kernel evaluates the tent resample as dense MXU dots in an
 //   evens-first half-grid order (lane slicing). A tent has at most two
 //   non-zero taps, so each half-grid point here is a 2x2 bilinear of the
 //   mean-centred patch in natural order: the same value as the dense
 //   product, without the 64-wide contractions.
-// * Tiles run one per thread block (one thread per vertex, 320 threads) in
-//   any order; nothing carries between blocks. Dead tiles (index >=
-//   tile_count, read from device memory) write zeros, as the TPU kernel
-//   zeroes its dead steps. The sphere's high-precision flag stays per
-//   64-tile step, as in the TPU kernel: a vertex takes the Taylor near field
-//   where its world-frame distance is inside the threshold AND its step
-//   (tile index >> 6) is flagged 2, even if its own tile's bound is "far".
+// * K1 / K2 run one tile per thread block (one thread per vertex, 320
+//   threads) in any order; nothing carries between blocks. Dead tiles
+//   (index >= tile_count, read from device memory) write zeros, as the TPU
+//   kernel zeroes its dead steps. The sphere's high-precision flag stays
+//   per 64-tile step, as in the TPU kernel: a vertex takes the Taylor near
+//   field where its world-frame distance is inside the threshold AND its
+//   step (tile index >> 6) is flagged 2, even if its own tile's bound is
+//   "far".
 //
 // Accumulation is f32 (the patch mean is an exact integer sum). Built
 // without fast math and without FMA contraction (--fmad=false), so the
@@ -40,41 +42,59 @@
 // [h, px, py, pz, u, v]; (n_tiles, 9, 17, 17) for spheres, adding the unit
 // world normal [nx, ny, nz]; in the sorted tile order of the patch plan.
 //
-// The material variants of the same TPU kernel:
+// The material variants of the same TPU kernel (mesh_material_kernel):
 //
 // * K3, albedo (mesh_fused with albedo_channels / albedo_bits / albedo_fast /
-//   albedo_combined), planar and spherical: per tile a second 16 KB quad of
-//   packed texels (C channels of B bits in one int32 word, channel c in bits
-//   [cB, (c+1)B)), from its own block array or from rows 32:64 of a combined
-//   (N, 64, 128) array, resampled with the height's tents and read at the
-//   morphed uv through the height's window weights; C rows of raw texel
-//   values x valid x live follow the mesh rows: (n_tiles, 6 + C, 17, 17)
-//   for a planar terrain, (n_tiles, 9 + C, 17, 17) for a sphere (in the
-//   Taylor near field the normal is the unmorphed one while the albedo is
-//   still read at the morphed uv, as in the TPU kernel). The exact
-//   path is K1's mean-centred f32 resample per channel. The fast path
-//   (B = 8) is the TPU kernel's bf16 MXU path emulated on the CUDA cores:
-//   tent weights rounded to bf16 (round to nearest even), no centring, the
-//   y contraction summed in f32 and rounded to bf16, then the x contraction
-//   in f32. A tent has at most two taps and a byte times a bf16 weight is
-//   exact in f32, so each sum rounds once, as on the TPU.
+//   albedo_combined), planar and spherical (K3s): per tile a second 16 KB
+//   quad of packed texels (C channels of B bits in one int32 word, channel
+//   c in bits [cB, (c+1)B)), from its own block array or from rows 32:64
+//   of a combined (N, 64, 128) array, resampled with the height's tents and
+//   read at the morphed uv through the height's window weights; C rows of
+//   raw texel values x valid x live follow the mesh rows: (n_tiles, 6 + C,
+//   17, 17) for a planar terrain, (n_tiles, 9 + C, 17, 17) for a sphere (in
+//   the Taylor near field the normal is the unmorphed one while the albedo
+//   is still read at the morphed uv, as in the TPU kernel). The exact path
+//   is K1's mean-centred f32 resample per channel; the fast path (B = 8) is
+//   the TPU kernel's bf16 MXU path emulated on the CUDA cores
+//   (tile_quad.cuh halfgrid_channels).
 // * K4, shaded (mesh_fused with shade=, _kernel_pbr_shade), planar only (its
-//   normals are a planar central difference): K3 plus the
-//   fragment stage on the per-vertex values already in registers --
-//   central-difference normals over the tile's heights (one-sided at the
-//   tile edge, as the TPU kernel's clamped lane shift), Filament GGX +
-//   Smith + Schlick + Burley for any number of directional / point / spot
-//   lights, emissive and ambient. The material is a small f32 buffer
-//   (ops/kernels.py pack_shade_spec), read per launch: no rebuild per
-//   material and no cap on the light count.
+//   normals are a planar central difference): K3 plus the fragment stage
+//   on the per-vertex values already in registers -- central-difference
+//   normals over the tile's heights (one-sided at the tile edge, as the TPU
+//   kernel's clamped lane shift), Filament GGX + Smith + Schlick + Burley
+//   for any number of directional / point / spot lights, emissive and
+//   ambient. The material is a small f32 buffer (ops/kernels.py
+//   pack_shade_spec), read per launch: no rebuild per material and no cap
+//   on the light count.
 //
-// Channels, bits, fast and combined are launch arguments, uniform across
-// the grid; only ALBEDO and SHADE are template parameters. K1's and K2's
-// phases compile unchanged in every instance, so the mesh rows of K3 and K4
-// are bit-identical to K1's (to K2's on a sphere) on the same inputs. Shared memory stays static
-// (under 48 KB): the albedo quad reuses the height patch buffer once the
-// height resample is done, and the shade's height grid reuses X once the
-// smoothing is done.
+// The material kernel does per tile twice the fetch, four or five times the
+// resample and, for K4, a few hundred operations per vertex more than K1;
+// its design cuts what it spends per tile rather than per byte:
+//
+// * A block walks a run of consecutive tiles in the plan's order, which
+//   sorts the tiles by quad id, and keeps the two quads it holds (heights
+//   and albedo, raw (32, 128) in shared memory) with their exact means
+//   while the ids repeat -- what the TPU kernel's ring of unique quads
+//   (uq / slots) kept out of memory. Any order of ids is right; a sorted
+//   one is fast. The live tiles are split evenly over a grid of `waves` (a
+//   launch constant of ops/kernels.py) times the blocks the card holds at
+//   once, so no block waits for a tail wave.
+// * Both quads of the next tile, when its id differs, are copied with
+//   cp.async as soon as the current tile's half-grids are done, behind the
+//   smoothing, vertex and shade phases.
+// * One pass per half-grid point computes the taps once and reads the four
+//   height words and the four albedo words once for every channel. The
+//   1-2-1 smoothed grid is formed straight from H (each x tap recomputed,
+//   the same values as a stored intermediate). A tile with a held quad
+//   crosses three barriers (four with the shade).
+// * Tiles at index >= tile_count are zeros, written with 16-byte stores and
+//   no fetch.
+// * Shared memory (two quads, H, Hs, four albedo half-grids, the shade's
+//   heights: ~59 KB) is dynamic, three blocks per SM.
+//
+// The per-point and per-vertex arithmetic is K1's / K2's and the one-block-
+// per-tile kernel's in the same op order, so the mesh rows are bit-equal
+// to K1's (K2's on a sphere) and a block's run length changes no bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,10 +134,6 @@ struct AlbedoArgs {
   const float* shade;    // material buffer (K4)
 };
 
-__device__ __forceinline__ float bf16_rn(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 __device__ __forceinline__ float pow5(float x) {
   const float x2 = x * x;
   return x2 * x2 * x;
@@ -127,9 +143,10 @@ __device__ __forceinline__ float pow5(float x) {
 // _kernel_pbr_shade), in the TPU kernel's op order; the constants come from
 // the material buffer, rounded to f32 on the host as the JAX kernel rounds
 // its Python constants. hs: the tile's 17x17 heights; col: raw albedo.
-__device__ void pbr_shade(const float* __restrict__ sp, const float* hs, int i, int j,
-                          float lodf, const float* fs, const float* col, int channels,
-                          float px, float py, float pz, float out[4]) {
+__device__ __forceinline__ void pbr_shade(const float* __restrict__ sp, const float* hs, int i,
+                                          int j, float lodf, const float* fs, const float* col,
+                                          int channels, float px, float py, float pz,
+                                          float out[4]) {
   // normals from the blended heights, one-sided at the tile edge
   const float spacing = (2.0f * fs[46]) * exp2f(-lodf) * (1.0f / (GV - 1.0f));
   const float hi_u = hs[i * GV + min(j + 1, GV - 1)], lo_u = hs[i * GV + max(j - 1, 0)];
@@ -301,140 +318,25 @@ __device__ __forceinline__ Vec3 taylor_rel(float uu, float vv, const Anchor& a,
   return r;
 }
 
-template <bool SPHERICAL, bool ELLIPSOIDAL, bool ALBEDO, bool SHADE>
-__global__ void __launch_bounds__(NTHREADS)
-mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
-                  const int* __restrict__ ids,
-                  const float* __restrict__ geom,         // (n, 8)
-                  const float* __restrict__ tile_params,  // (n, 4) or (n, 45)
-                  const float* __restrict__ fs,           // (48,)
-                  const int* __restrict__ hp_steps,       // (n / 64,), spheres only
-                  const int* __restrict__ tile_count,     // (1,)
-                  int origin_lod, AlbedoArgs alb, float* __restrict__ out) {
-  static_assert(!(SPHERICAL && SHADE) && (ALBEDO || !SHADE), "the shade is planar, over an albedo");
-  constexpr int BASE_CH = SPHERICAL ? 9 : 6;  // mesh rows before the albedo's
-  const int out_ch = BASE_CH + (ALBEDO ? alb.channels : 0);
-  const int out_per_tile = out_ch * GV * GV;
-  constexpr int N_PARAMS = SPHERICAL ? SPH_PARAMS : 4;
-  const long long stride = ALBEDO ? alb.stride : QUAD_WORDS;
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  float* o = out + (size_t)t * out_per_tile;
-  if (t >= __ldg(tile_count)) {
-    for (int e = tid; e < out_per_tile; e += NTHREADS) o[e] = 0.0f;
-    return;
-  }
+// What the vertex stage leaves for the writes, the albedo and the shade.
+struct Vertex {
+  float height, px, py, pz, mu, mv;
+  Vec3 n;                // the unit world normal (spheres)
+  float wyb[3], wxa[3];  // the 3x3 window's weights at the morphed uv
+};
 
-  __shared__ float patch[P][P];  // height texels; then the albedo words' bits
-  __shared__ float H[K][K];   // fine half-grid
-  __shared__ float X[K][K];   // H smoothed along x; then the shade's heights
-  __shared__ float Hs[K][K];  // 1-2-1 smoothed half-grid (coarser data lod)
-  __shared__ long long warp_sum[NWARPS];
-  __shared__ float s_mean;
-  constexpr int NA = ALBEDO ? MAX_CH : 1;
-  constexpr int KA = ALBEDO ? K : 1;
-  __shared__ float A[NA][KA][KA];  // albedo half-grids, one per channel
-  __shared__ unsigned alb_sum[NWARPS][NA];
-  __shared__ float alb_mean[NA];
-
-  // ---- 1. fetch the quad: patch rows 0..31 = q[:, 0:64], rows 32..63 =
-  // q[:, 64:128]; exact integer sum for the mean ----
-  long long q = ids[t];
-  q = q < 0 ? 0 : (q >= n_blocks ? n_blocks - 1 : q);
-  const float mean = block_mean(load_patch(blocks + q * stride, patch), warp_sum, &s_mean);
-
-  // ---- 2. tent resample of the mean-centred patch at the 33x33 half-grid
-  // positions clip(p0 + k * dp, 0, 63): H = Wy (P - c) Wx^T + c ----
-  const float* g = geom + (size_t)t * 8;
-  const float p0x = g[0], p0y = g[1], dp = g[2], valid = g[3];
-  for (int e = tid; e < K * K; e += NTHREADS) {
-    const int k = e / K, l = e % K;
-    H[k][l] = centred_bilinear(patch, mean, halfgrid_taps(p0x, p0y, dp, k, l)) + mean;
-  }
-  __syncthreads();
-
-  // ---- 3. smoothed copy Hs = A H A^T, A = 1-2-1 with duplicated boundary
-  // rows (pallas_kernels.py xsmooth / ysmooth) ----
-  for (int e = tid; e < K * K; e += NTHREADS) {
-    const int k = e / K, l = e % K;
-    X[k][l] = smooth3(H[k][max(l - 1, 0)], H[k][l], H[k][min(l + 1, K - 1)]);
-  }
-  if (ALBEDO) {
-    // the albedo quad into the patch buffer (its words' bits, same
-    // arrangement), with exact per-channel integer sums for the exact path
-    const int4* asrc = reinterpret_cast<const int4*>(alb.blocks + q * stride);
-    unsigned csum[MAX_CH] = {0u, 0u, 0u, 0u};
-    for (int v = tid; v < QUAD_WORDS / 4; v += NTHREADS) {
-      const int4 w = __ldg(asrc + v);
-      int pr, pc;
-      quad_to_patch(v, pr, pc);
-      patch[pr][pc + 0] = __int_as_float(w.x);
-      patch[pr][pc + 1] = __int_as_float(w.y);
-      patch[pr][pc + 2] = __int_as_float(w.z);
-      patch[pr][pc + 3] = __int_as_float(w.w);
-      if (!alb.fast) {
-        for (int ch = 0; ch < alb.channels; ++ch) {
-          const unsigned m = (1u << alb.bits) - 1u, s = alb.bits * ch;
-          csum[ch] += (((unsigned)w.x >> s) & m) + (((unsigned)w.y >> s) & m) +
-                      (((unsigned)w.z >> s) & m) + (((unsigned)w.w >> s) & m);
-        }
-      }
-    }
-    if (!alb.fast) {
-      for (int ch = 0; ch < alb.channels; ++ch) {
-        unsigned a = csum[ch];
-        for (int off = 16; off > 0; off >>= 1) a += __shfl_down_sync(0xffffffffu, a, off);
-        if ((tid & 31) == 0) alb_sum[tid >> 5][ch] = a;
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < K * K; e += NTHREADS) {
-    const int k = e / K, l = e % K;
-    Hs[k][l] = smooth3(X[max(k - 1, 0)][l], X[k][l], X[min(k + 1, K - 1)][l]);
-  }
-  if (ALBEDO && !alb.fast && tid < alb.channels) {
-    unsigned long long total = 0;
-    for (int w = 0; w < NWARPS; ++w) total += alb_sum[w][tid];
-    alb_mean[tid] = (float)((double)total / (double)(P * P));
-  }
-  __syncthreads();
-
-  // ---- 3b. albedo half-grids with the height's tents: exact (mean-centred
-  // f32) or fast (bf16 tents, bf16-rounded y sums, no centring) ----
-  if (ALBEDO) {
-    for (int e = tid; e < alb.channels * K * K; e += NTHREADS) {
-      const int ch = e / (K * K), kl = e % (K * K);
-      const int k = kl / K, l = kl % K;
-      const Taps tw = halfgrid_taps(p0x, p0y, dp, k, l);
-      const int r0 = tw.r0, c0 = tw.c0;
-      const float t00 = unpack(__float_as_uint(patch[r0][c0]), ch, alb.bits);
-      const float t10 = unpack(__float_as_uint(patch[r0 + 1][c0]), ch, alb.bits);
-      const float t01 = unpack(__float_as_uint(patch[r0][c0 + 1]), ch, alb.bits);
-      const float t11 = unpack(__float_as_uint(patch[r0 + 1][c0 + 1]), ch, alb.bits);
-      if (alb.fast) {
-        const float by0 = bf16_rn(tw.wy0), by1 = bf16_rn(tw.wy1);
-        const float row0 = bf16_rn(by0 * t00 + by1 * t10);
-        const float row1 = bf16_rn(by0 * t01 + by1 * t11);
-        A[ch][k][l] = row0 * bf16_rn(tw.wx0) + row1 * bf16_rn(tw.wx1);
-      } else {
-        const float m = alb_mean[ch];
-        const float col0 = tw.wy0 * (t00 - m) + tw.wy1 * (t10 - m);
-        const float col1 = tw.wy0 * (t01 - m) + tw.wy1 * (t11 - m);
-        A[ch][k][l] = (col0 * tw.wx0 + col1 * tw.wx1) + m;
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- 4. per vertex (i = row / v, j = column / u); the shade needs every
-  // thread at its barrier, so there threads past the last vertex repeat it
-  // without writing ----
-  const bool active = tid < NVERT;
-  if (!SHADE && !active) return;
-  const int vid = active ? tid : NVERT - 1;
-  const int i = vid / GV, j = vid % GV;
-  const float* tp = tile_params + (size_t)t * N_PARAMS;
+// Phase 4 of every mesh kernel for vertex (i = row / v, j = column / u) of
+// tile t: view distance (planar, or the cube sphere's with the Taylor near
+// field on high-precision steps), CDLOD morph, the 3x3 window of the fine
+// and smoothed half-grids H and Hs (33x33, natural order), per-vertex
+// blend, height, world position (and normal).
+template <bool SPHERICAL, bool ELLIPSOIDAL>
+__device__ __forceinline__ Vertex vertex_stage(int t, int i, int j, const float* tp,
+                                               const float* __restrict__ fs,
+                                               const int* __restrict__ hp_steps,
+                                               int origin_lod, float valid, const float* H,
+                                               const float* Hs) {
+  Vertex r;
   const float live = tp[0], lodf = tp[1], xf = tp[2], yf = tp[3];
   const float inv16 = 1.0f / (GV - 1.0f);
   const float u = (float)j * inv16;
@@ -495,19 +397,18 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
   // 3x3 tent window at the morphed uv, fine and smoothed slabs
   const float lxw = mu * (2.0f * (GV - 1.0f)) - (float)max(2 * j - 2, 0);
   const float lyw = mv * (2.0f * (GV - 1.0f)) - (float)max(2 * i - 2, 0);
-  float wyb[3], wxa[3];
   for (int b = 0; b < 3; ++b) {
-    wyb[b] = tent(lyw, (float)b);
-    wxa[b] = tent(lxw, (float)b);
+    r.wyb[b] = tent(lyw, (float)b);
+    r.wxa[b] = tent(lxw, (float)b);
   }
   float h_fine = 0.0f, h_smooth = 0.0f;
   for (int b = 0; b < 3; ++b) {
-    const int r = tap(i, b);
+    const int row = tap(i, b);
     for (int a = 0; a < 3; ++a) {
       const int c = tap(j, a);
-      const float w = wyb[b] * wxa[a];
-      h_fine = h_fine + w * H[r][c];
-      h_smooth = h_smooth + w * Hs[r][c];
+      const float w = r.wyb[b] * r.wxa[a];
+      h_fine = h_fine + w * H[row * K + c];
+      h_smooth = h_smooth + w * Hs[row * K + c];
     }
   }
 
@@ -522,8 +423,6 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
   const float h_norm = (h_fine + (h_smooth - h_fine) * bratio) * valid;
   const float height = (fs[22] + fs[23] * h_norm) * live;
 
-  const int vtx = i * GV + j;
-  float px, py, pz;
   if (SPHERICAL) {
     // world position at the morphed uv; in the near field the Taylor
     // relative position (view + rel) replaces it and the unmorphed normal
@@ -537,100 +436,267 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
       wm.z = fs[41] + rm.z;
       nm = n0;
     }
-    px = wm.x + height * nm.x;
-    py = wm.y + height * nm.y;
-    pz = wm.z + height * nm.z;
-    o[6 * GV * GV + vtx] = nm.x * live;
-    o[7 * GV * GV + vtx] = nm.y * live;
-    o[8 * GV * GV + vtx] = nm.z * live;
+    r.px = wm.x + height * nm.x;
+    r.py = wm.y + height * nm.y;
+    r.pz = wm.z + height * nm.z;
+    r.n = nm;
   } else {
     // morphed world position + height along the up normal (fs 15..17)
     const float mlx = (xf + mu) * inv_count - 0.5f;
     const float mlz = (yf + mv) * inv_count - 0.5f;
-    px = fs[0] * mlx + fs[2] * mlz + fs[3] + height * fs[15];
-    py = fs[4] * mlx + fs[6] * mlz + fs[7] + height * fs[16];
-    pz = fs[8] * mlx + fs[10] * mlz + fs[11] + height * fs[17];
+    r.px = fs[0] * mlx + fs[2] * mlz + fs[3] + height * fs[15];
+    r.py = fs[4] * mlx + fs[6] * mlz + fs[7] + height * fs[16];
+    r.pz = fs[8] * mlx + fs[10] * mlz + fs[11] + height * fs[17];
+  }
+  r.height = height;
+  r.mu = mu;
+  r.mv = mv;
+  return r;
+}
+
+// The mesh rows of vertex vtx: [h, px, py, pz, u, v] (x live), and on a
+// sphere the normal rows 6..8.
+template <bool SPHERICAL>
+__device__ __forceinline__ void write_mesh_rows(float* o, int vtx, const Vertex& v,
+                                                float live) {
+  if (SPHERICAL) {
+    o[6 * NVERT + vtx] = v.n.x * live;
+    o[7 * NVERT + vtx] = v.n.y * live;
+    o[8 * NVERT + vtx] = v.n.z * live;
+  }
+  o[0 * NVERT + vtx] = v.height;
+  o[1 * NVERT + vtx] = v.px * live;
+  o[2 * NVERT + vtx] = v.py * live;
+  o[3 * NVERT + vtx] = v.pz * live;
+  o[4 * NVERT + vtx] = v.mu * live;
+  o[5 * NVERT + vtx] = v.mv * live;
+}
+
+// K1 (planar) and K2 (spherical): one tile per block.
+template <bool SPHERICAL, bool ELLIPSOIDAL>
+__global__ void __launch_bounds__(NTHREADS)
+mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
+                  const int* __restrict__ ids,
+                  const float* __restrict__ geom,         // (n, 8)
+                  const float* __restrict__ tile_params,  // (n, 4) or (n, 45)
+                  const float* __restrict__ fs,           // (48,)
+                  const int* __restrict__ hp_steps,       // (n / 64,), spheres only
+                  const int* __restrict__ tile_count,     // (1,)
+                  int origin_lod, float* __restrict__ out) {
+  constexpr int OUT_CH = SPHERICAL ? 9 : 6;
+  constexpr int N_PARAMS = SPHERICAL ? SPH_PARAMS : 4;
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x;
+  float* o = out + (size_t)t * OUT_CH * NVERT;
+  if (t >= __ldg(tile_count)) {
+    for (int e = tid; e < OUT_CH * NVERT; e += NTHREADS) o[e] = 0.0f;
+    return;
   }
 
-  if (ALBEDO) {
-    // albedo channels at the same morphed uv through the same window
-    // weights (raw texel values; the caller normalises)
-    float col[MAX_CH];
-    for (int ch = 0; ch < alb.channels; ++ch) {
-      float acc_c = 0.0f;
-      for (int b = 0; b < 3; ++b) {
-        const int r = tap(i, b);
-        for (int a = 0; a < 3; ++a) {
-          const float w = wyb[b] * wxa[a];
-          acc_c = acc_c + w * A[ch][r][tap(j, a)];
-        }
+  __shared__ float patch[P][P];
+  __shared__ float H[K][K];   // fine half-grid
+  __shared__ float X[K][K];   // H smoothed along x
+  __shared__ float Hs[K][K];  // 1-2-1 smoothed half-grid (coarser data lod)
+  __shared__ long long warp_sum[NWARPS];
+  __shared__ float s_mean;
+
+  // ---- 1. fetch the quad: patch rows 0..31 = q[:, 0:64], rows 32..63 =
+  // q[:, 64:128]; exact integer sum for the mean ----
+  long long q = ids[t];
+  q = q < 0 ? 0 : (q >= n_blocks ? n_blocks - 1 : q);
+  const float mean = block_mean(load_patch(blocks + q * QUAD_WORDS, patch), warp_sum, &s_mean);
+
+  // ---- 2. tent resample of the mean-centred patch at the 33x33 half-grid
+  // positions clip(p0 + k * dp, 0, 63): H = Wy (P - c) Wx^T + c ----
+  const float* g = geom + (size_t)t * 8;
+  const float p0x = g[0], p0y = g[1], dp = g[2], valid = g[3];
+  for (int e = tid; e < K * K; e += NTHREADS) {
+    const int k = e / K, l = e % K;
+    H[k][l] = centred_bilinear(patch, mean, halfgrid_taps(p0x, p0y, dp, k, l)) + mean;
+  }
+  __syncthreads();
+
+  // ---- 3. smoothed copy Hs = A H A^T, A = 1-2-1 with duplicated boundary
+  // rows (pallas_kernels.py xsmooth / ysmooth) ----
+  for (int e = tid; e < K * K; e += NTHREADS) {
+    const int k = e / K, l = e % K;
+    X[k][l] = smooth3(H[k][max(l - 1, 0)], H[k][l], H[k][min(l + 1, K - 1)]);
+  }
+  __syncthreads();
+  for (int e = tid; e < K * K; e += NTHREADS) {
+    const int k = e / K, l = e % K;
+    Hs[k][l] = smooth3(X[max(k - 1, 0)][l], X[k][l], X[min(k + 1, K - 1)][l]);
+  }
+  __syncthreads();
+
+  // ---- 4. per vertex ----
+  if (tid >= NVERT) return;
+  const float* tp = tile_params + (size_t)t * N_PARAMS;
+  const Vertex v = vertex_stage<SPHERICAL, ELLIPSOIDAL>(t, tid / GV, tid % GV, tp, fs, hp_steps,
+                                                        origin_lod, valid, &H[0][0], &Hs[0][0]);
+  write_mesh_rows<SPHERICAL>(o, tid, v, tp[0]);
+}
+
+// The material kernel's shared memory (dynamic: over 48 KB).
+struct MaterialShared {
+  int hq[QUAD_WORDS];      // the held height quad, raw (32, 128)
+  int aq[QUAD_WORDS];      // the held albedo quad, raw
+  float H[K][K];           // fine half-grid
+  float Hs[K][K];          // 1-2-1 smoothed half-grid (coarser data lod)
+  float A[MAX_CH][K][K];   // albedo half-grids, one per channel
+  float hs[NVERT];         // the tile's vertex heights (the shade's normals)
+  long long warp_sum[NWARPS][MAX_SUMS];
+  float mean[MAX_SUMS];    // the height's, then the albedo channels' (exact path)
+};
+
+// K3 (planar and spherical) and K4 (SHADE, planar): runs of tiles per block,
+// three blocks per SM (the shared memory allows three; registers capped to
+// match).
+constexpr int MATERIAL_MIN_BLOCKS = 3;
+
+template <bool SPHERICAL, bool ELLIPSOIDAL, bool SHADE>
+__global__ void __launch_bounds__(NTHREADS, MATERIAL_MIN_BLOCKS)
+mesh_material_kernel(const int* __restrict__ blocks, long long n_blocks,
+                     const int* __restrict__ ids,
+                     const float* __restrict__ geom,         // (n, 8)
+                     const float* __restrict__ tile_params,  // (n, 4) or (n, 45)
+                     const float* __restrict__ fs,           // (48,)
+                     const int* __restrict__ hp_steps,       // (n / 64,), spheres only
+                     const int* __restrict__ tile_count,     // (1,)
+                     int n_tiles, int origin_lod, AlbedoArgs alb, float* __restrict__ out) {
+  static_assert(!(SPHERICAL && SHADE), "the shade is planar");
+  constexpr int BASE_CH = SPHERICAL ? 9 : 6;  // mesh rows before the albedo's
+  constexpr int N_PARAMS = SPHERICAL ? SPH_PARAMS : 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  MaterialShared& s = *reinterpret_cast<MaterialShared*>(smem);
+  const int out_per_tile = (BASE_CH + alb.channels) * NVERT;
+  const TileRun run = tile_run(n_tiles, __ldg(tile_count));
+  zero_fill(out + (size_t)run.d0 * out_per_tile, out + (size_t)run.d1 * out_per_tile);
+  if (run.t0 == run.t1) return;
+
+  // heights and albedo of quad q: blocks + q * stride and alb.blocks + q *
+  // stride (rows 0:32 and 32:64 of a combined array)
+  long long q = quad_id(ids, run.t0, n_blocks);
+  fetch_quad_async(s.hq, blocks + q * alb.stride);
+  fetch_quad_async(s.aq, alb.blocks + q * alb.stride);
+  cp_async_wait();
+  __syncthreads();
+  bool fetched = true;  // the quads in shared memory are new: take their means
+  for (int t = run.t0; t < run.t1; ++t) {
+    const int tid = opaque((int)threadIdx.x);
+    const float* fs_t = opaque(fs);
+    if (fetched) {
+      // the height's exact integer mean; the albedo channels' on the exact path
+      long long acc[MAX_SUMS] = {0, 0, 0, 0, 0};
+      quad_sums(s.hq, 1, 0, acc);
+      if (!alb.fast) quad_sums(s.aq, alb.channels, alb.bits, acc + 1);
+      block_means(acc, alb.fast ? 1 : 1 + alb.channels, s.warp_sum, s.mean);
+      fetched = false;
+    }
+
+    // ---- 1. the half-grids at the positions clip(p0 + k * dp, 0, 63):
+    // H = Wy (P - c) Wx^T + c and every albedo channel, one pass over the
+    // points ----
+    const float* g = geom + (size_t)t * 8;
+    const float p0x = g[0], p0y = g[1], dp = g[2], valid = g[3];
+    for (int e = tid; e < K * K; e += NTHREADS) {
+      const int k = e / K, l = e % K;
+      const Taps tw = halfgrid_taps(p0x, p0y, dp, k, l);
+      halfgrid_channels(quad_corners(s.hq, tw), tw, 1, 0, false, s.mean, &s.H[k][l]);
+      halfgrid_channels(quad_corners(s.aq, tw), tw, alb.channels, alb.bits, alb.fast,
+                        s.mean + 1, &s.A[0][k][l]);
+    }
+    __syncthreads();
+
+    // the quads are free: start the next tile's, if they are others
+    if (t + 1 < run.t1) {
+      const long long next = quad_id(ids, t + 1, n_blocks);
+      if (next != q) {
+        q = next;
+        fetch_quad_async(s.hq, blocks + q * alb.stride);
+        fetch_quad_async(s.aq, alb.blocks + q * alb.stride);
+        fetched = true;
       }
-      col[ch] = acc_c;
+    }
+
+    // ---- 2. smoothed copy Hs = A H A^T (A = 1-2-1 with duplicated
+    // boundary rows), each point's three x taps as K1's x pass forms them ----
+    for (int e = tid; e < K * K; e += NTHREADS) {
+      const int k = e / K, l = e % K;
+      const int lm = max(l - 1, 0), lp = min(l + 1, K - 1);
+      float x[3];
+      for (int d = 0; d < 3; ++d) {
+        const int r = min(max(k - 1 + d, 0), K - 1);
+        x[d] = smooth3(s.H[r][lm], s.H[r][l], s.H[r][lp]);
+      }
+      s.Hs[k][l] = smooth3(x[0], x[1], x[2]);
+    }
+    __syncthreads();
+
+    // ---- 3. per vertex; the albedo channels at the morphed uv through the
+    // height's window weights (raw texel values; the caller normalises),
+    // then the shade over the tile's heights ----
+    const bool active = tid < NVERT;
+    const int i = tid / GV, j = tid % GV;
+    const float* tp = tile_params + (size_t)t * N_PARAMS;
+    Vertex v;
+    float col[MAX_CH];
+    if (active) {
+      v = vertex_stage<SPHERICAL, ELLIPSOIDAL>(t, i, j, tp, fs_t, hp_steps, origin_lod, valid,
+                                               &s.H[0][0], &s.Hs[0][0]);
+#pragma unroll
+      for (int ch = 0; ch < MAX_CH; ++ch) {
+        if (ch >= alb.channels) break;
+        float acc_c = 0.0f;
+        for (int b = 0; b < 3; ++b) {
+          const int r = tap(i, b);
+          for (int a = 0; a < 3; ++a) {
+            const float w = v.wyb[b] * v.wxa[a];
+            acc_c = acc_c + w * s.A[ch][r][tap(j, a)];
+          }
+        }
+        col[ch] = acc_c;
+      }
+      if (SHADE) s.hs[tid] = v.height;
     }
     if (SHADE) {
-      float* hs = &X[0][0];
-      if (active) hs[vtx] = height;
       __syncthreads();
-      float shaded[4];
-      pbr_shade(alb.shade, hs, i, j, lodf, fs, col, alb.channels, px, py, pz, shaded);
-      for (int ch = 0; ch < alb.channels; ++ch) col[ch] = shaded[ch];
+      if (active) {
+        float shaded[4];
+        pbr_shade(opaque(alb.shade), s.hs, i, j, tp[1], fs_t, col, alb.channels, v.px, v.py,
+                  v.pz, shaded);
+#pragma unroll
+        for (int ch = 0; ch < MAX_CH; ++ch)
+          if (ch < alb.channels) col[ch] = shaded[ch];
+      }
     }
     if (active) {
-      for (int ch = 0; ch < alb.channels; ++ch)
-        o[(BASE_CH + ch) * GV * GV + vtx] = col[ch] * valid * live;
+      float* o = out + (size_t)t * out_per_tile;
+      const float live = tp[0];
+      write_mesh_rows<SPHERICAL>(o, tid, v, live);
+#pragma unroll
+      for (int ch = 0; ch < MAX_CH; ++ch)
+        if (ch < alb.channels) o[(BASE_CH + ch) * NVERT + tid] = col[ch] * valid * live;
     }
+    if (fetched) cp_async_wait();
+    __syncthreads();  // H, Hs, A and hs are read; new quads have landed
   }
-  if (!active) return;
-
-  o[0 * GV * GV + vtx] = height;
-  o[1 * GV * GV + vtx] = px * live;
-  o[2 * GV * GV + vtx] = py * live;
-  o[3 * GV * GV + vtx] = pz * live;
-  o[4 * GV * GV + vtx] = mu * live;
-  o[5 * GV * GV + vtx] = mv * live;
 }
 
-}  // namespace
+constexpr int MATERIAL_SMEM = (int)sizeof(MaterialShared);
 
-// Launch on the caller's stream. Each returns cudaGetLastError() of the
-// launch (0 on success); the kernels allocate nothing and do not
-// synchronise.
-extern "C" int mesh_fused_planar_launch(const void* blocks, long long n_blocks,
-                                        const void* ids, const void* geom,
-                                        const void* tile_params, const void* fs,
-                                        const void* tile_count, void* out,
-                                        int n_tiles, void* stream) {
-  if (n_tiles <= 0) return 0;
-  mesh_fused_kernel<false, false, false, false><<<n_tiles, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
-      (const float*)tile_params, (const float*)fs, nullptr, (const int*)tile_count, 0,
-      AlbedoArgs{}, (float*)out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int mesh_fused_spherical_launch(const void* blocks, long long n_blocks,
-                                           const void* ids, const void* geom,
-                                           const void* tile_params, const void* fs,
-                                           const void* hp_steps, const void* tile_count,
-                                           void* out, int n_tiles, int origin_lod,
-                                           int ellipsoidal, void* stream) {
-  if (n_tiles <= 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (ellipsoidal) {
-    mesh_fused_kernel<true, true, false, false><<<n_tiles, NTHREADS, 0, s>>>(
-        (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
-        (const float*)tile_params, (const float*)fs, (const int*)hp_steps,
-        (const int*)tile_count, origin_lod, AlbedoArgs{}, (float*)out);
-  } else {
-    mesh_fused_kernel<true, false, false, false><<<n_tiles, NTHREADS, 0, s>>>(
-        (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
-        (const float*)tile_params, (const float*)fs, (const int*)hp_steps,
-        (const int*)tile_count, origin_lod, AlbedoArgs{}, (float*)out);
-  }
-  return (int)cudaGetLastError();
-}
-
-namespace {
+const KernelInstance INSTANCES[] = {
+    {"mesh_fused_planar", (const void*)mesh_fused_kernel<false, false>, 0},
+    {"mesh_fused_spherical (sphere)", (const void*)mesh_fused_kernel<true, false>, 0},
+    {"mesh_fused_spherical (ellipsoid)", (const void*)mesh_fused_kernel<true, true>, 0},
+    {"mesh_fused_albedo", (const void*)mesh_material_kernel<false, false, false>,
+     MATERIAL_SMEM},
+    {"mesh_fused_shaded", (const void*)mesh_material_kernel<false, false, true>, MATERIAL_SMEM},
+    {"mesh_fused_spherical_albedo (sphere)",
+     (const void*)mesh_material_kernel<true, false, false>, MATERIAL_SMEM},
+    {"mesh_fused_spherical_albedo (ellipsoid)",
+     (const void*)mesh_material_kernel<true, true, false>, MATERIAL_SMEM},
+};
 
 // Check the albedo's launch arguments and pack them. Combined: one (N, 64,
 // 128) array, heights in rows 0:32 and the packed albedo in rows 32:64 of
@@ -649,7 +715,71 @@ bool albedo_args(const void* blocks, const void* albedo, int channels, int bits,
   return true;
 }
 
+// One material kernel instance over n_tiles tiles, on `waves` times the
+// blocks the card holds at once; returns cudaGetLastError() of the launch.
+template <bool SPHERICAL, bool ELLIPSOIDAL, bool SHADE>
+int launch_material(const void* blocks, long long n_blocks, const void* ids, const void* geom,
+                    const void* tile_params, const void* fs, const void* hp_steps,
+                    const void* tile_count, int n_tiles, int waves, int origin_lod,
+                    const AlbedoArgs& alb, void* out, cudaStream_t stream) {
+  const auto kernel = mesh_material_kernel<SPHERICAL, ELLIPSOIDAL, SHADE>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MATERIAL_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  static int resident[64] = {};
+  const int grid = run_grid((const void*)kernel, MATERIAL_SMEM, waves, n_tiles, resident);
+  if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<grid, NTHREADS, MATERIAL_SMEM, stream>>>(
+      (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
+      (const float*)tile_params, (const float*)fs, (const int*)hp_steps,
+      (const int*)tile_count, n_tiles, origin_lod, alb, (float*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+int mesh_fused_instances(const KernelInstance** table) {
+  *table = INSTANCES;
+  return (int)(sizeof(INSTANCES) / sizeof(INSTANCES[0]));
+}
+
+// Launch on the caller's stream. Each returns cudaGetLastError() of the
+// launch (0 on success); the kernels allocate nothing and do not
+// synchronise.
+extern "C" int mesh_fused_planar_launch(const void* blocks, long long n_blocks,
+                                        const void* ids, const void* geom,
+                                        const void* tile_params, const void* fs,
+                                        const void* tile_count, void* out,
+                                        int n_tiles, void* stream) {
+  if (n_tiles <= 0) return 0;
+  mesh_fused_kernel<false, false><<<n_tiles, NTHREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
+      (const float*)tile_params, (const float*)fs, nullptr, (const int*)tile_count, 0,
+      (float*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mesh_fused_spherical_launch(const void* blocks, long long n_blocks,
+                                           const void* ids, const void* geom,
+                                           const void* tile_params, const void* fs,
+                                           const void* hp_steps, const void* tile_count,
+                                           void* out, int n_tiles, int origin_lod,
+                                           int ellipsoidal, void* stream) {
+  if (n_tiles <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ellipsoidal) {
+    mesh_fused_kernel<true, true><<<n_tiles, NTHREADS, 0, s>>>(
+        (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
+        (const float*)tile_params, (const float*)fs, (const int*)hp_steps,
+        (const int*)tile_count, origin_lod, (float*)out);
+  } else {
+    mesh_fused_kernel<true, false><<<n_tiles, NTHREADS, 0, s>>>(
+        (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
+        (const float*)tile_params, (const float*)fs, (const int*)hp_steps,
+        (const int*)tile_count, origin_lod, (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
 
 // K3 (shade == nullptr) and K4 on a planar terrain.
 extern "C" int mesh_fused_material_launch(const void* blocks, long long n_blocks,
@@ -658,24 +788,20 @@ extern "C" int mesh_fused_material_launch(const void* blocks, long long n_blocks
                                           const void* tile_count, const void* albedo,
                                           int channels, int bits, int fast, int combined,
                                           const void* shade, void* out, int n_tiles,
-                                          void* stream) {
+                                          int waves, void* stream) {
   if (n_tiles <= 0) return 0;
   AlbedoArgs alb;
-  if (!albedo_args(blocks, albedo, channels, bits, fast, combined, shade, alb))
+  if (waves < 1 ||
+      !albedo_args(blocks, albedo, channels, bits, fast, combined, shade, alb))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (shade) {
-    mesh_fused_kernel<false, false, true, true><<<n_tiles, NTHREADS, 0, s>>>(
-        (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
-        (const float*)tile_params, (const float*)fs, nullptr, (const int*)tile_count, 0, alb,
-        (float*)out);
-  } else {
-    mesh_fused_kernel<false, false, true, false><<<n_tiles, NTHREADS, 0, s>>>(
-        (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
-        (const float*)tile_params, (const float*)fs, nullptr, (const int*)tile_count, 0, alb,
-        (float*)out);
-  }
-  return (int)cudaGetLastError();
+  if (shade)
+    return launch_material<false, false, true>(blocks, n_blocks, ids, geom, tile_params, fs,
+                                               nullptr, tile_count, n_tiles, waves,
+                                               0, alb, out, s);
+  return launch_material<false, false, false>(blocks, n_blocks, ids, geom, tile_params, fs,
+                                              nullptr, tile_count, n_tiles, waves, 0,
+                                              alb, out, s);
 }
 
 // K3 on a sphere or an ellipsoid: the spherical launch's arguments, then the
@@ -684,22 +810,18 @@ extern "C" int mesh_fused_spherical_albedo_launch(
     const void* blocks, long long n_blocks, const void* ids, const void* geom,
     const void* tile_params, const void* fs, const void* hp_steps, const void* tile_count,
     const void* albedo, int channels, int bits, int fast, int combined, void* out,
-    int n_tiles, int origin_lod, int ellipsoidal, void* stream) {
+    int n_tiles, int origin_lod, int ellipsoidal, int waves, void* stream) {
   if (n_tiles <= 0) return 0;
   AlbedoArgs alb;
-  if (!albedo_args(blocks, albedo, channels, bits, fast, combined, nullptr, alb))
+  if (waves < 1 ||
+      !albedo_args(blocks, albedo, channels, bits, fast, combined, nullptr, alb))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (ellipsoidal) {
-    mesh_fused_kernel<true, true, true, false><<<n_tiles, NTHREADS, 0, s>>>(
-        (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
-        (const float*)tile_params, (const float*)fs, (const int*)hp_steps,
-        (const int*)tile_count, origin_lod, alb, (float*)out);
-  } else {
-    mesh_fused_kernel<true, false, true, false><<<n_tiles, NTHREADS, 0, s>>>(
-        (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
-        (const float*)tile_params, (const float*)fs, (const int*)hp_steps,
-        (const int*)tile_count, origin_lod, alb, (float*)out);
-  }
-  return (int)cudaGetLastError();
+  if (ellipsoidal)
+    return launch_material<true, true, false>(blocks, n_blocks, ids, geom, tile_params, fs,
+                                              hp_steps, tile_count, n_tiles, waves,
+                                              origin_lod, alb, out, s);
+  return launch_material<true, false, false>(blocks, n_blocks, ids, geom, tile_params, fs,
+                                             hp_steps, tile_count, n_tiles, waves,
+                                             origin_lod, alb, out, s);
 }

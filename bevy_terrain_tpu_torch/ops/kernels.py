@@ -612,6 +612,14 @@ def _spherical_stage(block_array, ids, geom, tile_params, fs, hp_steps, origin_l
 # ---------------------------------------------------------------------------
 
 MAX_CHANNELS = 4  # packed channels per int32 word
+# The grids of the material mesh kernels (K3, K3s, K4) and of the
+# attachment samplers (K5), in waves of the blocks the card holds at once:
+# each block walks an equal run of consecutive tiles in the plan's order and
+# keeps the quads it holds while the tile ids repeat. Launch constants, read
+# at each launch, chosen from timed variants on the H100 (PERF.md,
+# chip_smoke.py's waves sweep); any value gives the same output bits.
+MATERIAL_WAVES = 1
+SAMPLER_WAVES = 1
 SHADE_HEADER = 16  # floats before the light records of a material buffer
 LIGHT_STRIDE = 16  # floats per light record
 _LIGHT_KINDS = {"dir": 0, "point": 1, "spot": 2}
@@ -793,7 +801,8 @@ def _mesh_material(wrapper, block_array, ids, geom, tile_params, fs, tile_count,
             block_array.data_ptr(), block_array.shape[0], ids.data_ptr(), geom.data_ptr(),
             tile_params.data_ptr(), fs.data_ptr(), tile_count.data_ptr(),
             None if combined else albedo_blocks.data_ptr(), channels, bits, int(fast),
-            int(combined), None if shade is None else shade.data_ptr(), out.data_ptr(), n)
+            int(combined), None if shade is None else shade.data_ptr(), out.data_ptr(), n,
+            MATERIAL_WAVES)
     return out
 
 
@@ -924,7 +933,8 @@ def mesh_fused_spherical_albedo(block_array: torch.Tensor, ids: torch.Tensor,
             block_array.shape[0], ids.data_ptr(), geom.data_ptr(), tile_params.data_ptr(),
             fs.data_ptr(), hp_steps.data_ptr(), tile_count.data_ptr(),
             None if combined else albedo_blocks.data_ptr(), channels, bits, int(fast),
-            int(combined), out.data_ptr(), n, int(origin_lod), int(bool(ellipsoidal)))
+            int(combined), out.data_ptr(), n, int(origin_lod), int(bool(ellipsoidal)),
+            MATERIAL_WAVES)
     return out
 
 
@@ -968,7 +978,7 @@ def _attach(wrapper, block_array, ids, geom, uvs, tile_count, channels, bits):
         return out
     _launch(wrapper, block_array.device, "attach_sample_launch", block_array.data_ptr(),
             block_array.shape[0], ids.data_ptr(), geom.data_ptr(), uvs.data_ptr(),
-            tile_count.data_ptr(), channels, bits, out.data_ptr(), n)
+            tile_count.data_ptr(), channels, bits, out.data_ptr(), n, SAMPLER_WAVES)
     return out
 
 
@@ -1251,17 +1261,18 @@ def _library() -> ctypes.CDLL:
         lib.mesh_fused_spherical_launch.restype = ctypes.c_int
         lib.mesh_fused_material_launch.argtypes = [
             vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, vp, vp, ctypes.c_int, vp,
+            ctypes.c_int, ctypes.c_int, vp, vp, ctypes.c_int, ctypes.c_int, vp,
         ]
         lib.mesh_fused_material_launch.restype = ctypes.c_int
         lib.mesh_fused_spherical_albedo_launch.argtypes = [
             vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp,
+            ctypes.c_int, ctypes.c_int, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, vp,
         ]
         lib.mesh_fused_spherical_albedo_launch.restype = ctypes.c_int
         lib.attach_sample_launch.argtypes = [
             vp, ctypes.c_longlong, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, vp,
-            ctypes.c_int, vp,
+            ctypes.c_int, ctypes.c_int, vp,
         ]
         lib.attach_sample_launch.restype = ctypes.c_int
         lib.fetch_resample_cached_launch.argtypes = [
@@ -1272,5 +1283,29 @@ def _library() -> ctypes.CDLL:
             vp, ctypes.c_longlong, vp, vp, vp, ctypes.c_int, vp,
         ]
         lib.fetch_resample_launch.restype = ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.kernel_occupancy.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+                                         ip, ip, ip, ip, ip]
+        lib.kernel_occupancy.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def kernel_occupancy() -> list[dict]:
+    """Every kernel instance of the library on the current card: its name,
+    blocks of 320 threads per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    at its dynamic shared memory), registers per thread, static and dynamic
+    shared memory and local (spill) bytes per thread."""
+    lib = _library()
+    rows = []
+    while True:
+        name = ctypes.create_string_buffer(64)
+        vals = [ctypes.c_int() for _ in range(5)]
+        rc = lib.kernel_occupancy(len(rows), name, len(name), *map(ctypes.byref, vals))
+        if rc == -1:
+            return rows
+        if rc != 0:
+            raise RuntimeError(f"kernel_occupancy({len(rows)}) failed: cudaError {rc}")
+        rows.append(dict(zip(("blocks_per_sm", "registers", "static_smem", "dynamic_smem",
+                              "local_bytes"), (v.value for v in vals)),
+                         name=name.value.decode()))

@@ -275,12 +275,12 @@ def make_frame_uniforms(
     view_tile_frac: np.ndarray,
     view_config,
     view_proj: np.ndarray | None = None,
-    device="cpu",
+    device="cuda",
 ) -> FrameUniforms:
-    """Assemble FrameUniforms on ``device`` from host-side f64 state (the
-    JAX package's make_frame_uniforms): the packed blob, one host-to-device
-    copy, unpacked there. Each value rounds from f64 to f32 once, as in the
-    JAX function."""
+    """Assemble FrameUniforms on ``device`` (the card unless the caller asks
+    for the CPU) from host-side f64 state (the JAX package's
+    make_frame_uniforms): the packed blob, one host-to-device copy, unpacked
+    there. Each value rounds from f64 to f32 once, as in the JAX function."""
     blob = pack_frame_uniforms(model, view_world_position, approx, origins, entries,
                                view_tile_int, view_tile_frac, view_config, view_proj)
     S, L, T = entries.shape[0], entries.shape[1], entries.shape[2]

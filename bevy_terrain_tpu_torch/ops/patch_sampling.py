@@ -640,7 +640,8 @@ def grad_tile_span(mesh, uniforms, cfg: StaticTerrainConfig,
 def sample_attachment_vertices_grad(
     block_arrays, tiles: RefinementOutput, morphed_uv: torch.Tensor, mesh, uniforms,
     cfg: StaticTerrainConfig, plan: PatchPlan, max_value: float, taps: int = 4,
-    max_anisotropy: float = 16.0, packed_channels: int = 0, packed_bits: int = 0,
+    plan_matches_frame: bool = True, max_anisotropy: float = 16.0, packed_channels: int = 0,
+    packed_bits: int = 0,
 ) -> torch.Tensor:
     """Grad-weighted multi-tap attachment sampling (the textureSampleGrad
     equivalent; see :func:`grad_tile_span`): each tap shifts the half-grid
@@ -650,8 +651,9 @@ def sample_attachment_vertices_grad(
     The patch fetch is shared across taps; per tap the cost is one half-grid
     resample and one window interpolation. Always the staged sampler (the
     sampler kernels bake single-tap geometry), as in the JAX package, so
-    it serves an attachment of any patch plan. Returns (F, G+1, G+1, C) f32
-    in [0, 1].
+    it serves an attachment of any patch plan: ``plan_matches_frame`` is
+    accepted and changes nothing, as in the JAX function. Returns (F, G+1,
+    G+1, C) f32 in [0, 1].
     """
     F = cfg.tile_capacity
     _, batch = plan_patch_batch(tiles, uniforms, cfg, plan, block_arrays[0].shape[0],

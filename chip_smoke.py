@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Builds every CUDA kernel from ``bevy_terrain_tpu_torch/csrc`` and
-   prints each kernel's registers and shared memory (``ptxas -v``).
+   prints each kernel's registers and shared memory (``ptxas -v``) and its
+   blocks per SM on this card (the library's ``kernel_occupancy`` query).
 2. Planar kernel phase, at the frame's real shapes (the bench.py scene: 8k^2
    planar terrain, 5 lods, tile capacity 4096, culled camera, a 1024-slot
    random atlas): refinement and patch plan on the card against the same
@@ -27,7 +28,8 @@
    exact, opaque and combined blocks), the shaded kernel (directional,
    point and spot lights; fast and exact albedo) and the attachment
    samplers (Rgba8, Rg16 and one raw channel), each against its plain
-   version, timed and bounded.
+   version, timed and bounded; then K4, K3, K5b and K5a timed on grids of 1, 2,
+   4 and 8 waves of resident blocks in turns, the outputs bit-equal at each.
 5. Half-grid kernel phase, at the bench.py frame: ``fetch_resample_cached``
    (K6) against its plain version with the plan's tile-centre ratio and
    with ``blend_per_vertex``; ``fetch_resample`` (K7) against its plain
@@ -66,6 +68,12 @@
    capacity: no frame drops geometry, the teleport re-dispatches its frame,
    the settled frames are equal.
 
+Every kernel call of phases 2-5 prints the sha256 of its inputs and of its
+output (``digest:`` lines): two trees built in one call are compared by
+them, bit for bit. ``python3 chip_smoke.py --kernel-phases`` runs phases
+1-5 only and prints their results without the result line; a copy of this
+script placed in an older tree runs that tree's kernels the same way.
+
 Exits non-zero (and prints no result line) when there is no CUDA card or
 any check fails. The last line of stdout is the JSON result.
 """
@@ -74,6 +82,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import re
@@ -296,6 +305,35 @@ def mesh_bound(args, n_unique: int, channels: int, live: int, live_hp: int,
     return bound(nbytes, ops)
 
 
+_SHA_MEMO: dict = {}
+
+
+def tensor_sha(x) -> str:
+    """sha256 of a tensor's dtype, shape and bytes (of a plain argument's
+    repr). A tensor is hashed once while the memo holds it; each phase
+    clears the memo when it frees its tensors."""
+    import torch
+
+    if not isinstance(x, torch.Tensor):
+        return hashlib.sha256(repr(x).encode()).hexdigest()
+    key = (x.data_ptr(), tuple(x.shape), x.dtype, x._version)
+    if key not in _SHA_MEMO:
+        h = hashlib.sha256(f"{x.dtype} {tuple(x.shape)}".encode())
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+        _SHA_MEMO[key] = (h.hexdigest(), x)  # the reference keeps the address taken
+    return _SHA_MEMO[key][0]
+
+
+def digest(label: str, inputs, output) -> None:
+    """Print the sha256 of a kernel call's inputs (a digest of their
+    digests) and of its output: two builds on the same inputs are compared
+    by these lines, bit for bit."""
+    h = hashlib.sha256()
+    for x in inputs:
+        h.update(tensor_sha(x).encode())
+    print(f"digest: {label}: inputs {h.hexdigest()} output {tensor_sha(output)}")
+
+
 def compare(got, want, what: str) -> float:
     """Max |got - want| over heights+positions, with the uv channels held to
     their own tolerance; raises if either is over. Returns the former."""
@@ -410,6 +448,7 @@ def kernel_phase(results: dict) -> None:
 
     got = kernels.mesh_fused_planar(*args)
     torch.cuda.synchronize()
+    digest("mesh_fused_planar (bench frame)", args, got)
     want = kernels.mesh_fused_planar_reference(*args)
     err = compare(got, want, "mesh_fused_planar")
 
@@ -426,6 +465,7 @@ def kernel_phase(results: dict) -> None:
     results["mesh_fused_planar"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
                                         library_ms=None)
     del blocks, args, got, want
+    _SHA_MEMO.clear()
     torch.cuda.empty_cache()
 
 
@@ -571,6 +611,7 @@ def sphere_kernel_phase(results: dict) -> None:
 
         got = kernels.mesh_fused_spherical(*args)
         torch.cuda.synchronize()
+        digest(f"mesh_fused_spherical ({what})", args, got)
         want = kernels.mesh_fused_spherical_reference(*args)
         errs.append(compare_spherical(got, want, f"mesh_fused_spherical ({what})"))
         norm = torch.linalg.vector_norm(got[:n, 6:9].double(), dim=1)
@@ -600,6 +641,7 @@ def sphere_kernel_phase(results: dict) -> None:
     results["mesh_fused_spherical"]["max_abs_err"] = max(errs)
     results["mesh_fused_spherical_albedo"]["max_abs_err"] = max(alb_errs)
     del blocks, albedo, combined
+    _SHA_MEMO.clear()
     torch.cuda.empty_cache()
 
 
@@ -624,8 +666,9 @@ def sphere_albedo_case(what, kind, args, k2, albedo, combined, u, tiles, batch, 
                                                 assume_sorted=True)
     geom = abatch.geom.clone()
     geom[:, 4] = 0.0
-    sampled = kernels.attach_sample_fused_packed(
-        albedo, abatch.ids, geom, k2[:, 4:6].contiguous(), args[6], 4, 8)
+    sargs = (albedo, abatch.ids, geom, k2[:, 4:6].contiguous(), args[6], 4, 8)
+    sampled = kernels.attach_sample_fused_packed(*sargs)
+    digest(f"attach_sample_fused_packed ({what}, at K2's uvs)", sargs, sampled)
     # (args, channels, fast)
     forms = {
         "fast": ((*args, albedo, 4, 8, True, False), 4, True),
@@ -637,6 +680,7 @@ def sphere_albedo_case(what, kind, args, k2, albedo, combined, u, tiles, batch, 
     for form, (fargs, channels, fast) in forms.items():
         got = wrapper(*fargs)
         torch.cuda.synchronize()
+        digest(f"mesh_fused_spherical_albedo ({what}, {form})", fargs, got)
         want = plain(*fargs)
         if got.shape != (Fp, C0 + channels, 17, 17) or not torch.equal(got[:, :C0], k2):
             raise AssertionError(f"{what} ({form}): the mesh channels differ from "
@@ -741,6 +785,7 @@ def material_kernel_phase(results: dict) -> None:
     for what, (wrapper, plain, args, channels, fast, shaded) in forms.items():
         got = wrapper(*args)
         torch.cuda.synchronize()
+        digest(f"{wrapper.__name__} ({what})", args, got)
         want = plain(*args)
         if not torch.equal(got[:, :kernels.OUT_CH], k1):
             raise AssertionError(f"{what}: the mesh rows differ from mesh_fused_planar's")
@@ -814,6 +859,7 @@ def material_kernel_phase(results: dict) -> None:
     for what, (wrapper, plain, args, channels, full) in samplers.items():
         got = wrapper(*args)
         torch.cuda.synchronize()
+        digest(f"{wrapper.__name__} ({what})", args, got)
         want = plain(*args)
         err = float((got - want).abs().max()) / full
         if not (err <= TOL_ALB_EXACT and bool(torch.isfinite(got).all())):
@@ -837,10 +883,49 @@ def material_kernel_phase(results: dict) -> None:
         if what in ("Rgba8", "height"):
             results[name] = row
         del got, want
+    if hasattr(kernels, "MATERIAL_WAVES"):  # not in the trees before it
+        waves_sweep({
+            "mesh_fused_shaded, shaded fast": ("MATERIAL_WAVES", *forms["shaded fast"][:3:2]),
+            "mesh_fused_albedo, albedo fast": ("MATERIAL_WAVES", *forms["albedo fast"][:3:2]),
+            "attach_sample_fused_packed, Rgba8": ("SAMPLER_WAVES", *samplers["Rgba8"][:3:2]),
+            "attach_sample_fused, height": ("SAMPLER_WAVES", *samplers["height"][:3:2]),
+        }, n)
     for name, err in errs.items():
         results[name]["max_abs_err"] = err
     del blocks, albedo, combined, base, k1
+    _SHA_MEMO.clear()
     torch.cuda.empty_cache()
+
+
+def waves_sweep(runs: dict, live: int) -> None:
+    """Each run-of-tiles kernel (name: (the kernels module's waves constant,
+    wrapper, args)) on grids of 1, 2, 4 and 8 waves of the blocks the card
+    holds at once, in turns (1 2 4 8 8 4 2 1; device time, L2 warm), its
+    output bit-equal at each; the constant is restored after. ``live`` tiles
+    split over the grid give the tiles per block."""
+    import torch
+
+    from bevy_terrain_tpu_torch.ops import kernels
+
+    occupancy = {r["name"]: r["blocks_per_sm"] for r in kernels.kernel_occupancy()}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for what, (attr, wrapper, args) in runs.items():
+        per_wave = sms * occupancy.get(wrapper.__name__,
+                                       occupancy["attach_sample_fused[_packed]"])
+        saved = getattr(kernels, attr)
+        base = wrapper(*args)
+        times: dict = {}
+        try:
+            for w in (1, 2, 4, 8, 8, 4, 2, 1):
+                setattr(kernels, attr, w)
+                if not torch.equal(wrapper(*args), base):
+                    raise AssertionError(f"{what}: {w} waves change the output")
+                times.setdefault(w, []).append(device_ms(lambda: wrapper(*args)))
+        finally:
+            setattr(kernels, attr, saved)
+        print(f"waves ({what}; in use {saved}; {per_wave} blocks a wave): " + ", ".join(
+            f"{w} ({live / (w * per_wave):.2f} tiles a block): {a:.4f} / {b:.4f} ms"
+            for w, (a, b) in sorted(times.items())))
 
 
 # -- half-grid kernel phase ------------------------------------------------------
@@ -926,6 +1011,7 @@ def halfgrid_kernel_phase(results: dict) -> None:
         args = (blocks, batch.ids, geom, tiles.tile_count.reshape(1).to(torch.int32))
         got = k6(*args)
         torch.cuda.synchronize()
+        digest(f"fetch_resample_cached ({what})", args, got)
         err = float((got - k6_plain(*args)).abs().max())
         ratio_max = float(geom[:n, 4].max())
         if (ratio_max > 0.0) == per_vertex:
@@ -936,7 +1022,9 @@ def halfgrid_kernel_phase(results: dict) -> None:
         # K7 on the same plan, re-ordered evens-first, is K6 (K7 knows no
         # tile_count: dead rows have valid = 0 in a plan)
         ids4 = batch.ids[:, None].expand(-1, 4).contiguous()
-        both = float((ps.permute_halfgrid(k7(blocks, ids4, geom)) - got).abs().max())
+        half7 = k7(blocks, ids4, geom)
+        digest(f"fetch_resample (bench frame plan, {what})", (blocks, ids4, geom), half7)
+        both = float((ps.permute_halfgrid(half7) - got).abs().max())
         # the staged functions (the half-grid of another grid size), at this one
         valid = geom[:, 3].view(-1, 1, 1)
         staged = ps.permute_halfgrid(ps.halfgrid_resample(
@@ -979,13 +1067,15 @@ def halfgrid_kernel_phase(results: dict) -> None:
           + f" (tol {TOL_STAGED_POS} m, uvs {TOL_STAGED_UV})")
     hold(max(gaps["heights"], gaps["positions"]), TOL_STAGED_POS, "staged vs fused mesh")
     hold(gaps["uvs"], TOL_STAGED_UV, "staged vs fused uvs")
-    del blocks, mesh, raw, fused
+    del blocks, mesh, raw, fused, half7
+    _SHA_MEMO.clear()
     torch.cuda.empty_cache()
 
     # K7 on the sweep tool's inputs
     sblocks, sids, sgeom = sweep_inputs()
     got = k7(sblocks, sids, sgeom)
     torch.cuda.synchronize()
+    digest("fetch_resample (sweep inputs)", (sblocks, sids, sgeom), got)
     err = float((got - k7_plain(sblocks, sids, sgeom)).abs().max())
     n_unique = int(torch.unique(sids[:, 0]).numel())
     print(f"fetch_resample (sweep inputs): {sids.shape[0]} tiles, {n_unique} unique quads of "
@@ -1006,6 +1096,7 @@ def halfgrid_kernel_phase(results: dict) -> None:
     results["fetch_resample"] = dict(max_abs_err=err7, ms=ms, plain_ms=plain_ms,
                                      **bound(nbytes, ops), library_ms=None)
     del sblocks, got
+    _SHA_MEMO.clear()
     torch.cuda.empty_cache()
 
 
@@ -1875,15 +1966,16 @@ def profile_stage(device_stage, what: str) -> None:
 
 
 # ptxas names of the kernel instances: mesh_fused_kernel<SPHERICAL,
-# ELLIPSOIDAL, ALBEDO, SHADE>, the sampler and the half-grid kernels
+# ELLIPSOIDAL>, mesh_material_kernel<SPHERICAL, ELLIPSOIDAL, SHADE>, the
+# sampler and the half-grid kernels
 INSTANCES = {
-    "mesh_fused_kernelILb0ELb0ELb0ELb0E": "mesh_fused_planar",
-    "mesh_fused_kernelILb1ELb0ELb0ELb0E": "mesh_fused_spherical (sphere)",
-    "mesh_fused_kernelILb1ELb1ELb0ELb0E": "mesh_fused_spherical (ellipsoid)",
-    "mesh_fused_kernelILb0ELb0ELb1ELb0E": "mesh_fused_albedo",
-    "mesh_fused_kernelILb0ELb0ELb1ELb1E": "mesh_fused_shaded",
-    "mesh_fused_kernelILb1ELb0ELb1ELb0E": "mesh_fused_spherical_albedo (sphere)",
-    "mesh_fused_kernelILb1ELb1ELb1ELb0E": "mesh_fused_spherical_albedo (ellipsoid)",
+    "mesh_fused_kernelILb0ELb0EE": "mesh_fused_planar",
+    "mesh_fused_kernelILb1ELb0EE": "mesh_fused_spherical (sphere)",
+    "mesh_fused_kernelILb1ELb1EE": "mesh_fused_spherical (ellipsoid)",
+    "mesh_material_kernelILb0ELb0ELb0EE": "mesh_fused_albedo",
+    "mesh_material_kernelILb0ELb0ELb1EE": "mesh_fused_shaded",
+    "mesh_material_kernelILb1ELb0ELb0EE": "mesh_fused_spherical_albedo (sphere)",
+    "mesh_material_kernelILb1ELb1ELb0EE": "mesh_fused_spherical_albedo (ellipsoid)",
     "attach_sample_kernel": "attach_sample_fused[_packed]",
     "fetch_resample_cached_kernel": "fetch_resample_cached",
     "fetch_resample_kernel": "fetch_resample",
@@ -1904,7 +1996,27 @@ def print_resources(log: str) -> None:
                   f"{spill.group(1) if spill else 0} bytes spill stores")
 
 
-def main() -> int:
+def print_occupancy() -> None:
+    """Blocks of 320 threads per SM of each kernel instance on this card
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its dynamic shared
+    memory) with its registers and shared memory, from the library's
+    ``kernel_occupancy`` query."""
+    import torch
+
+    from bevy_terrain_tpu_torch.ops import kernels
+
+    warps_per_sm = torch.cuda.get_device_properties(0).max_threads_per_multi_processor // 32
+    for row in kernels.kernel_occupancy():
+        warps = row["blocks_per_sm"] * 10
+        print(f"occupancy: {row['name']}: {row['blocks_per_sm']} blocks per SM ({warps} of "
+              f"{warps_per_sm} warps, {warps / warps_per_sm:.0%}); {row['registers']} "
+              f"registers, {row['static_smem']} + {row['dynamic_smem']} bytes shared memory "
+              f"(static + dynamic), {row['local_bytes']} bytes local")
+        if row["blocks_per_sm"] < 1:
+            raise AssertionError(f"{row['name']}: no block of 320 threads fits an SM")
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1927,12 +2039,17 @@ def main() -> int:
     print(log.getvalue(), end="")
     print(f"build: {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
     print_resources(log.getvalue())
+    if hasattr(kernels, "kernel_occupancy"):  # not in the trees before it
+        print_occupancy()
 
     results: dict = {}
     kernel_phase(results)
     sphere_kernel_phase(results)
     material_kernel_phase(results)
     halfgrid_kernel_phase(results)
+    if "--kernel-phases" in argv:
+        print(json.dumps({"kernel_phases": results}))
+        return 0
     counts = {"mesh_fused_planar": main_path_phase(),
               **sphere_main_path_phase(),
               **sphere_material_main_path_phase(),
@@ -1952,4 +2069,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -190,12 +190,12 @@ def test_sample_attachment_vertices_matches_jax(frame, fmt):
     np.testing.assert_allclose(got[:n].numpy(), want[:n], rtol=0, atol=TOL)
 
 
-def test_mismatched_plan_raises(frame):
+def test_mismatched_plan_takes_the_staged_sampler(frame):
     """An attachment declared with another patch plan
-    (``plan_matches_frame=False``) used to raise; it now takes the staged
-    sampler (fetch_patches, halfgrid_resample, the 3x3 window). On the same
-    plan that is the sampler kernels' function: equal within :data:`TOL` of
-    full scale, raw and packed."""
+    (``plan_matches_frame=False``) takes the staged sampler
+    (fetch_patches, halfgrid_resample, the 3x3 window). On the same plan
+    that is the sampler kernels' function: equal within :data:`TOL` of full
+    scale, raw and packed."""
     tiles, n = frame["tiles"], int(frame["tiles"].tile_count)
     uv = torch.from_numpy(frame["uv"])
     for key, kw in (("raw", dict(max_value=65535.0)),

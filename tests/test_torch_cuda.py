@@ -365,3 +365,112 @@ def test_staged_mesh_launches_the_halfgrid_kernel():
     assert float((mesh.heights - fused.heights).abs().max()) <= 2e-2
     assert float((mesh.positions - fused.positions).abs().max()) <= 2e-2
     assert float((mesh.uvs - fused.uvs).abs().max()) <= 1e-6
+
+
+# -- the run-of-tiles kernels (K3 / K4 material mesh, K5 samplers) on tile
+# orders and counts the patch plan does not give: a block walks an equal
+# share of consecutive tiles (a grid of MATERIAL_WAVES / SAMPLER_WAVES waves
+# of resident blocks) and keeps the quad it holds while the ids repeat,
+# which must be right for any ids, any tile_count and any tile total
+
+ID_CASES = ["sorted", "permuted", "one_quad", "count_0", "count_full", "ragged"]
+
+
+def _id_case(case, ids, per_tile, live):
+    """The frame's tiles re-arranged for one case: (ids, the per-tile
+    tensors, tile_count as an int32 tensor). The plan's ``live`` tiles lead
+    (a dead tail follows, at capacity 2048 some 250 tiles); "permuted" shuffles the
+    live tiles (runs of one tile), "one_quad" puts every tile on the first
+    tile's quad, "ragged" drops three tiles so that the total is no multiple
+    of most grids' block counts."""
+    F = ids.shape[0]
+    count = {"count_0": 0, "count_full": F}.get(case, live)
+    if case == "permuted":
+        perm = torch.from_numpy(np.concatenate([np.random.default_rng(4).permutation(live),
+                                                np.arange(live, F)])).to(ids.device)
+        ids, per_tile = ids[perm], [x[perm].contiguous() for x in per_tile]
+    elif case == "one_quad":
+        ids = torch.full_like(ids, int(ids[0]))
+    elif case == "ragged":
+        ids, per_tile = ids[:F - 3], [x[:F - 3].contiguous() for x in per_tile]
+    return (ids.contiguous(), per_tile,
+            torch.tensor([min(count, ids.shape[0])], dtype=torch.int32, device=ids.device))
+
+
+def _each_grid(attr, call):
+    """``call()`` on grids of 1, 2, 4 and 64 waves of resident blocks
+    (kernels.<attr>; 64 waves give every tile a block of its own); the
+    outputs must be bit-equal. Returns the output at the module's value."""
+    saved = getattr(kernels, attr)
+    try:
+        outs = {}
+        for w in (1, 2, 4, 64, saved):
+            setattr(kernels, attr, w)
+            outs[w] = call()
+    finally:
+        setattr(kernels, attr, saved)
+    for w, out in outs.items():
+        assert torch.equal(out, outs[saved]), w
+    return outs[saved]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ID_CASES)
+@pytest.mark.parametrize("form", ["fast", "exact", "opaque", "combined"])
+def test_shaded_kernel_on_any_tile_order(form, case):
+    """K4 against its plain version, its mesh rows against K1's bit for bit,
+    on every grid, with zeros past tile_count."""
+    dev = _card()
+    blob, blocks, cfg, plan = _scene(2048)
+    albedo = torch.from_numpy(_packed(blocks.shape, 4, 8, 7)).to(dev)
+    _, _, args = _stage(blob, blocks, cfg, plan, dev)
+    quads, ids, geom, tp, fs, live = args
+    ids, (geom, tp), count = _id_case(case, ids, [geom, tp], int(live))
+    channels, fast = (3 if form == "opaque" else 4), form != "exact"
+    if form == "combined":
+        base = (torch.cat([quads, albedo], dim=1), ids, geom, tp, fs, count, None)
+    else:
+        base = (quads, ids, geom, tp, fs, count, albedo)
+    shade = kernels.pack_shade_spec(_material_spec(), dev)
+    kargs = (*base, channels, 8, shade, fast, form == "combined")
+    before = kernels.mesh_fused_shaded.launches
+    got = _each_grid("MATERIAL_WAVES", lambda: kernels.mesh_fused_shaded(*kargs))
+    torch.cuda.synchronize()
+    assert kernels.mesh_fused_shaded.launches == before + 5
+    n = int(count)
+    assert got.shape == (ids.shape[0], 6 + channels, 17, 17) and not got[n:].any()
+    assert torch.equal(got[:, :6], kernels.mesh_fused_planar(quads, ids, geom, tp, fs, count))
+    want = kernels.mesh_fused_shaded_reference(*kargs)
+    err = float((got[:, 6:] - want[:, 6:]).abs().max())
+    assert err <= (TOL_FAST if fast else 1e-4), (form, case, err)
+    assert n == 0 or bool(got[:n, 6:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ID_CASES)
+@pytest.mark.parametrize("channels,bits", [(1, 0), (4, 8), (2, 16)])
+def test_attach_kernel_on_any_tile_order(channels, bits, case):
+    """K5a / K5b against their plain versions on every grid, with zeros past
+    tile_count."""
+    dev = _card()
+    blob, blocks, cfg, plan = _scene(2048)
+    if bits:
+        blocks = _packed(blocks.shape, channels, bits, 9)
+    tiles, batch, args = _stage(blob, blocks, cfg, plan, dev)
+    uvs = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 1, (batch.ids.shape[0], 2, 17, 17)).astype(np.float32)).to(dev)
+    ids, (geom, uvs), count = _id_case(case, batch.ids, [batch.geom, uvs],
+                                       int(tiles.tile_count))
+    call = (args[0], ids, geom, uvs, count)
+    if bits:
+        wrapper, plain = kernels.attach_sample_fused_packed, kernels.attach_sample_fused_packed_reference
+        call = (*call, channels, bits)
+    else:
+        wrapper, plain = kernels.attach_sample_fused, kernels.attach_sample_fused_reference
+    got = _each_grid("SAMPLER_WAVES", lambda: wrapper(*call))
+    torch.cuda.synchronize()
+    n = int(count)
+    assert got.shape == (ids.shape[0], channels, 17, 17) and not got[n:].any()
+    full = 65535.0 if bits in (0, 16) else 255.0
+    assert float((got - plain(*call)).abs().max()) <= TOL_EXACT * full
+    assert n == 0 or bool(got[:n].any())

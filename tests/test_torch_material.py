@@ -178,9 +178,9 @@ def test_debug_views_match_jax(shading_inputs, view):
     _close(mat.DEBUG_VIEWS[view](ctx), jmat.DEBUG_VIEWS[view](jctx), what=view)
 
 
-def test_tile_tree_view_is_not_ported(shading_inputs):
+def test_tile_tree_view_matches_jax(shading_inputs):
     """The tile-tree view (the best-loaded walk, coords.lookup_best) against
-    the JAX package's. (The name dates from when the port raised here.)"""
+    the JAX package's."""
     ctx, jctx = _contexts(shading_inputs)
     got = mat.show_tile_tree(ctx)
     _close(got, jmat.show_tile_tree(jctx), what="tile_tree")

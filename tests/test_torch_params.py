@@ -5,6 +5,8 @@ both unpack it to exactly equal fields of the same dtypes.
 """
 
 import dataclasses
+import functools
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,7 +38,7 @@ FRAMES = {
 def _blobs(name, fn="pack_frame_uniforms"):
     """The frame packed by each package from its own host modules (or, with
     ``fn="make_frame_uniforms"``, assembled into each package's
-    FrameUniforms): (JAX product, port product)."""
+    FrameUniforms, the port's on the CPU): (JAX product, port product)."""
     (pos, side, hmin, hmax), view, target, height = FRAMES[name]
     view = np.asarray(view, np.float64)
     rng = np.random.default_rng(7)
@@ -46,7 +48,9 @@ def _blobs(name, fn="pack_frame_uniforms"):
         (JModel, JApprox, JViewConfig, jtile_tree.compute_view_anchors, jfrustum,
          getattr(jparams, fn)),
         (TerrainModel, TerrainModelApproximation, TerrainViewConfig,
-         tile_tree.compute_view_anchors, frustum, getattr(params, fn)),
+         tile_tree.compute_view_anchors, frustum,
+         functools.partial(params.make_frame_uniforms, device="cpu")
+         if fn == "make_frame_uniforms" else params.pack_frame_uniforms),
     ):
         model = Model.planar(pos, side, hmin, hmax)
         vc = ViewConfig(tile_capacity=512)
@@ -99,6 +103,43 @@ def test_make_frame_uniforms_fields_exact(name):
     """The one-call assembly (the per-vertex path's in the JAX pipeline)
     gives the JAX function's fields exactly."""
     _assert_fields_exact(*_blobs(name, "make_frame_uniforms"))
+
+
+def test_make_frame_uniforms_defaults_to_the_card():
+    """Like the JAX function, which runs on the default accelerator, the
+    port's assembles its uniforms on the card unless the caller asks for
+    the CPU."""
+    assert inspect.signature(params.make_frame_uniforms).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("kind", ["sphere", "ellipsoid"])
+def test_make_frame_uniforms_on_the_cpu_matches_jax_on_a_planet(kind):
+    """A planet's frame (Taylor coefficients, cube-sphere origins, a culled
+    camera at 60 km) assembled with ``device="cpu"``: the JAX function's
+    fields exactly."""
+    rng = np.random.default_rng(9)
+    entries = rng.integers(-1, 512, (6, LODS, 8, 8, 2)).astype(np.int32)
+    out = []
+    for Model, Approx, ViewConfig, anchors, fr, make in (
+        (JModel, JApprox, JViewConfig, jtile_tree.compute_view_anchors, jfrustum,
+         jparams.make_frame_uniforms),
+        (TerrainModel, TerrainModelApproximation, TerrainViewConfig,
+         tile_tree.compute_view_anchors, frustum,
+         functools.partial(params.make_frame_uniforms, device="cpu")),
+    ):
+        if kind == "sphere":
+            model = Model.sphere(np.zeros(3), 6.371e6, 0.0, 9000.0)
+        else:
+            model = Model.ellipsoid(np.zeros(3), 6_378_137.0, 6_356_752.3, -11_000.0, 9000.0)
+        vc = ViewConfig(tile_capacity=512)
+        view = model.surface_position(np.array([0.2, 0.3, 6.371e6]), 60_000.0)
+        vp = fr.view_projection(view, view * 0.5, np.pi / 3, 16 / 9)
+        origins, vt_int, vt_frac = anchors(model, view, LODS, vc.tree_size)
+        approx = Approx.compute(model, view, vc.origin_lod, 4500.0)
+        out.append(make(model, view, approx, origins, entries, vt_int, vt_frac, vc,
+                        view_proj=vp))
+    _assert_fields_exact(*out)
+    assert out[1].view_world_position.device.type == "cpu"
 
 
 def test_unpack_rejects_non_int32():

@@ -199,44 +199,55 @@ def test_interop_carries_jax_atlas(dataset, port_frame, jax_terrain):
     np.testing.assert_array_equal(blob.numpy(), terrain.last_uniform_blob("cam"))
 
 
-@pytest.mark.parametrize("case", ["spherical", "grid_size", "small_attachment", "shading"])
-def test_unported_configurations_raise(tmp_path, case):
-    """What the fused kernels do not cover raises NotImplementedError instead
-    of silently taking another path: a sphere without the Taylor path (the
-    pipeline sends such a view through the staged path), the fused kernel at
-    another grid size (staged too), a sampled attachment too small for the
-    patch plan, and the in-kernel shade on a sphere (its normals are a
-    planar central difference; the pipeline shades a planet with
-    render/material.shade)."""
-    atts = (AttachmentConfig(**ATT),)
+def _raising_terrain(tmp_path, sphere=False, grid_size=16, atts=()):
+    """A CPU Terrain on an empty dataset: the 1000 m plane, or a 6.4e6 m
+    sphere, with one view of the given grid size."""
     model = TerrainModel.planar(np.zeros(3), 1000.0, 0.0, 100.0)
-    sphere = case in ("spherical", "shading")
     if sphere:
         model = TerrainModel.sphere(np.zeros(3), 6.4e6, 0.0, 9000.0)
-    if case == "small_attachment":
-        atts += (AttachmentConfig(name="albedo", texture_size=32, border_size=1,
-                                  format=AttachmentFormat.RGBA8),)
-    config = TerrainConfig(model=model, attachments=atts, assets_root=str(tmp_path),
-                           **{**TERRAIN, "atlas_size": 4})
+    config = TerrainConfig(model=model, attachments=(AttachmentConfig(**ATT), *atts),
+                           assets_root=str(tmp_path), **{**TERRAIN, "atlas_size": 4})
     terrain = Terrain(config, device="cpu")
-    terrain.add_view("cam", TerrainViewConfig(grid_size=8 if case == "grid_size" else 16,
-                                              tile_capacity=64), queue_capacity=256)
+    terrain.add_view("cam", TerrainViewConfig(grid_size=grid_size, tile_capacity=64),
+                     queue_capacity=256)
+    return terrain
+
+
+@pytest.mark.parametrize("case", ["spherical", "grid_size", "shading"])
+def test_fused_kernel_args_reject_what_the_kernels_do_not_cover(tmp_path, case):
+    """``meshgen.fused_kernel_args`` raises NotImplementedError for what the
+    fused kernels do not cover, rather than packing arguments they would
+    misread: a sphere without the Taylor path and a grid size other than 16
+    (the pipeline sends both through the staged path: at grid size 8 the
+    frame has no raw kernel output), and the in-kernel shade on a sphere
+    (its normals are a planar central difference; the pipeline shades a
+    planet with render/material.shade)."""
+    sphere = case in ("spherical", "shading")
+    terrain = _raising_terrain(tmp_path, sphere, 8 if case == "grid_size" else 16)
     cfg = terrain._static_cfgs["cam"]
     height = terrain.atlas.attachments[0]
+    out = terrain.update({"cam": VIEW * (1e5 if sphere else 1.0)})["cam"]
+    assert (out.raw_mesh is None) == (case == "grid_size")
+    uniforms, _ = terrain.frame_inputs("cam")
+    if case == "spherical":
+        cfg = dataclasses.replace(cfg, high_precision=False)
+    shade = {}
+    if case == "shading":
+        spec = kernel_shade_spec(StandardMaterial(base_color=albedo_material(0)), 255.0)
+        shade = dict(albedo_blocks=height.block_array, albedo_channels=4, albedo_bits=8,
+                     shade_spec=spec)
     with pytest.raises(NotImplementedError):
-        if case == "small_attachment":
-            terrain.set_shading(StandardMaterial(base_color=albedo_material(1)),
-                                sample_attachments=(1,))
-        else:
-            out = terrain.update({"cam": VIEW * (1e5 if sphere else 1.0)})["cam"]
-            assert (out.raw_mesh is None) == (case == "grid_size")
-            uniforms, _ = terrain.frame_inputs("cam")
-            if case == "spherical":
-                cfg = dataclasses.replace(cfg, high_precision=False)
-            shade = {}
-            if case == "shading":
-                spec = kernel_shade_spec(StandardMaterial(base_color=albedo_material(0)), 255.0)
-                shade = dict(albedo_blocks=height.block_array, albedo_channels=4,
-                             albedo_bits=8, shade_spec=spec)
-            meshgen.fused_kernel_args(out.tiles, height.block_array, uniforms, cfg,
-                                      height.patch_plan, 65535.0, **shade)
+        meshgen.fused_kernel_args(out.tiles, height.block_array, uniforms, cfg,
+                                  height.patch_plan, 65535.0, **shade)
+
+
+def test_sampling_an_attachment_too_small_for_the_patch_plan_raises(tmp_path):
+    """A material that samples an attachment too small for the patch plan
+    (32^2 texels, border 1) raises NotImplementedError at set_shading: there
+    is no block array to sample at the mesh's vertices."""
+    albedo = AttachmentConfig(name="albedo", texture_size=32, border_size=1,
+                              format=AttachmentFormat.RGBA8)
+    terrain = _raising_terrain(tmp_path, atts=(albedo,))
+    with pytest.raises(NotImplementedError):
+        terrain.set_shading(StandardMaterial(base_color=albedo_material(1)),
+                            sample_attachments=(1,))

@@ -327,3 +327,29 @@ def test_gradient_sampler_matches_jax(packed):
     one = ps.sample_attachment_vertices(
         [torch.from_numpy(a) for a in arrays], tiles, mesh.uvs, u, cfg, plan, full, **kw).numpy()
     assert 1e-3 < float(np.abs(got[:n] - one[:n]).max()) < 0.6  # a filter, not a copy
+
+
+@pytest.mark.parametrize("plan_matches_frame", [True, False])
+def test_gradient_sampler_takes_plan_matches_frame(plan_matches_frame):
+    """``sample_attachment_vertices_grad`` takes the JAX function's
+    ``plan_matches_frame`` keyword (``Terrain._sample_grid`` passes it) and,
+    like it, samples the same either way: a raw height attachment at 2 taps
+    against the JAX function called with the same keyword within 1e-5, and
+    against the port's own call without it bit for bit."""
+    blob, blocks, cfg, _, plan, jplan = small_frame()
+    u = unpack_frame_uniforms(torch.from_numpy(blob), 1, LODS, 8)
+    ju = junpack(jnp.asarray(blob), 1, LODS, 8)
+    raw, tiles = meshgen.generate_mesh_fused(refinement.refine_tiles(u, cfg),
+                                             torch.from_numpy(blocks), u, cfg, plan, 65535.0)
+    mesh = meshgen.fused_to_grid(raw, tiles, cfg)
+    jmesh, jtiles, jcfg = _jax_mesh(mesh), _jax_tiles(tiles), _jax_cfg(cfg)
+    args = ([torch.from_numpy(blocks)], tiles, mesh.uvs, mesh, u, cfg, plan, 65535.0)
+    got = ps.sample_attachment_vertices_grad(*args, taps=2,
+                                             plan_matches_frame=plan_matches_frame).numpy()
+    want = np.asarray(jps.sample_attachment_vertices_grad(
+        [jnp.asarray(blocks)], jtiles, jmesh.uvs, jmesh, ju, jcfg, jplan, 65535.0, taps=2,
+        plan_matches_frame=plan_matches_frame))
+    n = int(tiles.tile_count)
+    assert got.shape == want.shape == (cfg.tile_capacity, 17, 17, 1)
+    assert float(np.abs(got[:n] - want[:n]).max()) <= 1e-5
+    np.testing.assert_array_equal(got, ps.sample_attachment_vertices_grad(*args, taps=2).numpy())
