@@ -9,28 +9,52 @@
 // does not carry over:
 //
 // * The TPU kernel streams each frame's unique quads through a VMEM ring
-//   (U_MAX / LOOKAHEAD) because a TPU DMA costs ~100 ns to issue. Here each
-//   tile block of K1 / K2 reads its 16 KB quad straight from device memory
-//   with 16-byte loads. A frame touches a few hundred unique quads (a few
-//   MB) for a few thousand tiles, so repeated reads hit the 50 MB L2: the
-//   fetch is L2- and latency-bound. What bounds the kernel on this card is
-//   the bytes it must move (the output and the unique quads); the per-tile
-//   arithmetic (a 33x33 two-tap resample, two 1-2-1 passes, 289 vertices,
-//   and for spheres two cube-sphere evaluations and two Taylor chains per
-//   vertex) is small.
-// * The TPU kernel evaluates the tent resample as dense MXU dots in an
-//   evens-first half-grid order (lane slicing). A tent has at most two
-//   non-zero taps, so each half-grid point here is a 2x2 bilinear of the
-//   mean-centred patch in natural order: the same value as the dense
-//   product, without the 64-wide contractions.
-// * K1 / K2 run one tile per thread block (one thread per vertex, 320
-//   threads) in any order; nothing carries between blocks. Dead tiles
-//   (index >= tile_count, read from device memory) write zeros, as the TPU
-//   kernel zeroes its dead steps. The sphere's high-precision flag stays
-//   per 64-tile step, as in the TPU kernel: a vertex takes the Taylor near
-//   field where its world-frame distance is inside the threshold AND its
-//   step (tile index >> 6) is flagged 2, even if its own tile's bound is
-//   "far".
+//   (U_MAX / LOOKAHEAD) because a TPU DMA costs ~100 ns to start. What
+//   bounds the kernel on this card is the bytes it must move (the output
+//   and the frame's few hundred unique quads, a few MB that stay in the 50
+//   MB L2); the per-tile arithmetic (a 33x33 two-tap resample, two 1-2-1
+//   passes, 289 vertices, and for spheres two cube-sphere evaluations and
+//   two Taylor chains per vertex) is small. What keeps it off that bound is
+//   what it spends per tile, so every instance walks runs of tiles:
+// * A block walks a run of consecutive tiles in the plan's order, which
+//   sorts the tiles by quad id (some 15 tiles a quad at the bench frame),
+//   and keeps the quad it holds, raw (32, 128) in shared memory, with its
+//   exact integer mean while the ids repeat -- what the TPU kernel's ring of
+//   unique quads (uq / slots) kept out of memory. Any order of ids is right;
+//   a sorted one is fast. The live tiles are split evenly over a grid of
+//   `waves` (a launch constant of ops/kernels.py) times the blocks the card
+//   holds at once, so no block waits for a tail wave.
+// * The next tile's quad, when its id differs, is copied with cp.async
+//   behind the current tile. K1 and K2 hold the quad as a float patch in
+//   natural texel order, unpacked once per quad with its exact integer
+//   mean, beside a raw buffer that takes the next quad's copy from the top
+//   of the tile on. The material instances (K3 / K3s / K4) hold the raw
+//   height and albedo quads (packed channels are unpacked per point) and
+//   start both copies once the tile's half-grids are built, behind the
+//   smoothing, vertex and shade phases. The first quad of a run is in
+//   flight while the block zeroes its share of the dead tiles.
+// * The tent resample evaluates a tent's two non-zero taps: each half-grid
+//   point is a 2x2 bilinear of the mean-centred patch in natural order, the
+//   value of the TPU kernel's dense MXU product in its evens-first order,
+//   without the 64-wide contractions. The 1-2-1 smoothed grid is formed
+//   straight from H, with no stored x pass: K1 / K2 give each thread a
+//   strip of four points down one column (the column's x taps formed once,
+//   the x-smoothed rows around the strip once), the material instances
+//   recompute each point's three x taps; the values are a stored pass's. A
+//   tile with a held quad crosses three barriers (four with the shade).
+// * On spheres the unmorphed cube-sphere warp terms (pxs per column, pys
+//   per row) are a table of 2 x 17 per tile, built beside the smoothing;
+//   the morphed evaluation stays per vertex. K1 / K2 stage the tile's
+//   parameters (4 or 45 floats) and its constants (2^-lod and the two
+//   frame reciprocals of the morph and blend ranges, one thread each) in
+//   shared memory behind the same barrier.
+// * Tiles at index >= tile_count (read from device memory) are zeros,
+//   written with 16-byte stores and no fetch, as the TPU kernel zeroes its
+//   dead steps. The sphere's high-precision flag stays per 64-tile step, as
+//   in the TPU kernel: a vertex takes the Taylor near field where its
+//   world-frame distance is inside the threshold AND its step (tile index
+//   >> 6) is flagged 2, even if its own tile's bound is "far"; a run may
+//   start anywhere in a step.
 //
 // Accumulation is f32 (the patch mean is an exact integer sum). Built
 // without fast math and without FMA contraction (--fmad=false), so the
@@ -67,34 +91,15 @@
 //   pack_shade_spec), read per launch: no rebuild per material and no cap
 //   on the light count.
 //
-// The material kernel does per tile twice the fetch, four or five times the
-// resample and, for K4, a few hundred operations per vertex more than K1;
-// its design cuts what it spends per tile rather than per byte:
-//
-// * A block walks a run of consecutive tiles in the plan's order, which
-//   sorts the tiles by quad id, and keeps the two quads it holds (heights
-//   and albedo, raw (32, 128) in shared memory) with their exact means
-//   while the ids repeat -- what the TPU kernel's ring of unique quads
-//   (uq / slots) kept out of memory. Any order of ids is right; a sorted
-//   one is fast. The live tiles are split evenly over a grid of `waves` (a
-//   launch constant of ops/kernels.py) times the blocks the card holds at
-//   once, so no block waits for a tail wave.
-// * Both quads of the next tile, when its id differs, are copied with
-//   cp.async as soon as the current tile's half-grids are done, behind the
-//   smoothing, vertex and shade phases.
-// * One pass per half-grid point computes the taps once and reads the four
-//   height words and the four albedo words once for every channel. The
-//   1-2-1 smoothed grid is formed straight from H (each x tap recomputed,
-//   the same values as a stored intermediate). A tile with a held quad
-//   crosses three barriers (four with the shade).
-// * Tiles at index >= tile_count are zeros, written with 16-byte stores and
-//   no fetch.
-// * Shared memory (two quads, H, Hs, four albedo half-grids, the shade's
-//   heights: ~59 KB) is dynamic, three blocks per SM.
-//
-// The per-point and per-vertex arithmetic is K1's / K2's and the one-block-
-// per-tile kernel's in the same op order, so the mesh rows are bit-equal
-// to K1's (K2's on a sphere) and a block's run length changes no bit.
+// K1 / K2 (mesh_fused_kernel) and the material instances
+// (mesh_material_kernel) share the vertex stage and the per-point op order,
+// so the material instances' mesh rows are bit-equal to K1's (K2's on a
+// sphere), and a block's run length changes no bit. K1 / K2 take ~41 KB of
+// static shared memory (the next quad raw, the held one as floats, H, Hs),
+// four blocks per SM for K1 (48 registers) and three for K2 (64); the
+// material instances ~59 KB of dynamic shared memory (a height and an
+// albedo quad, H, Hs, four albedo half-grids, the shade's heights), three
+// blocks per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -241,21 +246,24 @@ struct Vec3 {
   float x, y, z;
 };
 
-// Cube-sphere world position + unit world normal at tile uv (uu, vv)
-// (pallas_kernels.py far_geom): the warp, the closed-form cube-point norm
-// rsqrt(1 + pxs^2 + pys^2), the per-tile side-composed WM rows plus the
+// One cube-sphere warp term of far_geom (pallas_kernels.py): pxs of tile
+// coordinate u with origin = the tile's x, or pys of v with its y, at
+// inv_count = 2^-lod.
+__device__ __forceinline__ float warp_term(float uv, float origin, float inv_count) {
+  const float c = (float)C_SQR_D;
+  const float one_c = (float)(1.0 + C_SQR_D);
+  const float wp = 2.0f * ((origin + uv) * inv_count) - 1.0f;
+  return wp * rsqrt_rn(one_c - c * wp * wp);
+}
+
+// Cube-sphere world position + unit world normal from the warp terms (pxs,
+// pys) of a tile uv (pallas_kernels.py far_geom): the closed-form cube-point
+// norm rsqrt(1 + pxs^2 + pys^2), the per-tile side-composed WM rows plus the
 // translation fs[3, 7, 11]; normal = pre-translation point / R (fs[42]) for
 // a sphere, normalize(NM rows . (pxs, pys, 1)) for an ellipsoid.
 template <bool ELLIPSOIDAL>
-__device__ __forceinline__ void far_geom(float uu, float vv, float xf, float yf,
-                                         float inv_count, const float* tp,
+__device__ __forceinline__ void far_geom(float pxs, float pys, const float* tp,
                                          const float* fs, Vec3& w, Vec3& n) {
-  const float c = (float)C_SQR_D;
-  const float one_c = (float)(1.0 + C_SQR_D);
-  const float wxp = 2.0f * ((xf + uu) * inv_count) - 1.0f;
-  const float wyp = 2.0f * ((yf + vv) * inv_count) - 1.0f;
-  const float pxs = wxp * rsqrt_rn(one_c - c * wxp * wxp);
-  const float pys = wyp * rsqrt_rn(one_c - c * wyp * wyp);
   const float inv_n = rsqrt_rn(1.0f + pxs * pxs + pys * pys);
   const float pxn = pxs * inv_n;
   const float pyn = pys * inv_n;
@@ -325,23 +333,34 @@ struct Vertex {
   float wyb[3], wxa[3];  // the 3x3 window's weights at the morphed uv
 };
 
+// The vertex stage's per-tile constants, each one correctly rounded op:
+// 2^-lod (tp[1]), 1 / morph_range (fs[19]), 1 / blend_range (fs[21]).
+constexpr int TILE_CONSTS = 3;
+
+__device__ __forceinline__ float tile_const(int c, const float* tp, const float* fs) {
+  return c == 0 ? exp2f(-tp[1]) : 1.0f / fs[c == 1 ? 19 : 21];
+}
+
 // Phase 4 of every mesh kernel for vertex (i = row / v, j = column / u) of
 // tile t: view distance (planar, or the cube sphere's with the Taylor near
 // field on high-precision steps), CDLOD morph, the 3x3 window of the fine
 // and smoothed half-grids H and Hs (33x33, natural order), per-vertex
-// blend, height, world position (and normal).
+// blend, height, world position (and normal). warp: the tile's unmorphed
+// warp terms on a sphere, pxs of column j at warp[j], pys of row i at
+// warp[GV + i]; consts: the tile's TILE_CONSTS.
 template <bool SPHERICAL, bool ELLIPSOIDAL>
 __device__ __forceinline__ Vertex vertex_stage(int t, int i, int j, const float* tp,
                                                const float* __restrict__ fs,
                                                const int* __restrict__ hp_steps,
                                                int origin_lod, float valid, const float* H,
-                                               const float* Hs) {
+                                               const float* Hs, const float* warp,
+                                               const float* consts) {
   Vertex r;
   const float live = tp[0], lodf = tp[1], xf = tp[2], yf = tp[3];
   const float inv16 = 1.0f / (GV - 1.0f);
   const float u = (float)j * inv16;
   const float v = (float)i * inv16;
-  const float inv_count = exp2f(-lodf);
+  const float inv_count = consts[0];
 
   float d2;
   bool near = false;
@@ -351,7 +370,7 @@ __device__ __forceinline__ Vertex vertex_stage(int t, int i, int j, const float*
     // world-frame view distance^2 at the approximate height fs[29] (view
     // fs[39..41]); on high-precision steps the Taylor distance replaces it
     // inside the threshold (fs[45] = threshold^2)
-    far_geom<ELLIPSOIDAL>(u, v, xf, yf, inv_count, tp, fs, w0, n0);
+    far_geom<ELLIPSOIDAL>(warp[j], warp[GV + i], tp, fs, w0, n0);
     const float dwx = w0.x + fs[29] * n0.x - fs[39];
     const float dwy = w0.y + fs[29] * n0.y - fs[40];
     const float dwz = w0.z + fs[29] * n0.z - fs[41];
@@ -387,7 +406,7 @@ __device__ __forceinline__ Vertex vertex_stage(int t, int i, int j, const float*
   // CDLOD morph toward the even grid (fs 43 log2(2 morph_distance),
   // fs 19 morph_range, fs 24 morph on)
   const float target_lod = fs[43] - log2_dist;
-  float mr = fminf(fmaxf((lodf + fs[19] - target_lod) * (1.0f / fs[19]), 0.0f), 1.0f);
+  float mr = fminf(fmaxf((lodf + fs[19] - target_lod) * consts[1], 0.0f), 1.0f);
   mr = (lodf == 0.0f ? 0.0f : mr) * fs[24];
   const float even_u = (float)(j & ~1) * inv16;
   const float even_v = (float)(i & ~1) * inv16;
@@ -418,7 +437,7 @@ __device__ __forceinline__ Vertex vertex_stage(int t, int i, int j, const float*
   const float blod = (float)(int)fmaxf(btarget, 0.0f);
   const float bratio =
       (blod == 0.0f ? 0.0f
-                    : fminf(fmaxf((blod + fs[21] - btarget) * (1.0f / fs[21]), 0.0f), 1.0f)) *
+                    : fminf(fmaxf((blod + fs[21] - btarget) * consts[2], 0.0f), 1.0f)) *
       fs[25];
   const float h_norm = (h_fine + (h_smooth - h_fine) * bratio) * valid;
   const float height = (fs[22] + fs[23] * h_norm) * live;
@@ -428,7 +447,8 @@ __device__ __forceinline__ Vertex vertex_stage(int t, int i, int j, const float*
     // relative position (view + rel) replaces it and the unmorphed normal
     // is kept
     Vec3 wm, nm;
-    far_geom<ELLIPSOIDAL>(mu, mv, xf, yf, inv_count, tp, fs, wm, nm);
+    far_geom<ELLIPSOIDAL>(warp_term(mu, xf, inv_count), warp_term(mv, yf, inv_count), tp,
+                          fs, wm, nm);
     if (near) {
       const Vec3 rm = taylor_rel(mu, mv, anchor, tp, fs);
       wm.x = fs[39] + rm.x;
@@ -472,9 +492,43 @@ __device__ __forceinline__ void write_mesh_rows(float* o, int vtx, const Vertex&
   o[5 * NVERT + vtx] = v.mv * live;
 }
 
-// K1 (planar) and K2 (spherical): one tile per block.
+// The K1 / K2 half-grid passes give each thread a strip of STRIP points
+// down one column: the column's x taps (H) or the x-smoothed rows around the
+// strip (Hs) are formed once for the strip. 33 columns x 9 strips = 297
+// threads.
+constexpr int STRIP = 4;
+constexpr int STRIPS = (K + STRIP - 1) / STRIP;
+
+// K1 / K2's shared memory.
+struct MeshShared {
+  alignas(16) int raw[QUAD_WORDS];  // the next quad, raw (32, 128): the cp.async target
+  float patch[P][P];    // the held quad, natural texel order
+  float H[K][K];        // fine half-grid
+  float Hs[K][K];       // 1-2-1 smoothed half-grid (coarser data lod)
+  float warp[2 * GV];   // spheres: the unmorphed pxs per column, pys per row
+  float tp[SPH_PARAMS];  // the tile's parameters
+  float consts[TILE_CONSTS];
+  long long warp_sum[NWARPS];
+  float mean;
+};
+
+// The tile's unmorphed cube-sphere warp terms into warp[0, 2 GV): pxs of
+// its columns, then pys of its rows, one per thread of the block's last 2 GV
+// (the same ops as far_geom's unmorphed evaluation per vertex).
+__device__ __forceinline__ void warp_table(int tid, const float* tp, float* warp) {
+  const int w = tid - (NTHREADS - 2 * GV);
+  if (w < 0) return;
+  const int a = w < GV ? 0 : 1;  // 0: column (x, u); 1: row (y, v)
+  warp[w] = warp_term((float)(w - a * GV) * (1.0f / (GV - 1.0f)), tp[2 + a], exp2f(-tp[1]));
+}
+
+// K1 (planar) and K2 (spherical): runs of tiles per block, built for four
+// blocks per SM (K1, 48 registers) or three (K2, 64). The held quad is a
+// float patch, its exact mean taken once; the next tile's quad, when its id
+// differs, is copied raw behind the whole current tile and unpacked at the
+// top of the next.
 template <bool SPHERICAL, bool ELLIPSOIDAL>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, SPHERICAL ? 3 : 4)
 mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
                   const int* __restrict__ ids,
                   const float* __restrict__ geom,         // (n, 8)
@@ -482,59 +536,94 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
                   const float* __restrict__ fs,           // (48,)
                   const int* __restrict__ hp_steps,       // (n / 64,), spheres only
                   const int* __restrict__ tile_count,     // (1,)
-                  int origin_lod, float* __restrict__ out) {
+                  int n_tiles, int origin_lod, float* __restrict__ out) {
   constexpr int OUT_CH = SPHERICAL ? 9 : 6;
   constexpr int N_PARAMS = SPHERICAL ? SPH_PARAMS : 4;
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  float* o = out + (size_t)t * OUT_CH * NVERT;
-  if (t >= __ldg(tile_count)) {
-    for (int e = tid; e < OUT_CH * NVERT; e += NTHREADS) o[e] = 0.0f;
-    return;
+  __shared__ MeshShared s;
+  const TileRun run = tile_run(n_tiles, __ldg(tile_count));
+  long long q = 0;
+  if (run.t0 < run.t1) {
+    q = quad_id(ids, run.t0, n_blocks);
+    fetch_quad_async(s.raw, blocks + q * QUAD_WORDS);
   }
-
-  __shared__ float patch[P][P];
-  __shared__ float H[K][K];   // fine half-grid
-  __shared__ float X[K][K];   // H smoothed along x
-  __shared__ float Hs[K][K];  // 1-2-1 smoothed half-grid (coarser data lod)
-  __shared__ long long warp_sum[NWARPS];
-  __shared__ float s_mean;
-
-  // ---- 1. fetch the quad: patch rows 0..31 = q[:, 0:64], rows 32..63 =
-  // q[:, 64:128]; exact integer sum for the mean ----
-  long long q = ids[t];
-  q = q < 0 ? 0 : (q >= n_blocks ? n_blocks - 1 : q);
-  const float mean = block_mean(load_patch(blocks + q * QUAD_WORDS, patch), warp_sum, &s_mean);
-
-  // ---- 2. tent resample of the mean-centred patch at the 33x33 half-grid
-  // positions clip(p0 + k * dp, 0, 63): H = Wy (P - c) Wx^T + c ----
-  const float* g = geom + (size_t)t * 8;
-  const float p0x = g[0], p0y = g[1], dp = g[2], valid = g[3];
-  for (int e = tid; e < K * K; e += NTHREADS) {
-    const int k = e / K, l = e % K;
-    H[k][l] = centred_bilinear(patch, mean, halfgrid_taps(p0x, p0y, dp, k, l)) + mean;
-  }
+  // the dead tiles' zeros go out while the first quad lands
+  zero_fill(out + (size_t)run.d0 * OUT_CH * NVERT, out + (size_t)run.d1 * OUT_CH * NVERT);
+  if (run.t0 == run.t1) return;
+  cp_async_wait();
   __syncthreads();
+  bool fetched = true;  // s.raw holds quad q: unpack it and take its mean
+  float mean = 0.0f;
+  for (int t = run.t0; t < run.t1; ++t) {
+    const int tid = opaque((int)threadIdx.x);
+    const float* fs_t = opaque(fs);
+    if (fetched) {
+      mean = block_mean(unpack_patch(s.raw, s.patch), s.warp_sum, &s.mean);
+      fetched = false;
+    }
+    // s.raw is free: the next tile's quad, if another, lands behind this tile
+    const long long next = t + 1 < run.t1 ? quad_id(ids, t + 1, n_blocks) : q;
+    if (next != q) fetch_quad_async(s.raw, blocks + next * QUAD_WORDS);
 
-  // ---- 3. smoothed copy Hs = A H A^T, A = 1-2-1 with duplicated boundary
-  // rows (pallas_kernels.py xsmooth / ysmooth) ----
-  for (int e = tid; e < K * K; e += NTHREADS) {
-    const int k = e / K, l = e % K;
-    X[k][l] = smooth3(H[k][max(l - 1, 0)], H[k][l], H[k][min(l + 1, K - 1)]);
-  }
-  __syncthreads();
-  for (int e = tid; e < K * K; e += NTHREADS) {
-    const int k = e / K, l = e % K;
-    Hs[k][l] = smooth3(X[max(k - 1, 0)][l], X[k][l], X[min(k + 1, K - 1)][l]);
-  }
-  __syncthreads();
+    // ---- 1. tent resample of the mean-centred patch at the 33x33
+    // half-grid positions clip(p0 + k * dp, 0, 63): H = Wy (P - c) Wx^T + c
+    // ----
+    const float* g = geom + (size_t)t * 8;
+    const float p0x = g[0], p0y = g[1], dp = g[2], valid = g[3];
+    const int l = tid % K, k0 = tid / K * STRIP;
+    if (tid < K * STRIPS) {
+      const AxisTaps x = axis_taps(p0x, dp, l);
+#pragma unroll
+      for (int d = 0; d < STRIP; ++d) {
+        const int k = k0 + d;
+        if (k >= K) break;
+        const AxisTaps y = axis_taps(p0y, dp, k);
+        s.H[k][l] =
+            centred_bilinear(s.patch, mean, {y.i0, x.i0, y.w0, y.w1, x.w0, x.w1}) + mean;
+      }
+    }
+    __syncthreads();
 
-  // ---- 4. per vertex ----
-  if (tid >= NVERT) return;
-  const float* tp = tile_params + (size_t)t * N_PARAMS;
-  const Vertex v = vertex_stage<SPHERICAL, ELLIPSOIDAL>(t, tid / GV, tid % GV, tp, fs, hp_steps,
-                                                        origin_lod, valid, &H[0][0], &Hs[0][0]);
-  write_mesh_rows<SPHERICAL>(o, tid, v, tp[0]);
+    // ---- 2. smoothed copy Hs = A H A^T, A = 1-2-1 with duplicated boundary
+    // rows (pallas_kernels.py xsmooth / ysmooth): the strip's x-smoothed
+    // rows, then the y taps over them; beside it the tile's parameters and
+    // constants go to shared memory and, on a sphere, the last 2 GV threads
+    // build the tile's warp table ----
+    const float* tp = tile_params + (size_t)t * N_PARAMS;
+    if (tid < K * STRIPS) {
+      const int lm = max(l - 1, 0), lp = min(l + 1, K - 1);
+      float x[STRIP + 2];
+#pragma unroll
+      for (int d = 0; d < STRIP + 2; ++d) {
+        const int r = min(max(k0 - 1 + d, 0), K - 1);
+        x[d] = smooth3(s.H[r][lm], s.H[r][l], s.H[r][lp]);
+      }
+#pragma unroll
+      for (int d = 0; d < STRIP; ++d) {
+        if (k0 + d >= K) break;
+        s.Hs[k0 + d][l] = smooth3(x[d], x[d + 1], x[d + 2]);
+      }
+    }
+    const int c = tid - (NTHREADS - 2 * GV - N_PARAMS);
+    if (c >= 0 && c < N_PARAMS) s.tp[c] = tp[c];
+    if (c < 0 && c >= -TILE_CONSTS) s.consts[-1 - c] = tile_const(-1 - c, tp, fs_t);
+    if (SPHERICAL) warp_table(tid, tp, s.warp);
+    __syncthreads();
+    tp = s.tp;
+
+    // ---- 3. per vertex ----
+    if (tid < NVERT) {
+      const Vertex v = vertex_stage<SPHERICAL, ELLIPSOIDAL>(
+          t, tid / GV, tid % GV, tp, fs_t, hp_steps, origin_lod, valid, &s.H[0][0],
+          &s.Hs[0][0], s.warp, s.consts);
+      write_mesh_rows<SPHERICAL>(out + (size_t)t * OUT_CH * NVERT, tid, v, tp[0]);
+    }
+    if (next != q) {
+      cp_async_wait();
+      q = next;
+      fetched = true;
+    }
+    __syncthreads();  // H, Hs and the patch are read; the next quad has landed
+  }
 }
 
 // The material kernel's shared memory (dynamic: over 48 KB).
@@ -545,6 +634,7 @@ struct MaterialShared {
   float Hs[K][K];          // 1-2-1 smoothed half-grid (coarser data lod)
   float A[MAX_CH][K][K];   // albedo half-grids, one per channel
   float hs[NVERT];         // the tile's vertex heights (the shade's normals)
+  float warp[2 * GV];      // spheres: the unmorphed pxs per column, pys per row
   long long warp_sum[NWARPS][MAX_SUMS];
   float mean[MAX_SUMS];    // the height's, then the albedo channels' (exact path)
 };
@@ -571,14 +661,17 @@ mesh_material_kernel(const int* __restrict__ blocks, long long n_blocks,
   MaterialShared& s = *reinterpret_cast<MaterialShared*>(smem);
   const int out_per_tile = (BASE_CH + alb.channels) * NVERT;
   const TileRun run = tile_run(n_tiles, __ldg(tile_count));
-  zero_fill(out + (size_t)run.d0 * out_per_tile, out + (size_t)run.d1 * out_per_tile);
-  if (run.t0 == run.t1) return;
-
   // heights and albedo of quad q: blocks + q * stride and alb.blocks + q *
   // stride (rows 0:32 and 32:64 of a combined array)
-  long long q = quad_id(ids, run.t0, n_blocks);
-  fetch_quad_async(s.hq, blocks + q * alb.stride);
-  fetch_quad_async(s.aq, alb.blocks + q * alb.stride);
+  long long q = 0;
+  if (run.t0 < run.t1) {
+    q = quad_id(ids, run.t0, n_blocks);
+    fetch_quad_async(s.hq, blocks + q * alb.stride);
+    fetch_quad_async(s.aq, alb.blocks + q * alb.stride);
+  }
+  // the dead tiles' zeros go out while the first quads land
+  zero_fill(out + (size_t)run.d0 * out_per_tile, out + (size_t)run.d1 * out_per_tile);
+  if (run.t0 == run.t1) return;
   cp_async_wait();
   __syncthreads();
   bool fetched = true;  // the quads in shared memory are new: take their means
@@ -609,18 +702,20 @@ mesh_material_kernel(const int* __restrict__ blocks, long long n_blocks,
     __syncthreads();
 
     // the quads are free: start the next tile's, if they are others
+    bool next_quads = false;
     if (t + 1 < run.t1) {
       const long long next = quad_id(ids, t + 1, n_blocks);
       if (next != q) {
         q = next;
         fetch_quad_async(s.hq, blocks + q * alb.stride);
         fetch_quad_async(s.aq, alb.blocks + q * alb.stride);
-        fetched = true;
+        next_quads = true;
       }
     }
 
     // ---- 2. smoothed copy Hs = A H A^T (A = 1-2-1 with duplicated
-    // boundary rows), each point's three x taps as K1's x pass forms them ----
+    // boundary rows), each point's three x taps as K1's x-smoothed rows
+    // hold them; on a sphere the tile's warp table ----
     for (int e = tid; e < K * K; e += NTHREADS) {
       const int k = e / K, l = e % K;
       const int lm = max(l - 1, 0), lp = min(l + 1, K - 1);
@@ -631,6 +726,8 @@ mesh_material_kernel(const int* __restrict__ blocks, long long n_blocks,
       }
       s.Hs[k][l] = smooth3(x[0], x[1], x[2]);
     }
+    const float* tp = tile_params + (size_t)t * N_PARAMS;
+    if (SPHERICAL) warp_table(tid, tp, s.warp);
     __syncthreads();
 
     // ---- 3. per vertex; the albedo channels at the morphed uv through the
@@ -638,12 +735,13 @@ mesh_material_kernel(const int* __restrict__ blocks, long long n_blocks,
     // then the shade over the tile's heights ----
     const bool active = tid < NVERT;
     const int i = tid / GV, j = tid % GV;
-    const float* tp = tile_params + (size_t)t * N_PARAMS;
     Vertex v;
     float col[MAX_CH];
     if (active) {
+      const float consts[TILE_CONSTS] = {tile_const(0, tp, fs_t), tile_const(1, tp, fs_t),
+                                         tile_const(2, tp, fs_t)};
       v = vertex_stage<SPHERICAL, ELLIPSOIDAL>(t, i, j, tp, fs_t, hp_steps, origin_lod, valid,
-                                               &s.H[0][0], &s.Hs[0][0]);
+                                               &s.H[0][0], &s.Hs[0][0], s.warp, consts);
 #pragma unroll
       for (int ch = 0; ch < MAX_CH; ++ch) {
         if (ch >= alb.channels) break;
@@ -678,7 +776,10 @@ mesh_material_kernel(const int* __restrict__ blocks, long long n_blocks,
       for (int ch = 0; ch < MAX_CH; ++ch)
         if (ch < alb.channels) o[(BASE_CH + ch) * NVERT + tid] = col[ch] * valid * live;
     }
-    if (fetched) cp_async_wait();
+    if (next_quads) {
+      cp_async_wait();
+      fetched = true;
+    }
     __syncthreads();  // H, Hs, A and hs are read; new quads have landed
   }
 }
@@ -715,25 +816,48 @@ bool albedo_args(const void* blocks, const void* albedo, int channels, int bits,
   return true;
 }
 
-// One material kernel instance over n_tiles tiles, on `waves` times the
-// blocks the card holds at once; returns cudaGetLastError() of the launch.
+// Launch `kernel` over n_tiles tiles on `waves` times the blocks the card
+// holds at once (`resident`: the instance's run_grid cache) with `smem`
+// bytes of dynamic shared memory; returns cudaGetLastError() of the launch.
+template <class... Params, class... Args>
+int launch_runs(void (*kernel)(Params...), int smem, int* resident, int n_tiles, int waves,
+                cudaStream_t stream, Args... args) {
+  if (waves < 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int grid = run_grid((const void*)kernel, smem, waves, n_tiles, resident);
+  if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<grid, NTHREADS, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// K1 / K2 over n_tiles tiles.
+template <bool SPHERICAL, bool ELLIPSOIDAL>
+int launch_mesh(const void* blocks, long long n_blocks, const void* ids, const void* geom,
+                const void* tile_params, const void* fs, const void* hp_steps,
+                const void* tile_count, int n_tiles, int waves, int origin_lod, void* out,
+                cudaStream_t stream) {
+  static int resident[64] = {};
+  return launch_runs(mesh_fused_kernel<SPHERICAL, ELLIPSOIDAL>, 0, resident, n_tiles, waves,
+                     stream, (const int*)blocks, n_blocks, (const int*)ids,
+                     (const float*)geom, (const float*)tile_params, (const float*)fs,
+                     (const int*)hp_steps, (const int*)tile_count, n_tiles, origin_lod,
+                     (float*)out);
+}
+
+// One material kernel instance over n_tiles tiles.
 template <bool SPHERICAL, bool ELLIPSOIDAL, bool SHADE>
 int launch_material(const void* blocks, long long n_blocks, const void* ids, const void* geom,
                     const void* tile_params, const void* fs, const void* hp_steps,
                     const void* tile_count, int n_tiles, int waves, int origin_lod,
                     const AlbedoArgs& alb, void* out, cudaStream_t stream) {
-  const auto kernel = mesh_material_kernel<SPHERICAL, ELLIPSOIDAL, SHADE>;
-  const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MATERIAL_SMEM);
-  if (attr != cudaSuccess) return (int)attr;
   static int resident[64] = {};
-  const int grid = run_grid((const void*)kernel, MATERIAL_SMEM, waves, n_tiles, resident);
-  if (grid < 1) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<grid, NTHREADS, MATERIAL_SMEM, stream>>>(
-      (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
-      (const float*)tile_params, (const float*)fs, (const int*)hp_steps,
-      (const int*)tile_count, n_tiles, origin_lod, alb, (float*)out);
-  return (int)cudaGetLastError();
+  return launch_runs(mesh_material_kernel<SPHERICAL, ELLIPSOIDAL, SHADE>, MATERIAL_SMEM,
+                     resident, n_tiles, waves, stream, (const int*)blocks, n_blocks,
+                     (const int*)ids, (const float*)geom, (const float*)tile_params,
+                     (const float*)fs, (const int*)hp_steps, (const int*)tile_count, n_tiles,
+                     origin_lod, alb, (float*)out);
 }
 
 }  // namespace
@@ -743,20 +867,17 @@ int mesh_fused_instances(const KernelInstance** table) {
   return (int)(sizeof(INSTANCES) / sizeof(INSTANCES[0]));
 }
 
-// Launch on the caller's stream. Each returns cudaGetLastError() of the
-// launch (0 on success); the kernels allocate nothing and do not
-// synchronise.
+// Launch on the caller's stream, on `waves` times the blocks the card holds
+// at once. Each returns cudaGetLastError() of the launch (0 on success); the
+// kernels allocate nothing and do not synchronise.
 extern "C" int mesh_fused_planar_launch(const void* blocks, long long n_blocks,
                                         const void* ids, const void* geom,
                                         const void* tile_params, const void* fs,
-                                        const void* tile_count, void* out,
-                                        int n_tiles, void* stream) {
+                                        const void* tile_count, void* out, int n_tiles,
+                                        int waves, void* stream) {
   if (n_tiles <= 0) return 0;
-  mesh_fused_kernel<false, false><<<n_tiles, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
-      (const float*)tile_params, (const float*)fs, nullptr, (const int*)tile_count, 0,
-      (float*)out);
-  return (int)cudaGetLastError();
+  return launch_mesh<false, false>(blocks, n_blocks, ids, geom, tile_params, fs, nullptr,
+                                   tile_count, n_tiles, waves, 0, out, (cudaStream_t)stream);
 }
 
 extern "C" int mesh_fused_spherical_launch(const void* blocks, long long n_blocks,
@@ -764,21 +885,14 @@ extern "C" int mesh_fused_spherical_launch(const void* blocks, long long n_block
                                            const void* tile_params, const void* fs,
                                            const void* hp_steps, const void* tile_count,
                                            void* out, int n_tiles, int origin_lod,
-                                           int ellipsoidal, void* stream) {
+                                           int ellipsoidal, int waves, void* stream) {
   if (n_tiles <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (ellipsoidal) {
-    mesh_fused_kernel<true, true><<<n_tiles, NTHREADS, 0, s>>>(
-        (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
-        (const float*)tile_params, (const float*)fs, (const int*)hp_steps,
-        (const int*)tile_count, origin_lod, (float*)out);
-  } else {
-    mesh_fused_kernel<true, false><<<n_tiles, NTHREADS, 0, s>>>(
-        (const int*)blocks, n_blocks, (const int*)ids, (const float*)geom,
-        (const float*)tile_params, (const float*)fs, (const int*)hp_steps,
-        (const int*)tile_count, origin_lod, (float*)out);
-  }
-  return (int)cudaGetLastError();
+  if (ellipsoidal)
+    return launch_mesh<true, true>(blocks, n_blocks, ids, geom, tile_params, fs, hp_steps,
+                                   tile_count, n_tiles, waves, origin_lod, out, s);
+  return launch_mesh<true, false>(blocks, n_blocks, ids, geom, tile_params, fs, hp_steps,
+                                  tile_count, n_tiles, waves, origin_lod, out, s);
 }
 
 // K3 (shade == nullptr) and K4 on a planar terrain.
@@ -791,8 +905,7 @@ extern "C" int mesh_fused_material_launch(const void* blocks, long long n_blocks
                                           int waves, void* stream) {
   if (n_tiles <= 0) return 0;
   AlbedoArgs alb;
-  if (waves < 1 ||
-      !albedo_args(blocks, albedo, channels, bits, fast, combined, shade, alb))
+  if (!albedo_args(blocks, albedo, channels, bits, fast, combined, shade, alb))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (shade)
@@ -813,8 +926,7 @@ extern "C" int mesh_fused_spherical_albedo_launch(
     int n_tiles, int origin_lod, int ellipsoidal, int waves, void* stream) {
   if (n_tiles <= 0) return 0;
   AlbedoArgs alb;
-  if (waves < 1 ||
-      !albedo_args(blocks, albedo, channels, bits, fast, combined, nullptr, alb))
+  if (!albedo_args(blocks, albedo, channels, bits, fast, combined, nullptr, alb))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (ellipsoidal)

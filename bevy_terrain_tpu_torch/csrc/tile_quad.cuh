@@ -1,10 +1,10 @@
 // What the tile kernels (mesh_fused.cu, attach_sample.cu, fetch_resample.cu)
 // share: the block-quad layout and fetch, the 33x33 half-grid tents, the
 // 1-2-1 smoothing tap and the 3x3 vertex window; and, for the kernels that
-// walk a run of tiles per block (the material mesh kernels and the
-// samplers), the asynchronous quad fetch into shared memory, the packed
-// channels of one half-grid point, the exact channel means and the zero
-// fill of dead tiles.
+// walk a run of tiles per block (the mesh kernels and the samplers), the
+// asynchronous quad fetch into shared memory, the packed channels of one
+// half-grid point, the exact channel means and the zero fill of dead
+// tiles.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,17 +57,22 @@ struct Taps {
   float wy0, wy1, wx0, wx1;
 };
 
+// The taps along one axis: half-grid index k at position clip(p0 + k * dp,
+// 0, 63) -> texel i0 and weights w0 (texel i0) and w1 (texel i0 + 1).
+struct AxisTaps {
+  int i0;
+  float w0, w1;
+};
+
+__device__ __forceinline__ AxisTaps axis_taps(float p0, float dp, int k) {
+  const float p = fminf(fmaxf(p0 + (float)k * dp, 0.0f), (float)(P - 1));
+  const int i0 = min((int)floorf(p), P - 2);
+  return {i0, tent(p, (float)i0), tent(p, (float)(i0 + 1))};
+}
+
 __device__ __forceinline__ Taps halfgrid_taps(float p0x, float p0y, float dp, int k, int l) {
-  const float py = fminf(fmaxf(p0y + (float)k * dp, 0.0f), (float)(P - 1));
-  const float px = fminf(fmaxf(p0x + (float)l * dp, 0.0f), (float)(P - 1));
-  Taps t;
-  t.r0 = min((int)floorf(py), P - 2);
-  t.c0 = min((int)floorf(px), P - 2);
-  t.wy0 = tent(py, (float)t.r0);
-  t.wy1 = tent(py, (float)(t.r0 + 1));
-  t.wx0 = tent(px, (float)t.c0);
-  t.wx1 = tent(px, (float)(t.c0 + 1));
-  return t;
+  const AxisTaps y = axis_taps(p0y, dp, k), x = axis_taps(p0x, dp, l);
+  return {y.i0, x.i0, y.w0, y.w1, x.w0, x.w1};
 }
 
 // quad word v (of QUAD_WORDS / 4 int4 loads) -> patch row and column of its
@@ -100,10 +105,28 @@ __device__ __forceinline__ long long load_patch(const int* __restrict__ quad,
   return acc;
 }
 
-// The patch mean from the threads' shares of the texel sum (load_patch): an
-// exact integer sum, divided once. Every thread of the block calls it and
-// gets the mean; it ends with a barrier, after which the patch is visible
-// to all threads. warp_sum (NWARPS) and s_mean are shared scratch.
+// A quad held raw in shared memory (fetch_quad_async) as floats in natural
+// texel order in `patch`, 16-byte stores. Returns this thread's share of the
+// exact integer texel sum.
+__device__ __forceinline__ long long unpack_patch(const int* q, float (*patch)[P]) {
+  const int4* src = reinterpret_cast<const int4*>(q);
+  long long acc = 0;
+  for (int v = threadIdx.x; v < QUAD_WORDS / 4; v += NTHREADS) {
+    const int4 w = src[v];
+    int pr, pc;
+    quad_to_patch(v, pr, pc);
+    *reinterpret_cast<float4*>(&patch[pr][pc]) =
+        make_float4((float)w.x, (float)w.y, (float)w.z, (float)w.w);
+    acc += (long long)w.x + w.y + w.z + w.w;
+  }
+  return acc;
+}
+
+// The patch mean from the threads' shares of the texel sum (load_patch,
+// unpack_patch): an exact integer sum, divided once. Every thread of the
+// block calls it and gets the mean; it ends with a barrier, after which the
+// patch is visible to all threads. warp_sum (NWARPS) and s_mean are shared
+// scratch.
 __device__ __forceinline__ float block_mean(long long acc, long long* warp_sum,
                                             float* s_mean) {
   const int tid = threadIdx.x;

@@ -179,7 +179,8 @@ def mesh_fused_planar(block_array: torch.Tensor, ids: torch.Tensor,
         return out
     _launch(mesh_fused_planar, block_array.device, "mesh_fused_planar_launch",
             block_array.data_ptr(), block_array.shape[0], ids.data_ptr(), geom.data_ptr(),
-            tile_params.data_ptr(), fs.data_ptr(), tile_count.data_ptr(), out.data_ptr(), n)
+            tile_params.data_ptr(), fs.data_ptr(), tile_count.data_ptr(), out.data_ptr(), n,
+            MESH_WAVES)
     return out
 
 
@@ -480,7 +481,7 @@ def mesh_fused_spherical(block_array: torch.Tensor, ids: torch.Tensor, geom: tor
     _launch(mesh_fused_spherical, block_array.device, "mesh_fused_spherical_launch",
             block_array.data_ptr(), block_array.shape[0], ids.data_ptr(), geom.data_ptr(),
             tile_params.data_ptr(), fs.data_ptr(), hp_steps.data_ptr(), tile_count.data_ptr(),
-            out.data_ptr(), n, int(origin_lod), int(bool(ellipsoidal)))
+            out.data_ptr(), n, int(origin_lod), int(bool(ellipsoidal)), MESH_WAVES)
     return out
 
 
@@ -612,12 +613,14 @@ def _spherical_stage(block_array, ids, geom, tile_params, fs, hp_steps, origin_l
 # ---------------------------------------------------------------------------
 
 MAX_CHANNELS = 4  # packed channels per int32 word
-# The grids of the material mesh kernels (K3, K3s, K4) and of the
-# attachment samplers (K5), in waves of the blocks the card holds at once:
-# each block walks an equal run of consecutive tiles in the plan's order and
-# keeps the quads it holds while the tile ids repeat. Launch constants, read
-# at each launch, chosen from timed variants on the H100 (PERF.md,
-# chip_smoke.py's waves sweep); any value gives the same output bits.
+# The grids of the mesh kernels (K1, K2), of the material mesh kernels (K3,
+# K3s, K4) and of the attachment samplers (K5), in waves of the blocks the
+# card holds at once: each block walks an equal run of consecutive tiles in
+# the plan's order and keeps the quads it holds while the tile ids repeat.
+# Launch constants, read at each launch, chosen from timed variants on the
+# H100 (PERF.md, chip_smoke.py's waves sweep); any value gives the same
+# output bits.
+MESH_WAVES = 1
 MATERIAL_WAVES = 1
 SAMPLER_WAVES = 1
 SHADE_HEADER = 16  # floats before the light records of a material buffer
@@ -1251,12 +1254,12 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_library()))
         vp = ctypes.c_void_p
         lib.mesh_fused_planar_launch.argtypes = [
-            vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ctypes.c_int, vp,
+            vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, vp,
         ]
         lib.mesh_fused_planar_launch.restype = ctypes.c_int
         lib.mesh_fused_spherical_launch.argtypes = [
             vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, vp,
+            ctypes.c_int, ctypes.c_int, vp,
         ]
         lib.mesh_fused_spherical_launch.restype = ctypes.c_int
         lib.mesh_fused_material_launch.argtypes = [

@@ -5,19 +5,23 @@
 
 1. Builds every CUDA kernel from ``bevy_terrain_tpu_torch/csrc`` and
    prints each kernel's registers and shared memory (``ptxas -v``) and its
-   blocks per SM on this card (the library's ``kernel_occupancy`` query).
+   blocks per SM on this card (the library's ``kernel_occupancy`` query);
+   fails if K1 holds fewer than 4 blocks per SM or K2 fewer than 3.
 2. Planar kernel phase, at the frame's real shapes (the bench.py scene: 8k^2
    planar terrain, 5 lods, tile capacity 4096, culled camera, a 1024-slot
    random atlas): refinement and patch plan on the card against the same
    on the CPU, then the kernel against its plain PyTorch version on the
-   same inputs, and both timed with CUDA events.
+   same inputs, and both timed with CUDA events; then timed on grids of 1,
+   2, 4 and 8 waves of resident blocks in turns, its output bit-equal at
+   each.
 3. Spherical kernel phase, on the Earth scene (tools/earth_frame_bench.py:
    a 6.371e6 m cube sphere, 13 geometry lods over 3 data lods, capacity
    2048, a culled camera at 60 km, a 512-slot random atlas), for the sphere,
    for the WGS84-like ellipsoid and for the sphere at 3 km (the Taylor near
    field): refinement and plan on the card against the CPU (only
    subdivision-threshold ties may differ), the spherical kernel against its
-   plain version, timings. On each of the three frames also the spherical
+   plain version, timings (on the sphere at 60 km also the waves sweep, as
+   in phase 2). On each of the three frames also the spherical
    material kernel phase: ``mesh_fused_spherical_albedo`` (K3s: fast, exact,
    opaque and combined blocks) on a 512-slot random packed Rgba8 albedo of
    the height's plan against its plain version, its mesh channels against
@@ -464,6 +468,9 @@ def kernel_phase(results: dict) -> None:
     bound = mesh_bound(args, int(batch.n_unique), kernels.OUT_CH, n, 0, "planar")
     results["mesh_fused_planar"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
                                         library_ms=None)
+    if hasattr(kernels, "MESH_WAVES"):  # not in the trees before it
+        waves_sweep({"mesh_fused_planar, bench frame": (
+            "MESH_WAVES", "mesh_fused_planar", kernels.mesh_fused_planar, args)}, n)
     del blocks, args, got, want
     _SHA_MEMO.clear()
     torch.cuda.empty_cache()
@@ -632,6 +639,10 @@ def sphere_kernel_phase(results: dict) -> None:
         if (kind, altitude) == SPH_CASES[0]:
             results["mesh_fused_spherical"] = dict(ms=ms, plain_ms=plain_ms, **bound,
                                                    library_ms=None)
+            if hasattr(kernels, "MESH_WAVES"):  # not in the trees before it
+                waves_sweep({f"mesh_fused_spherical, {what}": (
+                    "MESH_WAVES", "mesh_fused_spherical (sphere)", kernels.mesh_fused_spherical,
+                    args)}, n)
         row, err = sphere_albedo_case(what, kind, args, got, albedo, combined, u, tiles, batch,
                                       cfg, plan, n, live_hp)
         alb_errs.append(err)
@@ -885,10 +896,14 @@ def material_kernel_phase(results: dict) -> None:
         del got, want
     if hasattr(kernels, "MATERIAL_WAVES"):  # not in the trees before it
         waves_sweep({
-            "mesh_fused_shaded, shaded fast": ("MATERIAL_WAVES", *forms["shaded fast"][:3:2]),
-            "mesh_fused_albedo, albedo fast": ("MATERIAL_WAVES", *forms["albedo fast"][:3:2]),
-            "attach_sample_fused_packed, Rgba8": ("SAMPLER_WAVES", *samplers["Rgba8"][:3:2]),
-            "attach_sample_fused, height": ("SAMPLER_WAVES", *samplers["height"][:3:2]),
+            "mesh_fused_shaded, shaded fast": ("MATERIAL_WAVES", "mesh_fused_shaded",
+                                               *forms["shaded fast"][:3:2]),
+            "mesh_fused_albedo, albedo fast": ("MATERIAL_WAVES", "mesh_fused_albedo",
+                                               *forms["albedo fast"][:3:2]),
+            "attach_sample_fused_packed, Rgba8": ("SAMPLER_WAVES", "attach_sample_fused[_packed]",
+                                                  *samplers["Rgba8"][:3:2]),
+            "attach_sample_fused, height": ("SAMPLER_WAVES", "attach_sample_fused[_packed]",
+                                            *samplers["height"][:3:2]),
         }, n)
     for name, err in errs.items():
         results[name]["max_abs_err"] = err
@@ -899,19 +914,19 @@ def material_kernel_phase(results: dict) -> None:
 
 def waves_sweep(runs: dict, live: int) -> None:
     """Each run-of-tiles kernel (name: (the kernels module's waves constant,
-    wrapper, args)) on grids of 1, 2, 4 and 8 waves of the blocks the card
-    holds at once, in turns (1 2 4 8 8 4 2 1; device time, L2 warm), its
-    output bit-equal at each; the constant is restored after. ``live`` tiles
-    split over the grid give the tiles per block."""
+    the kernel instance's name in ``kernel_occupancy()``, wrapper, args)) on
+    grids of 1, 2, 4 and 8 waves of the blocks the card holds at once, in
+    turns (1 2 4 8 8 4 2 1; device time, L2 warm), its output bit-equal at
+    each; the constant is restored after. ``live`` tiles split over the grid
+    give the tiles per block."""
     import torch
 
     from bevy_terrain_tpu_torch.ops import kernels
 
     occupancy = {r["name"]: r["blocks_per_sm"] for r in kernels.kernel_occupancy()}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for what, (attr, wrapper, args) in runs.items():
-        per_wave = sms * occupancy.get(wrapper.__name__,
-                                       occupancy["attach_sample_fused[_packed]"])
+    for what, (attr, instance, wrapper, args) in runs.items():
+        per_wave = sms * occupancy[instance]
         saved = getattr(kernels, attr)
         base = wrapper(*args)
         times: dict = {}
@@ -1996,11 +2011,18 @@ def print_resources(log: str) -> None:
                   f"{spill.group(1) if spill else 0} bytes spill stores")
 
 
+# blocks of 320 threads per SM that the mesh kernels' designs rest on (their
+# launch bounds): fewer fails the run
+MIN_BLOCKS_PER_SM = {"mesh_fused_planar": 4, "mesh_fused_spherical (sphere)": 3,
+                     "mesh_fused_spherical (ellipsoid)": 3}
+
+
 def print_occupancy() -> None:
     """Blocks of 320 threads per SM of each kernel instance on this card
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its dynamic shared
     memory) with its registers and shared memory, from the library's
-    ``kernel_occupancy`` query."""
+    ``kernel_occupancy`` query; fails where an instance holds fewer than
+    :data:`MIN_BLOCKS_PER_SM` (at least one)."""
     import torch
 
     from bevy_terrain_tpu_torch.ops import kernels
@@ -2012,8 +2034,10 @@ def print_occupancy() -> None:
               f"{warps_per_sm} warps, {warps / warps_per_sm:.0%}); {row['registers']} "
               f"registers, {row['static_smem']} + {row['dynamic_smem']} bytes shared memory "
               f"(static + dynamic), {row['local_bytes']} bytes local")
-        if row["blocks_per_sm"] < 1:
-            raise AssertionError(f"{row['name']}: no block of 320 threads fits an SM")
+        least = MIN_BLOCKS_PER_SM.get(row["name"], 1)
+        if row["blocks_per_sm"] < least:
+            raise AssertionError(f"{row['name']}: {row['blocks_per_sm']} blocks of 320 threads "
+                                 f"per SM, fewer than {least}")
 
 
 def main(argv) -> int:

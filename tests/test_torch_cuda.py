@@ -397,14 +397,14 @@ def _id_case(case, ids, per_tile, live):
             torch.tensor([min(count, ids.shape[0])], dtype=torch.int32, device=ids.device))
 
 
-def _each_grid(attr, call):
-    """``call()`` on grids of 1, 2, 4 and 64 waves of resident blocks
+def _each_grid(attr, call, waves=(1, 2, 4, 64)):
+    """``call()`` on grids of ``waves`` waves of resident blocks
     (kernels.<attr>; 64 waves give every tile a block of its own); the
     outputs must be bit-equal. Returns the output at the module's value."""
     saved = getattr(kernels, attr)
     try:
         outs = {}
-        for w in (1, 2, 4, 64, saved):
+        for w in (*waves, saved):
             setattr(kernels, attr, w)
             outs[w] = call()
     finally:
@@ -474,3 +474,163 @@ def test_attach_kernel_on_any_tile_order(channels, bits, case):
     full = 65535.0 if bits in (0, 16) else 255.0
     assert float((got - plain(*call)).abs().max()) <= TOL_EXACT * full
     assert n == 0 or bool(got[:n].any())
+
+
+# -- the mesh kernels K1 / K2 walk runs of tiles too (a grid of MESH_WAVES
+# waves of resident blocks), on the same tile orders
+
+MESH_GRIDS = (1, 2, 4, 8, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ID_CASES)
+def test_mesh_kernel_on_any_tile_order(case):
+    """K1 against its plain version on every grid, bit-equal across grids,
+    with zeros past tile_count."""
+    dev = _card()
+    _, _, args = _stage(*_scene(2048), dev)
+    quads, ids, geom, tp, fs, live = args
+    ids, (geom, tp), count = _id_case(case, ids, [geom, tp], int(live))
+    kargs = (quads, ids, geom, tp, fs, count)
+    before = kernels.mesh_fused_planar.launches
+    got = _each_grid("MESH_WAVES", lambda: kernels.mesh_fused_planar(*kargs), MESH_GRIDS)
+    torch.cuda.synchronize()
+    assert kernels.mesh_fused_planar.launches == before + len(MESH_GRIDS) + 1
+    n = int(count)
+    assert got.shape == (ids.shape[0], 6, 17, 17) and not got[n:].any()
+    err = (got - kernels.mesh_fused_planar_reference(*kargs)).abs()
+    assert float(err[:, :4].max()) <= TOL_POS and float(err[:, 4:].max()) <= TOL_UV, case
+    assert n == 0 or bool(got[:n, 1:4].any())
+
+
+def _earth_args(kind, altitude):
+    """chip_smoke.py's Earth frame on the card (6.371e6 m sphere or the
+    WGS84-like ellipsoid, 13 geometry lods over 3 data lods, capacity 2048,
+    a culled camera) on a 16-slot random atlas: some 1500-2048 live tiles,
+    so that one wave of K2's resident blocks walks runs of several tiles; at
+    3 km the last steps are flagged high-precision (the Taylor near field).
+    Returns the spherical kernel's arguments."""
+    lods, capacity = 13, 2048
+    if kind == "sphere":
+        model = TerrainModel.sphere(np.zeros(3), 6.371e6, 0.0, 9000.0)
+    else:
+        model = TerrainModel.ellipsoid(np.zeros(3), 6_378_137.0, 6_356_752.3, -11_000.0,
+                                       9000.0)
+    vc = TerrainViewConfig(tile_capacity=capacity)
+    view = model.surface_position(np.array([0.0, 0.0, 6.371e6 + 60_000.0]), altitude)
+    vp = frustum.view_projection(view, view * 0.5, np.pi / 3, 16 / 9)
+    origins, vt_int, vt_frac = tile_tree.compute_view_anchors(model, view, lods,
+                                                              vc.tree_size)
+    approx = TerrainModelApproximation.compute(model, view, vc.origin_lod, 4500.0)
+    rng = np.random.default_rng(6)
+    entries = np.zeros((6, lods, vc.tree_size, vc.tree_size, 2), np.int32)
+    entries[..., 0] = rng.integers(0, 16, entries.shape[:-1])
+    entries[..., 1] = np.minimum(np.arange(lods), 2)[None, :, None, None]
+    blob = pack_frame_uniforms(model, view, approx, origins, entries, vt_int, vt_frac, vc,
+                               view_proj=vp)
+    plan = patch_sampling.make_patch_plan(512, 4, 2)
+    blocks = rng.integers(0, 65535, (16 * plan.total_blocks_per_slot, 32, 128))
+    cfg = StaticTerrainConfig(
+        spherical=True, side_count=6, lod_count=lods, tree_size=vc.tree_size,
+        grid_size=vc.grid_size, refinement_count=vc.refinement_count, queue_capacity=2048,
+        tile_capacity=capacity, origin_lod=vc.origin_lod, high_precision=True,
+        ellipsoidal=kind == "ellipsoid", culling=True,
+    )
+    dev = _card()
+    u = unpack_frame_uniforms(torch.from_numpy(blob).to(dev), 6, lods, vc.tree_size)
+    return meshgen.fused_kernel_args(
+        refinement.refine_tiles(u, cfg), torch.from_numpy(blocks.astype(np.int32)).to(dev),
+        u, cfg, plan, 65535.0)[2]
+
+
+@pytest.fixture(scope="module")
+def earth():
+    """``earth(kind, altitude)``: :func:`_earth_args`, built once a module."""
+    frames = {}
+
+    def get(kind, altitude):
+        if (kind, altitude) not in frames:
+            frames[kind, altitude] = _earth_args(kind, altitude)
+        return frames[kind, altitude]
+
+    return get
+
+
+def _sphere_case(case, args):
+    """The Earth frame's tiles re-arranged for one ID_CASES case (as
+    :func:`_id_case`); "ragged" drops the last 64-tile step (the total stays a
+    multiple of the step) and three more live tiles, so that the live tiles
+    end inside a step; "count_full" first fills the dead tail with copies of
+    the live tiles (the tail's zero frame matrices are no tile's: on a planet
+    they give NaN normals)."""
+    quads, ids, geom, tp, fs, hp, live, olod, ell = args
+    if case == "count_full":
+        idx = torch.arange(ids.shape[0], device=ids.device) % int(live)
+        ids, geom, tp = ids[idx], geom[idx], tp[idx]
+    if case == "ragged":
+        F = ids.shape[0] - kernels.TILES_PER_STEP
+        ids, geom, tp, hp = ids[:F], geom[:F], tp[:F], hp[:-1]
+        live = torch.clamp(live, max=F) - 3
+    ids, (geom, tp), count = _id_case("sorted" if case == "ragged" else case, ids, [geom, tp],
+                                      int(live))
+    return quads, ids, geom, tp, fs, hp.contiguous(), count, olod, ell
+
+
+def _check_sphere(got, args, what):
+    """K2's output against its plain version, with zeros past tile_count."""
+    n = int(args[6])
+    assert got.shape == (args[1].shape[0], 9, 17, 17) and not got[n:].any(), what
+    err = (got - kernels.mesh_fused_spherical_reference(*args)).abs()
+    for name, sl in (("heights", slice(0, 1)), ("positions", slice(1, 4)),
+                     ("uvs", slice(4, 6)), ("normals", slice(6, 9))):
+        assert float(err[:, sl].max()) <= SPH_TOL[name], (what, name)
+    assert n == 0 or bool(got[:n, 6:9].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ID_CASES)
+@pytest.mark.parametrize("kind,altitude", [("sphere", 60_000.0), ("ellipsoid", 60_000.0),
+                                           ("sphere", 3_000.0)])
+def test_spherical_kernel_on_any_tile_order(earth, kind, altitude, case):
+    """K2 on the sphere, the ellipsoid and the 3 km frame (flagged
+    high-precision steps) against its plain version on every grid,
+    bit-equal across grids, with zeros past tile_count."""
+    _card()
+    args = _sphere_case(case, earth(kind, altitude))
+    if altitude < 10_000.0:
+        assert bool((args[5] == 2).any())  # the Taylor near field is exercised
+    before = kernels.mesh_fused_spherical.launches
+    got = _each_grid("MESH_WAVES", lambda: kernels.mesh_fused_spherical(*args), MESH_GRIDS)
+    torch.cuda.synchronize()
+    assert kernels.mesh_fused_spherical.launches == before + len(MESH_GRIDS) + 1
+    _check_sphere(got, args, (kind, altitude, case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("waves", [1, 2, 4, 8])
+def test_spherical_runs_start_inside_high_precision_steps(earth, waves):
+    """At 3 km, on a grid of ``waves`` waves, some block's run of live tiles
+    starts in the middle of a 64-tile step flagged high-precision (so the
+    block takes the step's flag from the tile index, not from its first
+    tile); the output equals the one-wave grid's and the plain version's."""
+    _card()
+    args = earth("sphere", 3_000.0)
+    hp, live, F = args[5].cpu(), int(args[6]), args[1].shape[0]
+    per_sm = {r["name"]: r["blocks_per_sm"] for r in kernels.kernel_occupancy()}
+    resident = (torch.cuda.get_device_properties(0).multi_processor_count
+                * per_sm["mesh_fused_spherical (sphere)"])
+    grid = min(waves * resident, F)
+    starts = [live * b // grid for b in range(grid)]
+    assert any(s < live and s % kernels.TILES_PER_STEP and hp[s // kernels.TILES_PER_STEP] == 2
+               for s in starts)
+    saved = kernels.MESH_WAVES
+    try:
+        kernels.MESH_WAVES = 1
+        one = kernels.mesh_fused_spherical(*args)
+        kernels.MESH_WAVES = waves
+        got = kernels.mesh_fused_spherical(*args)
+    finally:
+        kernels.MESH_WAVES = saved
+    torch.cuda.synchronize()
+    assert torch.equal(got, one)
+    _check_sphere(got, args, waves)
