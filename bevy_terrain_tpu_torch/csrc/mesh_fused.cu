@@ -492,12 +492,9 @@ __device__ __forceinline__ void write_mesh_rows(float* o, int vtx, const Vertex&
   o[5 * NVERT + vtx] = v.mv * live;
 }
 
-// The K1 / K2 half-grid passes give each thread a strip of STRIP points
-// down one column: the column's x taps (H) or the x-smoothed rows around the
-// strip (Hs) are formed once for the strip. 33 columns x 9 strips = 297
-// threads.
-constexpr int STRIP = 4;
-constexpr int STRIPS = (K + STRIP - 1) / STRIP;
+// The K1 / K2 half-grid passes give each thread a strip (tile_quad.cuh):
+// the column's x taps (H) or the x-smoothed rows around the strip (Hs) are
+// formed once for the strip.
 
 // K1 / K2's shared memory.
 struct MeshShared {

@@ -1,10 +1,9 @@
 // What the tile kernels (mesh_fused.cu, attach_sample.cu, fetch_resample.cu)
-// share: the block-quad layout and fetch, the 33x33 half-grid tents, the
-// 1-2-1 smoothing tap and the 3x3 vertex window; and, for the kernels that
-// walk a run of tiles per block (the mesh kernels and the samplers), the
-// asynchronous quad fetch into shared memory, the packed channels of one
-// half-grid point, the exact channel means and the zero fill of dead
-// tiles.
+// share: the block-quad layout, the 33x33 half-grid tents and strips, the
+// 1-2-1 smoothing tap and the 3x3 vertex window; and, for a block's run of
+// tiles, the asynchronous quad fetch into shared memory, the packed
+// channels of one half-grid point, the exact channel means and the zero
+// fill of dead tiles.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -70,6 +69,13 @@ __device__ __forceinline__ AxisTaps axis_taps(float p0, float dp, int k) {
   return {i0, tent(p, (float)i0), tent(p, (float)(i0 + 1))};
 }
 
+// A half-grid pass of K1, K2 or K6 gives each thread a strip of STRIP
+// points down one column l, rows k0 .. k0 + STRIP - 1: thread tid < K *
+// STRIPS takes l = tid % K, k0 = tid / K * STRIP. 33 columns x 9 strips =
+// 297 threads.
+constexpr int STRIP = 4;
+constexpr int STRIPS = (K + STRIP - 1) / STRIP;
+
 __device__ __forceinline__ Taps halfgrid_taps(float p0x, float p0y, float dp, int k, int l) {
   const AxisTaps y = axis_taps(p0y, dp, k), x = axis_taps(p0x, dp, l);
   return {y.i0, x.i0, y.w0, y.w1, x.w0, x.w1};
@@ -83,26 +89,6 @@ __device__ __forceinline__ void quad_to_patch(int v, int& pr, int& pc) {
   const int c = (v & 31) * 4;  // quad column
   pr = r + (c >= P ? 32 : 0);
   pc = c & (P - 1);
-}
-
-// Fetch one quad (QUAD_WORDS int32, 16-byte loads) into `patch` in natural
-// texel order, as floats. Returns this thread's share of the exact integer
-// texel sum.
-__device__ __forceinline__ long long load_patch(const int* __restrict__ quad,
-                                                float (*patch)[P]) {
-  const int4* src = reinterpret_cast<const int4*>(quad);
-  long long acc = 0;
-  for (int v = threadIdx.x; v < QUAD_WORDS / 4; v += NTHREADS) {
-    const int4 w = __ldg(src + v);
-    int pr, pc;
-    quad_to_patch(v, pr, pc);
-    patch[pr][pc + 0] = (float)w.x;
-    patch[pr][pc + 1] = (float)w.y;
-    patch[pr][pc + 2] = (float)w.z;
-    patch[pr][pc + 3] = (float)w.w;
-    acc += (long long)w.x + w.y + w.z + w.w;
-  }
-  return acc;
 }
 
 // A quad held raw in shared memory (fetch_quad_async) as floats in natural
@@ -122,10 +108,10 @@ __device__ __forceinline__ long long unpack_patch(const int* q, float (*patch)[P
   return acc;
 }
 
-// The patch mean from the threads' shares of the texel sum (load_patch,
-// unpack_patch): an exact integer sum, divided once. Every thread of the
-// block calls it and gets the mean; it ends with a barrier, after which the
-// patch is visible to all threads. warp_sum (NWARPS) and s_mean are shared
+// The patch mean from the threads' shares of the texel sum (unpack_patch):
+// an exact integer sum, divided once. Every thread of the block calls it
+// and gets the mean; it ends with a barrier, after which the patch is
+// visible to all threads. warp_sum (NWARPS) and s_mean are shared
 // scratch.
 __device__ __forceinline__ float block_mean(long long acc, long long* warp_sum,
                                             float* s_mean) {
@@ -338,10 +324,10 @@ inline int run_grid(const void* kernel, int smem, int waves, int n_tiles, int* r
   return (int)(grid < n_tiles ? grid : n_tiles);
 }
 
-// quad id of tile t, clamped into the block array
+// quad id of tile t (ids[t * stride]), clamped into the block array
 __device__ __forceinline__ long long quad_id(const int* __restrict__ ids, int t,
-                                             long long n_blocks) {
-  const long long q = ids[t];
+                                             long long n_blocks, int stride = 1) {
+  const long long q = ids[(size_t)t * stride];
   return q < 0 ? 0 : (q >= n_blocks ? n_blocks - 1 : q);
 }
 

@@ -1051,6 +1051,14 @@ def attach_sample_fused_packed_reference(block_array, ids, geom, uvs, tile_count
 # evens-first half-grid order [0, 2, .., 32, 1, 3, .., 31]: the order K6
 # writes and patch_sampling.vertex_values_from_halfgrid reads
 HALFGRID_PERM = np.concatenate([np.arange(0, K, 2), np.arange(1, K, 2)])
+# The grid of the half-grid kernels (K6, K7) in waves of the blocks the card
+# holds at once, as MESH_WAVES is for K1 / K2: a launch constant, read at
+# each launch; any value gives the same output bits.
+HALFGRID_WAVES = 1
+# Floats of K7's packed weight rows per axis (csrc/fetch_resample.cu
+# MAX_SUPPORT): the supports of the 33 rows of one axis hold at most this
+# many texels (fetch_resample_support).
+HALFGRID_MAX_SUPPORT = 2 * (P - 1) + 2 * K
 
 
 def fetch_resample_cached(block_array: torch.Tensor, ids: torch.Tensor, geom: torch.Tensor,
@@ -1086,7 +1094,7 @@ def fetch_resample_cached(block_array: torch.Tensor, ids: torch.Tensor, geom: to
         return out
     _launch(fetch_resample_cached, block_array.device, "fetch_resample_cached_launch",
             block_array.data_ptr(), block_array.shape[0], ids.data_ptr(), geom.data_ptr(),
-            tile_count.data_ptr(), out.data_ptr(), n)
+            tile_count.data_ptr(), out.data_ptr(), n, HALFGRID_WAVES)
     return out
 
 
@@ -1146,7 +1154,7 @@ def fetch_resample(block_array: torch.Tensor, ids: torch.Tensor,
         return out
     _launch(fetch_resample, block_array.device, "fetch_resample_launch",
             block_array.data_ptr(), block_array.shape[0], ids.data_ptr(), geom.data_ptr(),
-            out.data_ptr(), n)
+            out.data_ptr(), n, HALFGRID_WAVES)
     return out
 
 
@@ -1158,8 +1166,18 @@ def fetch_resample_reference(block_array: torch.Tensor, ids: torch.Tensor,
     """Plain PyTorch version of :func:`fetch_resample` (same arguments, same
     result), batched over tiles on any device."""
     n = ids.shape[0]
-    dt = geom.dtype
-    patch = _patch(block_array[ids[:, 0].long()].to(dt))
+    patch = _patch(block_array[ids[:, 0].long()].to(geom.dtype))
+    wx, wy = fetch_resample_weights(geom)
+    rows = torch.einsum("nkr,nrc->nkc", wy, patch)
+    return torch.einsum("nkc,nlc->nkl", rows, wx) * geom[:, 3].view(n, 1, 1)
+
+
+def fetch_resample_weights(geom: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The crossfaded tent weight rows of :func:`fetch_resample`: (wx, wy),
+    each (F, 33, 64), row k of an axis ``t(p) + (w2 - t(p)) * ratio`` with
+    ``w2 = 0.25 t(p - dp) + 0.5 t(p) + 0.25 t(p + dp)`` (the boundary rows
+    keep ``t(p)``)."""
+    n = geom.shape[0]
     w = _tents(geom)
     wm = _tents(geom, -1.0)
     wp = _tents(geom, 1.0)
@@ -1172,8 +1190,36 @@ def fetch_resample_reference(block_array: torch.Tensor, ids: torch.Tensor,
         return w + (w2 - w) * ratio
 
     wx, wy = (blend(*axis) for axis in zip(w, wm, wp))
-    rows = torch.einsum("nkr,nrc->nkc", wy, patch)
-    return torch.einsum("nkc,nlc->nkl", rows, wx) * geom[:, 3].view(n, 1, 1)
+    return wx, wy
+
+
+def fetch_resample_support(geom: torch.Tensor):
+    """Where K7's weight rows can be non-zero, as ``csrc/fetch_resample.cu``
+    forms them: row k of an axis covers the texels ``[lo, hi]`` under the
+    clipped tent centres of rows k - 1 .. k + 1 (the boundary rows their
+    own), and the rows pass covers the columns ``[c0, c1]`` that the x rows
+    reach (rows 0 and 32 hold the ends: the positions are monotone in k).
+
+    Args:
+      geom: (F, 8) f32 [p0x, p0y, dp, ...] per tile.
+
+    Returns (lo, hi, cols): lo and hi (F, 2, 33) int64 over [x, y], cols
+    (F, 2) int64 [c0, c1].
+    """
+    k = torch.arange(K, dtype=geom.dtype, device=geom.device)
+    dp = geom[:, 2:3]
+
+    def axis(p0):
+        pa = (p0[:, None] + (k - 1.0).clamp(min=0.0) * dp).clamp(0.0, P - 1.0)
+        pb = (p0[:, None] + (k + 1.0).clamp(max=K - 1.0) * dp).clamp(0.0, P - 1.0)
+        lo = torch.minimum(pa, pb).floor().long()
+        hi = (torch.maximum(pa, pb).floor().long() + 1).clamp(max=P - 1)
+        return lo, hi
+
+    (lox, hix), (loy, hiy) = axis(geom[:, 0]), axis(geom[:, 1])
+    cols = torch.stack([torch.minimum(lox[:, 0], lox[:, -1]),
+                        torch.maximum(hix[:, 0], hix[:, -1])], dim=1)
+    return torch.stack([lox, loy], dim=1), torch.stack([hix, hiy], dim=1), cols
 
 
 # ---------------------------------------------------------------------------
@@ -1279,11 +1325,11 @@ def _library() -> ctypes.CDLL:
         ]
         lib.attach_sample_launch.restype = ctypes.c_int
         lib.fetch_resample_cached_launch.argtypes = [
-            vp, ctypes.c_longlong, vp, vp, vp, vp, ctypes.c_int, vp,
+            vp, ctypes.c_longlong, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, vp,
         ]
         lib.fetch_resample_cached_launch.restype = ctypes.c_int
         lib.fetch_resample_launch.argtypes = [
-            vp, ctypes.c_longlong, vp, vp, vp, ctypes.c_int, vp,
+            vp, ctypes.c_longlong, vp, vp, vp, ctypes.c_int, ctypes.c_int, vp,
         ]
         lib.fetch_resample_launch.restype = ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)

@@ -6,7 +6,7 @@
 1. Builds every CUDA kernel from ``bevy_terrain_tpu_torch/csrc`` and
    prints each kernel's registers and shared memory (``ptxas -v``) and its
    blocks per SM on this card (the library's ``kernel_occupancy`` query);
-   fails if K1 holds fewer than 4 blocks per SM or K2 fewer than 3.
+   fails if K1, K6 or K7 holds fewer than 4 blocks per SM or K2 fewer than 3.
 2. Planar kernel phase, at the frame's real shapes (the bench.py scene: 8k^2
    planar terrain, 5 lods, tile capacity 4096, culled camera, a 1024-slot
    random atlas): refinement and patch plan on the card against the same
@@ -39,7 +39,10 @@
    with ``blend_per_vertex``; ``fetch_resample`` (K7) against its plain
    version on the inputs of tools/fetch_kernel_sweep.py (4096 random quads,
    8192 tiles) and, re-ordered, against K6 on the bench frame; the staged
-   half-grid functions against K6; each kernel timed and bounded. Then the
+   half-grid functions against K6; each kernel timed and bounded (K7's
+   per-tile fetch floor printed beside its bound), and K6 on the bench
+   frame and K7 on the sweep inputs timed on grids of 1, 2, 4 and 8 waves
+   of resident blocks in turns, the outputs bit-equal at each. Then the
    staged mesh (``meshgen.generate_mesh_grid``) against the fused mesh
    kernel on the same tiles.
 6. Main paths: a synthetic 8k^2 planar dataset; a synthetic six-side
@@ -975,20 +978,13 @@ def sweep_inputs():
 def k7_support(geom):
     """The texels under the 33 crossfaded weight rows of each axis, summed
     over rows and tiles: (x, y). Row k's support spans the texels under the
-    tent centres of rows k - 1 .. k + 1 (csrc/fetch_resample.cu, lo / hi)."""
-    import torch
+    tent centres of rows k - 1 .. k + 1 (kernels.fetch_resample_support, the
+    mirror of csrc/fetch_resample.cu's supports)."""
+    from bevy_terrain_tpu_torch.ops import kernels
 
-    k = torch.arange(33, dtype=torch.float32, device=geom.device)
-    dp = geom[:, 2:3]
-
-    def axis(p0):
-        pa = (p0[:, None] + (k - 1.0).clamp(min=0.0) * dp).clamp(0.0, 63.0)
-        pb = (p0[:, None] + (k + 1.0).clamp(max=32.0) * dp).clamp(0.0, 63.0)
-        lo = torch.minimum(pa, pb).floor()
-        hi = (torch.maximum(pa, pb).floor() + 1.0).clamp(max=63.0)
-        return float((hi - lo + 1.0).sum())
-
-    return axis(geom[:, 0]), axis(geom[:, 1])
+    lo, hi, _ = kernels.fetch_resample_support(geom)
+    x, y = (hi - lo + 1).sum(dim=(0, 2)).tolist()
+    return float(x), float(y)
 
 
 def hold(err: float, tol: float, what: str) -> float:
@@ -1063,6 +1059,8 @@ def halfgrid_kernel_phase(results: dict) -> None:
             nbytes = n_unique * QUAD_BYTES + tensor_bytes(*args[1:]) + Fp * 33 * 33 * 4
             results["fetch_resample_cached"] = dict(
                 ms=ms, plain_ms=plain_ms, **bound(nbytes, n * OPS_K6_TILE), library_ms=None)
+            waves_sweep({"fetch_resample_cached, bench frame": (
+                "HALFGRID_WAVES", "fetch_resample_cached", k6, args)}, n)
         del got, staged
     results["fetch_resample_cached"]["max_abs_err"] = err6
 
@@ -1110,6 +1108,14 @@ def halfgrid_kernel_phase(results: dict) -> None:
     ops = F * (OPS_K7_WEIGHTS + 33 * 33) + 2 * (64 * sy + 33 * sx)
     results["fetch_resample"] = dict(max_abs_err=err7, ms=ms, plain_ms=plain_ms,
                                      **bound(nbytes, ops), library_ms=None)
+    # a second floor, not the bound: every tile's quad fetched on its own
+    # (the sweep's random ids repeat few quads, and its block array is over
+    # the 50 MB L2)
+    print(f"  per-tile fetch floor (not the bound): {F} x {QUAD_BYTES} B = "
+          f"{F * QUAD_BYTES / 1e6:.2f} MB -> {F * QUAD_BYTES / PEAK_BYTES * 1e3:.4f} ms; the "
+          f"bound counts the {n_unique} unique quads")
+    waves_sweep({"fetch_resample, sweep inputs": (
+        "HALFGRID_WAVES", "fetch_resample", k7, (sblocks, sids, sgeom))}, F)
     del sblocks, got
     _SHA_MEMO.clear()
     torch.cuda.empty_cache()
@@ -2011,10 +2017,11 @@ def print_resources(log: str) -> None:
                   f"{spill.group(1) if spill else 0} bytes spill stores")
 
 
-# blocks of 320 threads per SM that the mesh kernels' designs rest on (their
-# launch bounds): fewer fails the run
+# blocks of 320 threads per SM that the run-of-tiles kernels' designs rest on
+# (their launch bounds): fewer fails the run
 MIN_BLOCKS_PER_SM = {"mesh_fused_planar": 4, "mesh_fused_spherical (sphere)": 3,
-                     "mesh_fused_spherical (ellipsoid)": 3}
+                     "mesh_fused_spherical (ellipsoid)": 3, "fetch_resample_cached": 4,
+                     "fetch_resample": 4}
 
 
 def print_occupancy() -> None:

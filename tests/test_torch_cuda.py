@@ -634,3 +634,91 @@ def test_spherical_runs_start_inside_high_precision_steps(earth, waves):
     torch.cuda.synchronize()
     assert torch.equal(got, one)
     _check_sphere(got, args, waves)
+
+
+# -- the half-grid kernels K6 / K7 walk runs of tiles too (a grid of
+# HALFGRID_WAVES waves of resident blocks), on the same tile orders; K7 also
+# on sweep-style inputs with edge geometry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ID_CASES)
+@pytest.mark.parametrize("per_vertex", [False, True], ids=["tile_ratio", "per_vertex"])
+def test_halfgrid_cached_kernel_on_any_tile_order(per_vertex, case):
+    """K6 with either blend (the plan's tile-centre ratio, or ratio 0 for
+    the per-vertex blend) against its plain version on every grid,
+    bit-equal across grids, with zeros past tile_count."""
+    dev = _card()
+    blob, blocks, cfg, plan = _scene(2048)
+    cfg = dataclasses.replace(cfg, blend_per_vertex=per_vertex)
+    u = unpack_frame_uniforms(torch.from_numpy(blob).to(dev), 1, LODS, 8)
+    tiles, batch = patch_sampling.plan_patch_batch(refinement.refine_tiles(u, cfg), u, cfg, plan,
+                                                   blocks.shape[0])
+    assert (float(batch.geom[:, 4].max()) > 0.0) != per_vertex
+    ids, (geom,), count = _id_case(case, batch.ids, [batch.geom], int(tiles.tile_count))
+    kargs = (torch.from_numpy(blocks).to(dev), ids, geom, count)
+    before = kernels.fetch_resample_cached.launches
+    got = _each_grid("HALFGRID_WAVES", lambda: kernels.fetch_resample_cached(*kargs),
+                     MESH_GRIDS)
+    torch.cuda.synchronize()
+    assert kernels.fetch_resample_cached.launches == before + len(MESH_GRIDS) + 1
+    n = int(count)
+    assert got.shape == (ids.shape[0], 33, 33) and not got[n:].any()
+    err = float((got - kernels.fetch_resample_cached_reference(*kargs)).abs().max())
+    assert err <= TOL_HALFGRID, (case, err)
+    assert n == 0 or float(got[:n].abs().max()) > 30000.0
+
+
+def _sweep_inputs(case, F=1024):
+    """tools/fetch_kernel_sweep.py's inputs at 1024 tiles (512 random quads
+    of values below 30000, patch positions in [0, 30], steps 0.5-1, ratios
+    0-1), the first 64 tiles on edge geometry: positions clipped at 0 and 63,
+    dp = 0, ratio 0 and 1, a decreasing step and steps of 3 and 40 texels.
+    "sorted" orders the tiles by quad, "permuted" keeps the random order,
+    "one_quad" puts every tile on one quad, "ragged" drops three tiles."""
+    rng = np.random.default_rng(12)
+    N = 512
+    blocks = patch_sampling.quad_rows(
+        rng.integers(0, 30000, size=(N, 32, 32)).astype(np.int32), 8)
+    tl = rng.integers(0, N - 10, size=(F,)).astype(np.int32)
+    geom = np.zeros((F, 8), np.float32)
+    geom[:, 0:2] = rng.uniform(0, 30, size=(F, 2))
+    geom[:, 2] = rng.uniform(0.5, 1.0, size=F)
+    geom[:, 3] = 1.0
+    geom[:, 4] = rng.uniform(0.0, 1.0, size=F)
+    geom[0:8, 0:2] = -6.5  # p0 < 0
+    geom[8:16, 0:2] = 50.0  # p0 + 32 dp > 63
+    geom[16:24, 2] = 0.0
+    geom[24:32, 4] = 0.0
+    geom[32:40, 4] = 1.0
+    geom[40:48, 0:2], geom[40:48, 2] = 60.0, -1.0
+    geom[48:56, 2] = 3.0
+    geom[56:64, 2] = 40.0
+    if case == "sorted":
+        order = np.argsort(tl, kind="stable")
+        tl, geom = tl[order], geom[order]
+    elif case == "one_quad":
+        tl[:] = tl[0]
+    elif case == "ragged":
+        tl, geom = tl[:F - 3], geom[:F - 3]
+    ids = np.stack([tl, tl + 1, tl + 8, tl + 9], axis=-1).astype(np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(_card())
+                 for a in (blocks, ids, geom))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sorted", "permuted", "one_quad", "ragged"])
+def test_sweep_kernel_on_any_tile_order(case):
+    """K7 on sweep-style inputs with edge geometry against its plain version
+    on every grid, bit-equal across grids."""
+    args = _sweep_inputs(case)
+    lo, hi, _ = kernels.fetch_resample_support(args[2])
+    assert int((hi - lo + 1).sum(dim=2).max()) > 64  # the wide steps' supports
+    before = kernels.fetch_resample.launches
+    got = _each_grid("HALFGRID_WAVES", lambda: kernels.fetch_resample(*args), MESH_GRIDS)
+    torch.cuda.synchronize()
+    assert kernels.fetch_resample.launches == before + len(MESH_GRIDS) + 1
+    assert got.shape == (args[1].shape[0], 33, 33) and bool(torch.isfinite(got).all())
+    err = float((got - kernels.fetch_resample_reference(*args)).abs().max())
+    assert err <= TOL_HALFGRID, (case, err)
+    assert float(got.max()) > 10000.0 and float(got.min()) >= 0.0
