@@ -19,7 +19,9 @@ staged: mesh kernel, sampler, ``material.shade``); the staged and
 per-vertex mesh paths (``csrc/fetch_resample.cu``); the device-side
 queries (``Terrain.query_heights`` / ``query_attachment``), the debug
 toggles with freeze, ``tune_view`` and adaptive capacity with its
-same-frame overflow guard. Every TPU kernel of the JAX package has its
+same-frame overflow guard; the rasterizer (``render/raster.py``: binning,
+edge functions, depth race and per-pixel shading in torch ops) and
+``Terrain.render_image``. Every TPU kernel of the JAX package has its
 CUDA counterpart in ``ops/kernels.py``.
 """
 
@@ -45,6 +47,7 @@ from bevy_terrain_tpu_torch.render.material import (
     gradient_material,
 )
 from bevy_terrain_tpu_torch.render.pipeline import Terrain, TerrainFrameOutput
+from bevy_terrain_tpu_torch.render.raster import RasterOutput, rasterize_grid, render_view
 from bevy_terrain_tpu_torch.terrain_data import TileAtlas, TileTree
 
 __all__ = [
@@ -54,6 +57,7 @@ __all__ = [
     "DebugTerrain",
     "DirectionalLight",
     "PointLight",
+    "RasterOutput",
     "SpotLight",
     "StandardMaterial",
     "Terrain",
@@ -67,4 +71,6 @@ __all__ = [
     "TileTree",
     "albedo_material",
     "gradient_material",
+    "rasterize_grid",
+    "render_view",
 ]

@@ -45,7 +45,8 @@ host suspects of a tile-count spike reads its overflow counter at once.
 Beside the frame: :meth:`Terrain.query_heights` /
 :meth:`Terrain.query_attachment` (batched world-position queries on the
 terrain's device, against the view's last uniforms, ``ops/sampling.py``),
-:meth:`Terrain.frame_inputs`, :meth:`Terrain.set_debug` (the DebugTerrain
+:meth:`Terrain.render_image` (the rasterizer of ``render/raster.py`` on a
+frame output), :meth:`Terrain.frame_inputs`, :meth:`Terrain.set_debug` (the DebugTerrain
 toggles; ``freeze`` pins the tile list), :meth:`Terrain.tune_view`.
 
 A sampled attachment without a usable patch plan raises
@@ -646,6 +647,54 @@ class Terrain:
     def last_uniform_blob(self, view_id) -> np.ndarray:
         """The packed uniform blob of the view's last frame, on the host."""
         return self._last_blobs[view_id].cpu().numpy()
+
+    def render_image(self, view_id, out: TerrainFrameOutput, view_proj, width: int, height: int,
+                     pixel_texturing=None, **kw):
+        """Rasterize a frame output to an (H, W, 4) image on the terrain's
+        device: the per-pixel fragment stage (render/raster.py) wired from
+        this terrain's state, the view's last uniforms and config, the
+        current material and debug view, and (optionally) per-pixel deferred
+        texturing. ``view_proj``: (4, 4) numpy or tensor. Grid meshes only
+        (the fused and the staged path).
+
+        ``pixel_texturing``: attachment index to sample per pixel with
+        analytic screen-derivative mip selection (the reference's
+        textureSampleGrad path, fragment.wgsl:35-49). Defaults to the
+        material's albedo attachment when the current shading samples
+        exactly that one; ``False`` interpolates vertex colours instead.
+        Attachments a vertex-rate material needs (the vertex shade mode,
+        debug views, no per-pixel texturing) are sampled at the mesh's
+        vertices by :meth:`sample_attachment_grid`.
+
+        Returns ``(image, RasterOutput)``.
+        """
+        from bevy_terrain_tpu_torch.render import raster
+
+        raster._grid_mesh(out.mesh)
+        uniforms, cfg = self.frame_inputs(view_id)
+        material = self.shading_fn
+        lighting, debug_view = True, None
+        if self._shade_opts is not None:
+            lighting, debug_view = self._shade_opts[0], self._shade_opts[1]
+        needs = getattr(getattr(material, "base_color", None), "attachment_index", None)
+        if pixel_texturing is None and needs is not None and self._shade_opts is not None \
+                and self._shade_opts[4] == (needs,):
+            pixel_texturing = needs
+        if pixel_texturing not in (None, False):
+            att = self.atlas.attachments[pixel_texturing]
+            kw.setdefault("pixel_attachment", (
+                tuple(att.slabs), att.config.scale, att.config.offset,
+                att.config.format.max_value, att.config.texture_size))
+        kw.setdefault("material", material)
+        kw.setdefault("lighting", lighting)
+        kw.setdefault("debug_view", debug_view)
+        vertex_path = (kw["debug_view"] is not None or kw.get("shade_mode", "pixel") == "vertex"
+                       or "pixel_attachment" not in kw)
+        if needs is not None and vertex_path and "attachment_samples" not in kw:
+            kw["attachment_samples"] = {
+                needs: self.sample_attachment_grid(view_id, out, attachment_index=needs)}
+        return raster.render_view(out.mesh, out.tiles, uniforms, cfg, view_proj, width, height,
+                                  **kw)
 
     def frame_inputs(self, view_id):
         """(FrameUniforms, StaticTerrainConfig) of the view's last frame:

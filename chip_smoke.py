@@ -74,6 +74,18 @@
    teleports over the capacity ladder against the same path at the fixed
    capacity: no frame drops geometry, the teleport re-dispatches its frame,
    the settled frames are equal.
+9. Raster path (``render/raster.py``, torch ops, no kernel of its own), on
+   two main paths' terrains after one more counted frame: the material
+   frame (K4 in the frame) at 1920x1080 under the bench camera with
+   tools/raster_bench.py's knobs, through ``Terrain.render_image`` per-pixel
+   textured PBR (no kernel launch), with ``pixel_texturing=False`` and a
+   debug view (one packed sampler launch each, ``sample_attachment_grid``);
+   the spherical main path's planet (K2 in the frame) at 1024^2 with the
+   first bin cap that drops nothing, the disc without holes. Each render is
+   checked, timed (CUDA events; the profiler's device time, op count and
+   rasterize_grid's three phases; ``raster:`` lines with the card's name
+   and power limit) and held to the same ``render_view`` on the CPU fed the
+   card's frame products, at half the width and height.
 
 Every kernel call of phases 2-5 prints the sha256 of its inputs and of its
 output (``digest:`` lines): two trees built in one call are compared by
@@ -1517,6 +1529,7 @@ def sphere_main_path_phase() -> dict:
                           kernels.mesh_fused_spherical_reference(*out.mesh_inputs),
                           f"{what} last frame")
         stage_timing(terrain, what, n, hmin, hmax, walls)
+        planet_raster_path(terrain, view, view_proj, card_line())
 
         # the staged path: the same planet without the Taylor path
         swhat = "staged main path"
@@ -1787,6 +1800,7 @@ def material_main_path_phase() -> dict:
                 f"{what} last frame mesh")
         h = out.mesh.heights[:n]
         stage_timing(terrain, what, n, float(h.min()), float(h.max()), walls)
+        material_raster_path(terrain, view, view_proj, card_line())
 
         def frames(label, kernel_name, check, count=5, **shading):
             """``count`` frames of one shading; every frame launches
@@ -1961,6 +1975,273 @@ def vertex_main_path_phase() -> None:
         hold(errs["uvs"], TOL_UV, f"{what}: card vs CPU uvs")
 
 
+# the rasterizer (render/raster.py: torch ops, no csrc kernel) on the
+# material frame at 1920x1080 with tools/raster_bench.py:95's knobs, and on
+# the planet at 1024^2 with 16 px bins and the first cap that drops nothing
+RASTER_SIZE = (1920, 1080)
+RASTER_KNOBS = dict(bin_px=32, bin_cap=512, chunk=16)
+PLANET_RASTER_SIZE = 1024
+PLANET_BIN_CAPS = (256, 512, 1024, 2048)
+MATERIAL_BIN_CAPS = (1024, 2048, 4096)
+# the CPU comparison renders at 1/RASTER_CPU_DIV of the width and height
+# with bins of 1/RASTER_CPU_DIV the side: the same camera, the same
+# triangles per bin (the material frame at half size takes ~10 s a render
+# on the card machine's CPU, at full size about four times that)
+RASTER_CPU_DIV = 4
+# card against CPU where the triangle ids agree (f32 on both; libm ulps in
+# the lighting and the mip selection)
+TOL_RASTER = {"depth": 1e-5, "bary": 1e-5, "lit": 1e-4, "unlit": 1e-5}
+RASTER_MIN_SAME = 0.999
+
+
+def to_cpu(x):
+    """A tensor, or a dataclass, tuple or dict of them, copied to the CPU."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: to_cpu(getattr(x, f.name))
+                                         for f in dataclasses.fields(x) if f.init})
+    if isinstance(x, tuple):
+        return tuple(to_cpu(v) for v in x)
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    return x
+
+
+def disc_holes(cov) -> int:
+    """Uncovered pixels with covered ones above and below in the column
+    (tests/test_raster.py:557-562)."""
+    import numpy as np
+
+    above = np.zeros_like(cov)
+    above[1:] = np.maximum.accumulate(cov, 0)[:-1]
+    below = np.zeros_like(cov)
+    below[:-1] = np.maximum.accumulate(cov[::-1], 0)[::-1][1:]
+    return int((~cov & above & below).sum())
+
+
+def raster_profile(call, calls: int = 3):
+    """(device kernel ms per call, kernels per call, {range: device ms per
+    call}, the 8 costliest kernels as (name, launches, ms) per call) of
+    ``call`` under torch.profiler; the ranges are rasterize_grid's
+    record_function phases."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    ranges = {e.key: e.device_time_total / calls / 1e3
+              for e in prof.key_averages() if e.key.startswith("raster::")}
+    kernels = device_events(prof)
+    total = sum(e.self_device_time_total for e in kernels)
+    ops = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    return (total / calls / 1e3, ops / calls, ranges,
+            [(e.key[:48], e.count / calls, e.self_device_time_total / calls / 1e3) for e in top])
+
+
+def raster_compare(what, mode, kw, out, terrain, view_proj, width, height, knobs, unlit):
+    """``render_view`` on the card and on the CPU, fed the card's frame
+    products copied there, at 1/RASTER_CPU_DIV the size: the triangle ids
+    agree on RASTER_MIN_SAME of the pixels, both counters exactly, depth,
+    barycentrics and colours within TOL_RASTER where the ids agree."""
+    import torch
+
+    from bevy_terrain_tpu_torch.ops.params import unpack_frame_uniforms
+    from bevy_terrain_tpu_torch.render import raster
+
+    w, h = width // RASTER_CPU_DIV, height // RASTER_CPU_DIV
+    knobs = dict(knobs, bin_px=knobs["bin_px"] // RASTER_CPU_DIV)
+    _, cfg = terrain.frame_inputs("cam")
+    blob = terrain._last_blobs["cam"]
+
+    def uniforms(b):
+        return unpack_frame_uniforms(b, cfg.side_count, cfg.lod_count, cfg.tree_size)
+
+    img, r = raster.render_view(out.mesh, out.tiles, uniforms(blob), cfg, view_proj, w, h,
+                                **kw, **knobs)
+    t0 = time.perf_counter()
+    cimg, cr = raster.render_view(to_cpu(out.mesh), to_cpu(out.tiles), uniforms(blob.cpu()), cfg,
+                                  view_proj, w, h, **to_cpu(kw), **knobs)
+    cpu_s = time.perf_counter() - t0
+    same = (r.tri_id.cpu() == cr.tri_id)
+    share = float(same.float().mean())
+    errs = {"depth": float((r.depth.cpu() - cr.depth)[same].abs().max()),
+            "bary": float((r.bary.cpu() - cr.bary)[same].abs().max()),
+            "unlit" if unlit else "lit": float((img.cpu() - cimg)[same].abs().max())}
+    counters = [(int(getattr(r, k)), int(getattr(cr, k))) for k in ("near_culled", "bin_overflow")]
+    print(f"raster: {what} {mode}: card vs CPU at {w}x{h}, bin_px {knobs['bin_px']} "
+          f"({cpu_s:.1f} s on the CPU): ids equal on {share:.5%} of the pixels (least "
+          f"{RASTER_MIN_SAME:.1%}), near_culled {counters[0][0]} / {counters[0][1]}, "
+          f"bin_overflow {counters[1][0]} / {counters[1][1]}; max |card - CPU| where the ids "
+          f"agree: " + ", ".join(f"{k} {v:.2e} (tol {TOL_RASTER[k]:.0e})" for k, v in errs.items()))
+    if share < RASTER_MIN_SAME or any(a != b for a, b in counters) or any(
+            v > TOL_RASTER[k] for k, v in errs.items()):
+        raise AssertionError(f"{what} {mode}: the card's render disagrees with the CPU's")
+
+
+def raster_path(terrain, view, stream_proj, view_proj, what, width, height, knobs, modes,
+                frame_kernels, card):
+    """The raster path on a streamed terrain: one more frame, whose kernels
+    are counted as the main path counts them; then ``Terrain.render_image``
+    in each mode of ``modes`` (name -> (render_image keywords, the same as
+    render_view keywords of the frame output, packed sampler launches, unlit)),
+    each with the launch counts set to 0 just before and read just after:
+    no kernel but the packed sampler (K5b) of ``sample_attachment_grid`` in
+    the vertex-rate modes. Each mode is checked (finite, in range), timed
+    (CUDA events, median of 10; the profiler's device kernel time, ops and
+    rasterize_grid's three phases) and held to the same render on the CPU.
+    Returns the frame output."""
+    import torch
+
+    from bevy_terrain_tpu_torch.render import raster
+
+    reset_counts()
+    out = terrain.update({"cam": view}, {"cam": stream_proj})["cam"]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"raster: {what}: the rendered frame, {out.tile_count} tiles, launches {counts}")
+    if any(counts[k] != (1 if k in frame_kernels else 0) for k in counts):
+        raise AssertionError(f"{what}: the rendered frame did not launch {frame_kernels} once")
+    for mode, (kw, view_kw, k5b, unlit) in modes.items():
+        def render():
+            return terrain.render_image("cam", out, view_proj, width, height, **kw, **knobs)
+
+        reset_counts()
+        img, r = render()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if any(counts[k] != (k5b if k == "attach_sample_fused_packed" else 0) for k in counts):
+            raise AssertionError(f"{what} {mode}: render_image launched {counts}")
+        cov = r.covered
+        lo, hi = float(img.min()), float(img.max())
+        ms = cuda_ms(render, n=10, warmup=1)
+        dev_ms, ops, ranges, top = raster_profile(render)
+        print(f"raster: {what} {mode} at {width}x{height}: render_image {ms:.2f} ms (CUDA events, "
+              f"median of 10), {dev_ms:.2f} ms device kernel time and {ops:.0f} kernels per "
+              f"call (profiler; " + ", ".join(f"{k} {v:.2f} ms" for k, v in ranges.items())
+              + f"); coverage {float(cov.float().mean()):.4f}, near_culled "
+              f"{int(r.near_culled)}, bin_overflow {int(r.bin_overflow)}, colours in "
+              f"[{lo:.4f}, {hi:.4f}]; launches {sum(counts.values())} (K5b {k5b}); {card}")
+        if mode == next(iter(modes)):
+            print(f"raster: {what} {mode}: costliest kernels per call: " + "; ".join(
+                f"{k} {n:.0f}x {t:.2f} ms" for k, n, t in top))
+        if not (img.device.type == "cuda" and img.shape == (height, width, 4)
+                and bool(torch.isfinite(img).all()) and lo >= 0.0
+                and (hi <= 1.0 + 1e-5 or not unlit)):
+            raise AssertionError(f"{what} {mode}: the image is off the card, not finite or out "
+                                 f"of range")
+    # rasterize_grid's phases alone on the frame's skirted mesh
+    _, cfg = terrain.frame_inputs("cam")
+    pos = raster.add_skirts(out.mesh.positions, spherical=cfg.spherical)
+    vp = torch.as_tensor(view_proj, dtype=torch.float32, device=pos.device)
+    args = (pos, out.mesh.tile_mask, vp, width, height, knobs["bin_px"], knobs["bin_cap"],
+            knobs.get("chunk", 8), False, 1e-4)
+    b = raster._bin(*args)
+    best = raster._scan(b, knobs["bin_px"], knobs.get("chunk", 8))
+    phases = [cuda_ms(lambda: raster._bin(*args), n=10, warmup=1),
+              cuda_ms(lambda: raster._scan(b, knobs["bin_px"], knobs.get("chunk", 8)), n=10,
+                      warmup=1),
+              cuda_ms(lambda: raster._resolve(b, *best, width, height, knobs["bin_px"]), n=10,
+                      warmup=1)]
+    T = b.tri_vidx.shape[0]
+    print(f"raster: {what} rasterize_grid at {width}x{height}, {knobs}: setup + binning + sort "
+          f"{phases[0]:.2f} ms, scan {phases[1]:.2f} ms ({b.table.shape[1]} candidate slots of "
+          f"{b.table.shape[0]} bins), resolve {phases[2]:.2f} ms (CUDA events, median of 10); "
+          f"{T} triangles, {4 * T} sort keys; {card}")
+    for mode, (kw, view_kw, _, unlit) in modes.items():
+        raster_compare(what, mode, view_kw(out), out, terrain, view_proj, width, height, knobs,
+                       unlit)
+    return out
+
+
+def material_raster_path(terrain, view, view_proj, card) -> None:
+    """The material main path's frame (K4 in every frame) at 1920x1080
+    under the bench camera: per-pixel textured PBR (render_image's default
+    for this material), interpolated vertex colours (``pixel_texturing=
+    False``) and a debug view."""
+    t0 = time.perf_counter()
+    material = terrain.shading_fn
+    albedo = terrain.atlas.attachments[1]
+    tex = (tuple(albedo.slabs), albedo.config.scale, albedo.config.offset,
+           albedo.config.format.max_value, albedo.config.texture_size)
+
+    def grid(out):
+        return {1: terrain.sample_attachment_grid("cam", out, 1)}
+
+    modes = {
+        "per-pixel textured PBR": (
+            {}, lambda out: dict(material=material, pixel_attachment=tex), 0, False),
+        "pixel_texturing=False": (
+            dict(pixel_texturing=False),
+            lambda out: dict(material=material, attachment_samples=grid(out)), 1, False),
+        "debug_view=geometry_lod": (
+            dict(debug_view="geometry_lod"),
+            lambda out: dict(material=material, debug_view="geometry_lod",
+                             attachment_samples=grid(out)), 1, True),
+    }
+    out = raster_path(terrain, view, view_proj, view_proj, "material frame", *RASTER_SIZE,
+                      RASTER_KNOBS, modes, ("mesh_fused_shaded",), card)
+    # what the prescribed cap drops: the same frame at larger caps
+    from bevy_terrain_tpu_torch.render import raster
+
+    pos = raster.add_skirts(out.mesh.positions)
+    for cap in MATERIAL_BIN_CAPS:
+        r = raster.rasterize_grid(pos, out.mesh.tile_mask, view_proj, *RASTER_SIZE,
+                                  **dict(RASTER_KNOBS, bin_cap=cap))
+        print(f"raster: material frame at bin_cap {cap}: bin_overflow {int(r.bin_overflow)}, "
+              f"coverage {float(r.covered.float().mean()):.4f}")
+    print(f"raster: material frame: the raster path took {time.perf_counter() - t0:.1f} s")
+
+
+def planet_raster_path(terrain, view, stream_proj, card) -> None:
+    """The spherical main path's planet (K2 in every frame) at 1024^2 from
+    the same camera, the default material per pixel and a debug view, with
+    16 px bins and the first cap of PLANET_BIN_CAPS that drops nothing; the
+    disc must have no holes."""
+    import numpy as np
+
+    from bevy_terrain_tpu_torch.math import frustum
+
+    t0 = time.perf_counter()
+    size = PLANET_RASTER_SIZE
+    view_proj = frustum.view_projection(view, view * 0.5, np.pi / 3, 1.0)
+    out = terrain.update({"cam": view}, {"cam": stream_proj})["cam"]
+    for cap in PLANET_BIN_CAPS:
+        _, r = terrain.render_image("cam", out, view_proj, size, size, bin_px=16, bin_cap=cap)
+        if int(r.bin_overflow) == 0:
+            break
+    holes = disc_holes(r.covered.cpu().numpy())
+    print(f"raster: planet at {size}^2: bin_cap {cap} at bin_px 16 drops nothing (bin_overflow "
+          f"{int(r.bin_overflow)}); coverage {float(r.covered.float().mean()):.4f}, {holes} holes "
+          f"in the disc")
+    if int(r.bin_overflow) != 0 or holes != 0 or float(r.covered.float().mean()) < 0.5:
+        raise AssertionError("planet: bins overflow at every cap, or the disc has holes")
+    modes = {
+        "per-pixel PBR": ({}, lambda out: {}, 0, False),
+        "debug_view=geometry_lod": (dict(debug_view="geometry_lod"),
+                                    lambda out: dict(debug_view="geometry_lod"), 0, True),
+    }
+    raster_path(terrain, view, stream_proj, view_proj, "planet", size, size,
+                dict(bin_px=16, bin_cap=cap, chunk=16), modes, ("mesh_fused_spherical",), card)
+    print(f"raster: planet: the raster path took {time.perf_counter() - t0:.1f} s")
+
+
+def device_events(prof):
+    """The profiler's per-name averages of the kernels on the card. An aten
+    op's entry carries its kernels' device time too, so a sum over every
+    entry counts each kernel twice; the record_function ranges of
+    rasterize_grid (``raster::``) are spans, not kernels."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0 and not e.key.startswith("raster::")]
+
+
 def profile_stage(device_stage, what: str) -> None:
     """Kernel time by name over 10 device stages (torch.profiler)."""
     import torch
@@ -1972,16 +2253,14 @@ def profile_stage(device_stage, what: str) -> None:
         for _ in range(10):
             device_stage()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    rows = sorted(events, key=lambda e: getattr(e, "device_time_total", 0.0), reverse=True)
-    total = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
-    n_kernels = sum(e.count for e in events if getattr(e, "self_device_time_total", 0.0) > 0)
+    events = device_events(prof)
+    rows = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in events)
+    n_kernels = sum(e.count for e in events)
     print(f"profile ({what}): {total / 10 / 1e3:.4f} ms device kernel time per stage, "
-          f"{n_kernels / 10:.0f} device ops per stage")
+          f"{n_kernels / 10:.0f} kernels per stage")
     for i, e in enumerate(rows):
-        if getattr(e, "self_device_time_total", 0.0) > 0 and (
-                i < 15 or any(k in e.key for k in ("mesh_fused", "fetch_resample",
-                                                    "attach_sample"))):
+        if i < 12 or any(k in e.key for k in ("mesh_fused", "fetch_resample", "attach_sample")):
             print(f"profile:   {e.key[:60]:60s} {e.count // 10:4d}x "
                   f"{e.self_device_time_total / 10 / 1e3:.4f} ms")
 

@@ -722,3 +722,143 @@ def test_sweep_kernel_on_any_tile_order(case):
     err = float((got - kernels.fetch_resample_reference(*args)).abs().max())
     assert err <= TOL_HALFGRID, (case, err)
     assert float(got.max()) > 10000.0 and float(got.min()) >= 0.0
+
+
+# -- the rasterizer (render/raster.py: torch ops, no csrc kernel) -------------
+
+
+def _launches():
+    return {name: getattr(kernels, name).launches for name in (
+        "mesh_fused_planar", "mesh_fused_spherical", "mesh_fused_albedo", "mesh_fused_shaded",
+        "mesh_fused_spherical_albedo", "attach_sample_fused", "attach_sample_fused_packed",
+        "fetch_resample_cached", "fetch_resample")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flat", "bumpy", "seam", "grazing", "near", "overflow"])
+def test_rasterizer_on_card_matches_cpu(name):
+    """rasterize_grid on the card against the CPU on the CPU parity tests'
+    scenes: both counters and every decisive pixel's triangle id exactly
+    equal, depth and barycentrics within 1e-5 where the ids agree; no host
+    sync inside the call, and the same ids with TF32 allowed."""
+    from bevy_terrain_tpu_torch.render import raster
+    # tests/ is on sys.path for its test modules (pytest's default import mode)
+    from torch_raster_cases import decisive, oracle_raster, raster_cases
+
+    dev = _card()
+    pos, mask, vp, W, H, knobs = raster_cases()[name]
+    cpu = raster.rasterize_grid(torch.from_numpy(pos), torch.tensor(mask), vp, W, H, **knobs)
+    pos_d, mask_d = torch.from_numpy(pos).to(dev), torch.tensor(mask, device=dev)
+    vp_d = torch.from_numpy(vp).to(dev)
+    raster.rasterize_grid(pos_d, mask_d, vp_d, W, H, **knobs)  # the cached tables
+    torch.cuda.synchronize()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        card = raster.rasterize_grid(pos_d, mask_d, vp_d, W, H, **knobs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert all(t.device.type == "cuda" for t in card)
+    assert int(card.near_culled) == int(cpu.near_culled)
+    assert int(card.bin_overflow) == int(cpu.bin_overflow)
+    o_tri, _, o_margin = oracle_raster(pos, np.asarray(mask), vp, W, H)
+    dec = decisive(o_tri, o_margin)
+    tri, ctri = card.tri_id.cpu().numpy(), cpu.tri_id.numpy()
+    np.testing.assert_array_equal(tri[dec], ctri[dec])
+    same = tri == ctri
+    assert same.mean() >= 0.999
+    for f in ("depth", "bary"):
+        np.testing.assert_allclose(getattr(card, f).cpu().numpy()[same],
+                                   getattr(cpu, f).numpy()[same], rtol=0, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def card_material_terrain(tmp_path_factory):
+    """A streamed planar terrain with an Rgba8 albedo lit by a
+    StandardMaterial on the card: the in-kernel shade (K4) every frame."""
+    from bevy_terrain_tpu_torch import Terrain
+    from bevy_terrain_tpu_torch.config import AttachmentConfig, AttachmentFormat, TerrainConfig
+    from bevy_terrain_tpu_torch.render import material
+    from bevy_terrain_tpu_torch.utils.synthetic import generate_planar_dataset
+
+    dev = _card()
+    root = str(tmp_path_factory.mktemp("card_raster"))
+    kw = dict(texture_size=512, border_size=2, mip_level_count=4)
+    atts = (AttachmentConfig(name="height", **kw),
+            AttachmentConfig(name="albedo", format=AttachmentFormat.RGBA8, **kw))
+    for att in atts:
+        generate_planar_dataset("raster", 3, att, root=root)
+    config = TerrainConfig(lod_count=3, model=TerrainModel.planar(np.zeros(3), 1000.0, 0.0, 100.0),
+                           atlas_size=32, path="raster", attachments=atts, assets_root=root)
+    terrain = Terrain(config, device=dev)
+    terrain.add_view("cam", TerrainViewConfig(tile_capacity=256, morph_distance=4.0),
+                     queue_capacity=1024)
+    terrain.set_shading(material.StandardMaterial(base_color=material.albedo_material(1)),
+                        sample_attachments=(1,))
+    view = np.array([0.0, 320.0, 1.0])
+    for _ in range(40):
+        out = terrain.update({"cam": view})["cam"]
+        if not terrain.atlas.state.to_load and not any(a.loading for a in terrain.atlas.attachments):
+            break
+    before = _launches()
+    out = terrain.update({"cam": view})["cam"]
+    torch.cuda.synchronize()
+    assert _launches()["mesh_fused_shaded"] == before["mesh_fused_shaded"] + 1
+    assert out.overflow == 0 and out.tile_count > 0
+    vp = frustum.view_projection(view, np.zeros(3), np.radians(60.0), 1.0, near=0.5)
+    return terrain, out, vp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pixel", "vertex_colours", "debug"])
+def test_render_image_on_card(card_material_terrain, mode):
+    """Terrain.render_image on the card: the image is finite, on the card,
+    in range, and the same as render_view on the CPU fed the card's frame
+    products (ids on 99.9% of the pixels, colours within 1e-4 where they
+    agree). The per-pixel mode launches no csrc kernel; the vertex and
+    debug modes one packed sampler (K5b) through sample_attachment_grid."""
+    from bevy_terrain_tpu_torch.ops.params import unpack_frame_uniforms
+    from bevy_terrain_tpu_torch.render import raster
+
+    terrain, out, vp = card_material_terrain
+    kw = {"pixel": {}, "vertex_colours": dict(pixel_texturing=False),
+          "debug": dict(debug_view="geometry_lod")}[mode]
+    knobs = dict(bin_px=16, bin_cap=256)
+    before = _launches()
+    img, r = terrain.render_image("cam", out, vp, 160, 160, **kw, **knobs)
+    torch.cuda.synchronize()
+    after = _launches()
+    k5b = 0 if mode == "pixel" else 1
+    assert after["attach_sample_fused_packed"] == before["attach_sample_fused_packed"] + k5b
+    assert all(after[k] == before[k] for k in after if k != "attach_sample_fused_packed")
+    assert img.device.type == "cuda" and img.shape == (160, 160, 4)
+    assert bool(torch.isfinite(img).all()) and int(r.bin_overflow) == 0
+    assert float(r.covered.float().mean()) > 0.9
+
+    # the same render on the CPU from the card's frame products
+    def cpu(obj):
+        return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).cpu()
+                                           for f in dataclasses.fields(obj)
+                                           if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+    _, cfg = terrain.frame_inputs("cam")
+    uniforms = unpack_frame_uniforms(terrain._last_blobs["cam"].cpu(), cfg.side_count,
+                                     cfg.lod_count, cfg.tree_size)
+    cpu_kw = dict(kw, material=terrain.shading_fn)
+    albedo = terrain.atlas.attachments[1]
+    if mode == "pixel":
+        cpu_kw.pop("pixel_texturing", None)
+        cpu_kw["pixel_attachment"] = (tuple(s.cpu() for s in albedo.slabs), albedo.config.scale,
+                                      albedo.config.offset, albedo.config.format.max_value,
+                                      albedo.config.texture_size)
+    else:
+        cpu_kw.pop("pixel_texturing", None)
+        cpu_kw["attachment_samples"] = {1: terrain.sample_attachment_grid("cam", out, 1).cpu()}
+    want, wr = raster.render_view(cpu(out.mesh), cpu(out.tiles), uniforms, cfg, vp, 160, 160,
+                                  **cpu_kw, **knobs)
+    same = (r.tri_id.cpu() == wr.tri_id).numpy()
+    assert same.mean() >= 0.999
+    assert int(r.near_culled) == int(wr.near_culled) and int(r.bin_overflow) == int(wr.bin_overflow)
+    np.testing.assert_allclose(img.cpu().numpy()[same], want.numpy()[same], rtol=0, atol=1e-4)
