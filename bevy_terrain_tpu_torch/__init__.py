@@ -21,8 +21,10 @@ queries (``Terrain.query_heights`` / ``query_attachment``), the debug
 toggles with freeze, ``tune_view`` and adaptive capacity with its
 same-frame overflow guard; the rasterizer (``render/raster.py``: binning,
 edge functions, depth race and per-pixel shading in torch ops) and
-``Terrain.render_image``. Every TPU kernel of the JAX package has its
-CUDA counterpart in ``ops/kernels.py``.
+``Terrain.render_image``; preprocessing (``Preprocessor``: source imagery to
+a tile dataset, on the host or as torch ops over whole-lod stacks on the
+atlas's device). Every TPU kernel of the JAX package has its CUDA
+counterpart in ``ops/kernels.py``.
 """
 
 from bevy_terrain_tpu_torch.debug import DebugTerrain
@@ -38,6 +40,7 @@ from bevy_terrain_tpu_torch.math import (
     TerrainModelApproximation,
     TileCoordinate,
 )
+from bevy_terrain_tpu_torch.preprocess import PreprocessDataset, Preprocessor, SphericalDataset
 from bevy_terrain_tpu_torch.render.material import (
     DirectionalLight,
     PointLight,
@@ -57,7 +60,10 @@ __all__ = [
     "DebugTerrain",
     "DirectionalLight",
     "PointLight",
+    "PreprocessDataset",
+    "Preprocessor",
     "RasterOutput",
+    "SphericalDataset",
     "SpotLight",
     "StandardMaterial",
     "Terrain",

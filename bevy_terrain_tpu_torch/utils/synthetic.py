@@ -9,9 +9,11 @@ sides (:func:`generate_spherical_dataset`, heights or a colour field of the
 unit cube-sphere position). The payload layout matches the
 reference's disk format exactly (SURVEY.md section 2 "Tile payload files").
 
-These are test and benchmark fixtures. The JAX package's tests make the
-same kind of files from images through its ``Preprocessor``, which this
-package does not have yet.
+These are test and benchmark fixtures; datasets made from source imagery
+come from the ``Preprocessor`` (preprocess/). :func:`interchange_source`
+and ``INTERCHANGE`` are the on-disk interchange fixture's source and
+settings, whose preprocessed files have committed sha256 in
+``tools/interchange_expected.json``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,33 @@ def default_height_fn(u: np.ndarray, v: np.ndarray) -> np.ndarray:
         + 0.10 * np.cos(2 * np.pi * 5 * (u - 0.5) * (v - 0.5) * 4)
     )
     return np.clip(h, 0.02, 1.0)  # keep away from 0 (nodata sentinel)
+
+
+# the interchange fixture: a 1024^2 16-bit source preprocessed to 3 lods of
+# 512^2 R16 tiles, border 2, 4 mips, on a 1000 m planar terrain 250 m high
+INTERCHANGE = dict(path="terrains/interchange", terrain_size=1000.0, height=250.0,
+                   texture_size=512, border_size=2, mip_count=4, lod_count=3,
+                   source_size=1024)
+
+
+def interchange_source(n: int = 1024) -> np.ndarray:
+    """The interchange fixture's (n, n) uint16 height source, from f64
+    polynomial arithmetic only (no libm), so it is the same bits on every
+    platform."""
+    x = (np.arange(n, dtype=np.float64) + 0.5) / n
+    u, v = np.meshgrid(x, x, indexing="xy")
+    # bounded polynomial "terrain": ridges from squared saw ramps
+    saw3 = (3.0 * u) % 1.0
+    saw5 = (5.0 * v) % 1.0
+    saw7 = (7.0 * (u + v) * 0.5) % 1.0
+    h = (
+        0.30
+        + 0.25 * (4.0 * saw3 * (1.0 - saw3))
+        + 0.20 * (4.0 * saw5 * (1.0 - saw5)) * u
+        + 0.15 * (4.0 * saw7 * (1.0 - saw7)) * (1.0 - v)
+        + 0.05 * u * v * (1.0 - u)
+    )
+    return np.clip(np.rint(h * 65535.0), 0.0, 65535.0).astype(np.uint16)
 
 
 def default_sphere_height_fn(p: np.ndarray) -> np.ndarray:

@@ -86,6 +86,26 @@
    rasterize_grid's three phases; ``raster:`` lines with the card's name
    and power limit) and held to the same ``render_view`` on the CPU fed the
    card's frame products, at half the width and height.
+10. Preprocess path (``preprocess/``, ``ops/preprocess*.py``: torch ops and
+   numpy, no kernel of its own), after the main paths, every source made in
+   numpy from a seed and handed over by ``loader=`` (no PIL): the
+   interchange fixture (its hashes in tools/interchange_expected.json,
+   read as data) on ``TileAtlas(config, "cuda")``
+   (host, the device path that ``device=None`` must select with the full
+   read-back, its two probe times printed, and the delta read-back; host
+   and delta reproduce the committed sha256); the bench geometry (an 8192^2
+   R16 height source and a 4096^2 Rgba8 albedo, lods 0-4 of 512^2: 341
+   tiles each) and six 2048^2 planet faces (lods 0-2, 126 tiles, cross-face
+   stitched), each on the host and on the card, every tile of the full
+   device path held to the JAX package's yardstick (1 unit, under 2% of
+   texels); the device-made datasets streamed through
+   ``Terrain(config).update``: the planar one under the bench camera (K1
+   every frame, the last frame against its plain version, heights against
+   the analytic field), then lit by the smoke StandardMaterial over the
+   preprocessed albedo (K4 every frame), the planet at 60 km (K2 every
+   frame). One ``preprocess:`` line per run: tiles/s, per-phase ms (CUDA
+   events on the card's phases, the host clock for the rest), H2D and D2H
+   bytes, device memory peak, the card's name and power limit.
 
 Every kernel call of phases 2-5 prints the sha256 of its inputs and of its
 output (``digest:`` lines): two trees built in one call are compared by
@@ -1975,6 +1995,498 @@ def vertex_main_path_phase() -> None:
         hold(errs["uvs"], TOL_UV, f"{what}: card vs CPU uvs")
 
 
+# -- preprocess path -------------------------------------------------------------
+
+# the sources are made in numpy from this seed (a small noise on the analytic
+# fields), then quantized as the file the loader stands in for would be
+PRE_SEED = 10
+# the bench.py planar geometry: an 8192^2 16-bit height source and a 4096^2
+# Rgba8 albedo over lods 0-4 of 512^2 tiles (341 tiles, a finest mosaic of
+# 8128^2); six 2048^2 planet faces over lods 0-2 (126 tiles)
+PRE_SOURCE, PRE_ALBEDO, PRE_FACE = 8192, 4096, 2048
+PRE_ATLAS = 512
+# one deeper dataset from the same height source, device path only: lods
+# 0-5 (1365 tiles), its device memory peak held under the memory check's plan
+PRE_DEEP_LODS, PRE_DEEP_ATLAS = 6, 1536
+# the JAX package's yardstick for its full device path against its host path
+# (tests/test_preprocess_device.py:189-203): at most 1 unit, on under 2% of
+# the texels; host and delta read-back are byte-exact
+TOL_PRE_UNITS, TOL_PRE_SHARE = 1, 0.02
+# median |streamed height - analytic field| on the bench terrain: 1% of its
+# 250 m range (tests/test_preprocess.py holds 2.5 m on a 100 m terrain)
+TOL_PRE_FIELD = 2.5
+# the Preprocessor's phase methods: on the card the device ones are timed with
+# CUDA events, every phase with the host clock too
+PRE_PHASES = {"_split_device": "split", "_split_host": "split",
+              "_downsample_device": "downsample", "_downsample_host": "downsample",
+              "_stitch_device": "stitch", "_stitch_delta": "stitch", "_stitch_host": "stitch",
+              "_read_back": "read-back", "_drain_saves": "save", "_pump_saves": "save"}
+PRE_DEVICE_PHASES = {"_split_device", "_downsample_device", "_stitch_device", "_stitch_delta",
+                     "_read_back"}
+
+
+def timed_preprocessor(atlas, **kw):
+    """The port's ``Preprocessor`` with its phases timed (CUDA events around
+    the device ones on a card, the host clock around all) and the bytes of
+    its uploads (sources, prior tiles, delta stacks; not the few index
+    tables) and read-backs counted."""
+    import numpy as np
+    import torch
+
+    from bevy_terrain_tpu_torch.preprocess import Preprocessor
+
+    def timed(name):
+        base, phase = getattr(Preprocessor, name), PRE_PHASES[name]
+
+        def call(self, *a, **k):
+            if phase in self.open_phases:  # the drain's own pumps: in the drain's time
+                return base(self, *a, **k)
+            self.open_phases.add(phase)
+            self.ran.add(phase)
+            events = self.atlas.device.type == "cuda" and name in PRE_DEVICE_PHASES
+            if events:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            try:
+                out = base(self, *a, **k)
+                if name == "_read_back":
+                    self.d2h += out.nbytes
+                return out
+            finally:
+                self.host_s[phase] += time.perf_counter() - t0
+                if events:
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    self.spans[phase].append((start, end))
+                self.open_phases.discard(phase)
+        return call
+
+    class Timed(Preprocessor):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.spans = {p: [] for p in set(PRE_PHASES.values())}
+            self.host_s = dict.fromkeys(self.spans, 0.0)
+            self.h2d = self.d2h = 0
+            self.open_phases, self.ran = set(), set()
+            self.planned = 0  # the memory check's highest planned peak (allocated + plan)
+
+        def planned_device_bytes(self, dataset, source_shape):
+            need = super().planned_device_bytes(dataset, source_shape)
+            if self.atlas.device.type == "cuda":
+                self.planned = max(self.planned, torch.cuda.memory_allocated() + need)
+            return need
+
+        def _upload(self, array):
+            self.h2d += np.asarray(array).size * 4
+            return super()._upload(array)
+
+    for name in PRE_PHASES:
+        setattr(Timed, name, timed(name))
+    return Timed(atlas, **kw)
+
+
+def preprocess_run(what: str, atlas, queue, tiles: int, card: str, **kw):
+    """One ``Preprocessor`` run over ``queue(preprocessor)``; prints its
+    ``preprocess:`` line and returns (wall s, preprocessor)."""
+    import torch
+
+    pre = timed_preprocessor(atlas, **kw)
+    on_card = atlas.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    queue(pre).run(verbose=False)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    path = ("device " + pre.readback) if pre.device else "host"
+    phases = []
+    for p in ("split", "downsample", "stitch", "read-back", "save"):
+        if p not in pre.ran:
+            continue
+        if pre.spans[p]:
+            ms = sum(s.elapsed_time(e) for s, e in pre.spans[p])
+            phases.append(f"{p} {ms:.1f} ms (events; host {pre.host_s[p] * 1e3:.1f})")
+        else:
+            phases.append(f"{p} {pre.host_s[p] * 1e3:.1f} ms (host)")
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e6 if on_card else 0.0
+    plan = f" (planned {(pre.planned - base) / 1e6:.1f})" if pre.planned else ""
+    print(f"preprocess: {what} [{path}]: {tiles} tiles in {wall:.3f} s = {tiles / wall:.1f} "
+          f"tiles/s; {', '.join(phases)}; H2D {pre.h2d / 1e6:.1f} MB, D2H {pre.d2h / 1e6:.1f} "
+          f"MB; device memory peak {peak:.1f} MB above the atlas{plan}; {card}")
+    if pre.planned and peak * 1e6 > pre.planned - base:
+        raise AssertionError(f"{what}: the device memory peak {peak:.1f} MB is above the "
+                             f"memory check's plan {(pre.planned - base) / 1e6:.1f} MB")
+    return wall, pre
+
+
+def tile_files(root: Path, path: str, name: str) -> dict:
+    return {p.name: p.read_bytes()
+            for p in sorted((Path(root) / path / "data" / name).glob("*.bin"))}
+
+
+def hold_full_path(got: dict, want: dict, dtype, what: str) -> float:
+    """Every tile of the full device path within TOL_PRE_UNITS of the host
+    path's, on under TOL_PRE_SHARE of its texels. Returns the share of
+    texels that differ."""
+    import numpy as np
+
+    if not want or set(got) != set(want):
+        raise AssertionError(f"{what}: the device path wrote {len(got)} tiles, the host "
+                             f"path {len(want)}")
+    worst, flipped, total = 0, 0, 0
+    for name in want:
+        d = np.abs(np.frombuffer(got[name], dtype).astype(np.int64)
+                   - np.frombuffer(want[name], dtype).astype(np.int64))
+        worst = max(worst, int(d.max()))
+        flipped += int((d != 0).sum())
+        total += d.size
+        if d.max() > TOL_PRE_UNITS or (d != 0).mean() >= TOL_PRE_SHARE:
+            raise AssertionError(f"{what}: tile {name} off the host path by up to "
+                                 f"{int(d.max())} on {(d != 0).mean():.2%} of its texels")
+    share = flipped / total
+    print(f"{what}: full device path vs host path over {len(want)} tiles: max {worst} "
+          f"unit(s), {flipped} of {total} texels differ ({share:.6%}; yardstick <= "
+          f"{TOL_PRE_UNITS} on < {TOL_PRE_SHARE:.0%})")
+    return share
+
+
+def interchange_preprocess(card: str) -> None:
+    """The interchange fixture (utils/synthetic.INTERCHANGE, its hashes in
+    tools/interchange_expected.json) on ``TileAtlas(config, "cuda")``:
+    the host path and the delta read-back reproduce the committed sha256 of
+    config.tc and the 21 tiles; ``device=None`` selects the device path with
+    the full read-back, which holds its yardstick."""
+    import hashlib
+
+    import numpy as np
+
+    from bevy_terrain_tpu_torch import (
+        AttachmentConfig, AttachmentFormat, PreprocessDataset, TerrainConfig, TerrainModel,
+    )
+    from bevy_terrain_tpu_torch.terrain_data import TileAtlas
+    from bevy_terrain_tpu_torch.utils import transfer
+    from bevy_terrain_tpu_torch.utils.synthetic import INTERCHANGE as KIT, interchange_source
+
+    PATH, KIT_LODS = KIT["path"], KIT["lod_count"]
+    # what load_source_image returns for the kit's 16-bit PNG: no PNG is read
+    source = interchange_source(KIT["source_size"])[..., None].astype(np.float32) / 65535.0
+    expected = json.loads((Path(__file__).resolve().parent / "tools"
+                           / "interchange_expected.json").read_text())
+    prefix = f"assets/{PATH}/"
+    what = "interchange fixture"
+    files = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kit_") as tmp:
+        for path, kw in (("host", dict(device=False)), ("full", {}),
+                         ("delta", dict(device=True, readback="delta"))):
+            root = Path(tmp) / path
+            config = TerrainConfig(
+                lod_count=KIT_LODS,
+                model=TerrainModel.planar(np.zeros(3), KIT["terrain_size"], 0.0, KIT["height"]),
+                atlas_size=32, path=PATH, assets_root=str(root),
+            ).add_attachment(AttachmentConfig(
+                name="height", texture_size=KIT["texture_size"],
+                border_size=KIT["border_size"], mip_level_count=KIT["mip_count"],
+                format=AttachmentFormat.R16))
+            _, pre = preprocess_run(
+                f"{what} ({source.shape[0]}^2 R16 source, lods 0-{KIT_LODS - 1})",
+                TileAtlas(config, "cuda"),
+                lambda p: p.clear_attachment(0).preprocess_tile(PreprocessDataset(
+                    attachment_index=0, path="height.png", lod_range=range(0, KIT_LODS))),
+                21, card, loader=lambda p, cfg: source, **kw)
+            if path == "full":
+                print(f"{what}: Preprocessor(TileAtlas(config, 'cuda')) selected device="
+                      f"{pre.device}, readback {pre.readback!r}; probes: 1 MB read-back "
+                      f"{transfer.d2h_seconds('cuda') * 1e3:.3f} ms (limit "
+                      f"{transfer._THRESHOLD_S * 1e3:.0f}), launch + sync "
+                      f"{transfer.dispatch_seconds('cuda') * 1e3:.3f} ms (limit "
+                      f"{transfer._DISPATCH_THRESHOLD_S * 1e3:.0f}); {card}")
+                if pre.device is not True or pre.readback != "full":
+                    raise AssertionError("the Preprocessor on the card did not select the "
+                                         "device path with the full read-back")
+            out = {"config.tc": (root / PATH / "config.tc").read_bytes()}
+            for name, data in tile_files(root, PATH, "height").items():
+                out[f"data/height/{name}"] = data
+            files[path] = out
+    want = {k[len(prefix):]: v for k, v in expected.items() if k.startswith(prefix)}
+    for path in ("host", "delta"):
+        got = {k: hashlib.sha256(v).hexdigest() for k, v in files[path].items()}
+        bad = sorted(k for k in want if got.get(k) != want[k])
+        print(f"{what} [{path}]: {len(want) - len(bad)} of {len(want)} committed sha256 "
+              f"reproduced")
+        if bad or set(got) != set(want):
+            raise AssertionError(f"{what} [{path}]: hashes differ for {bad}")
+    if files["full"].pop("config.tc") != files["host"].pop("config.tc"):
+        raise AssertionError(f"{what}: the full device path's config.tc differs")
+    hold_full_path(files["full"], files["host"], np.uint16, what)
+
+
+def planar_sources():
+    """The 8192^2 height source (default_height_fn) and the 4096^2 Rgba8
+    albedo (default_color_fn, channel 0 non-zero), as (H, W, C) f32 in
+    [0, 1] quantized to their 16 and 8 bits, a seeded noise under the height."""
+    import numpy as np
+
+    from bevy_terrain_tpu_torch.utils.synthetic import default_color_fn, default_height_fn
+
+    rng = np.random.default_rng(PRE_SEED)
+    n = PRE_SOURCE
+    x = ((np.arange(n) + 0.5) / n).astype(np.float32)
+    height = np.empty((n, n, 1), np.float32)
+    for r in range(0, n, 1024):  # in bands: a few hundred MB at a time
+        u, v = np.meshgrid(x, x[r:r + 1024], indexing="xy")
+        h = default_height_fn(u, v) + 1e-4 * rng.standard_normal(u.shape, np.float32)
+        height[r:r + 1024, :, 0] = np.clip(np.rint(h * 65535.0), 1, 65535) / np.float32(65535.0)
+    a = PRE_ALBEDO
+    y = (np.arange(a) + 0.5) / a
+    u, v = np.meshgrid(y, y, indexing="xy")
+    albedo = (np.rint(np.clip(default_color_fn(u, v), 0, 1) * 255.0) / 255.0).astype(np.float32)
+    return height, albedo
+
+
+def planar_preprocess_path(card: str) -> dict:
+    """The bench geometry preprocessed on the card and on the host, every
+    tile held to the yardstick; then the device-made dataset streamed
+    through ``Terrain(config).update`` under the bench camera (K1 every
+    frame, heights against the analytic field) and lit with the smoke
+    StandardMaterial over the preprocessed albedo (K4 every frame)."""
+    import numpy as np
+    import torch
+
+    from bevy_terrain_tpu_torch import PreprocessDataset, Terrain
+    from bevy_terrain_tpu_torch.config import (
+        AttachmentConfig, AttachmentFormat, TerrainConfig, TerrainViewConfig,
+    )
+    from bevy_terrain_tpu_torch.ops import kernels
+    from bevy_terrain_tpu_torch.render import material
+    from bevy_terrain_tpu_torch.terrain_data import TileAtlas
+    from bevy_terrain_tpu_torch.utils.synthetic import default_height_fn
+
+    what = "planar preprocess path"
+    model, vc, view, view_proj = bench_scene()
+    kw = dict(texture_size=TEXTURE_SIZE, border_size=BORDER, mip_level_count=4)
+    atts = (AttachmentConfig(name="height", **kw),
+            AttachmentConfig(name="albedo", format=AttachmentFormat.RGBA8, **kw))
+    t0 = time.perf_counter()
+    height, albedo = planar_sources()
+    sources = {"height.png": height, "albedo.png": albedo}
+    print(f"{what}: made a {PRE_SOURCE}^2 R16 height source and a {PRE_ALBEDO}^2 Rgba8 albedo "
+          f"(seed {PRE_SEED}) in {time.perf_counter() - t0:.1f} s")
+    lods = range(0, LOD_COUNT)
+    datasets = [PreprocessDataset(attachment_index=i, path=p, lod_range=lods)
+                for i, p in enumerate(sources)]
+    tiles = sum(1 << (2 * lod) for lod in lods)
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pre_") as tmp:
+        configs = {}
+        for path, dev_kw in (("host", dict(device=False)), ("device", dict(device=True))):
+            config = TerrainConfig(lod_count=LOD_COUNT, model=model, atlas_size=PRE_ATLAS,
+                                   path="pre", attachments=atts,
+                                   assets_root=str(Path(tmp) / path))
+            atlas = TileAtlas(config, "cuda")
+            for ds, att in zip(datasets, atts):
+                def queue(p, ds=ds):
+                    if ds.attachment_index == 0:
+                        p.clear_attachment(0).clear_attachment(1)
+                    return p.preprocess_tile(ds)
+
+                preprocess_run(f"{what}, {att.name} ({att.format.value}, lods 0-{LOD_COUNT - 1})",
+                               atlas, queue, tiles, card,
+                               loader=lambda p, cfg: sources[p], **dev_kw)
+            configs[path] = config
+        for att in atts:
+            hold_full_path(tile_files(Path(tmp) / "device", "pre", att.name),
+                           tile_files(Path(tmp) / "host", "pre", att.name),
+                           att.format.dtype, f"{what}, {att.name}")
+        deep = dataclasses.replace(configs["device"], lod_count=PRE_DEEP_LODS,
+                                   atlas_size=PRE_DEEP_ATLAS, attachments=atts[:1],
+                                   assets_root=str(Path(tmp) / "deep"))
+        preprocess_run(
+            f"{what}, height (R16, lods 0-{PRE_DEEP_LODS - 1}, device path only)",
+            TileAtlas(deep, "cuda"),
+            lambda p: p.clear_attachment(0).preprocess_tile(PreprocessDataset(
+                attachment_index=0, path="height.png", lod_range=range(0, PRE_DEEP_LODS))),
+            sum(1 << (2 * lod) for lod in range(PRE_DEEP_LODS)), card,
+            loader=lambda p, cfg: sources[p], device=True)
+
+        config = dataclasses.replace(configs["device"], atlas_size=1024)
+        terrain = Terrain(config)
+        if terrain.device.type != "cuda":
+            raise AssertionError(f"Terrain(config) runs on {terrain.device}, not the card")
+        terrain.add_view("cam", TerrainViewConfig(tile_capacity=vc.tile_capacity),
+                         queue_capacity=1024, culling=True)
+        swhat = f"{what}, streamed"
+        out, counts["mesh_fused_planar"], walls = stream(
+            terrain, view, view_proj, "mesh_fused_planar", swhat, timed=5)
+        n = out.tile_count
+        if n <= 0 or out.overflow != 0:
+            raise AssertionError(f"{swhat}: tile_count {n}, overflow {out.overflow}")
+        mesh = out.mesh
+        for field in ("heights", "positions", "uvs"):
+            if not bool(torch.isfinite(getattr(mesh, field)).all()):
+                raise AssertionError(f"{swhat}: non-finite {field}")
+        compare(out.raw_mesh, kernels.mesh_fused_planar_reference(*out.mesh_inputs),
+                f"{swhat}, last frame")
+        pos = mesh.positions[:n].double().cpu().numpy()
+        field = default_height_fn(pos[..., 0] / SIDE + 0.5, pos[..., 2] / SIDE + 0.5)
+        err = np.abs(pos[..., 1] - (model.min_height + field * (model.max_height
+                                                                 - model.min_height)))
+        print(f"{swhat}: {n} tiles; |height - analytic field| median {np.median(err):.4f} m, "
+              f"99th percentile {np.percentile(err, 99):.4f} m, max {err.max():.4f} m "
+              f"(median limit {TOL_PRE_FIELD} m)")
+        if not np.median(err) < TOL_PRE_FIELD:
+            raise AssertionError(f"{swhat}: heights off the analytic field")
+
+        lwhat = f"{what}, lit"
+        terrain.set_shading(smoke_material(material), sample_attachments=(1,))
+        out, counts["mesh_fused_shaded"], _ = stream(
+            terrain, view, view_proj, "mesh_fused_shaded", lwhat,
+            absent=("mesh_fused_planar",), timed=5)
+        n = out.tile_count
+        colors = out.colors
+        if not (n > 0 and bool(torch.isfinite(colors).all())
+                and float(colors[:n, ..., :3].max()) > 0.0):
+            raise AssertionError(f"{lwhat}: colours not finite or all dark")
+        want = kernels.mesh_fused_shaded_reference(*out.mesh_inputs)
+        cerr = float((out.raw_mesh[:, 6:] - want[:, 6:]).abs().max())
+        print(f"{lwhat}: {n} tiles, max |kernel - plain| colours {cerr:.3e} (tol "
+              f"{TOL_ALB_FAST:.1e})")
+        if not cerr <= TOL_ALB_FAST:
+            raise AssertionError(f"{lwhat}: shaded colours disagree with the plain version")
+        compare(out.raw_mesh[:, :6], kernels.mesh_fused_planar_reference(*out.mesh_inputs[:6]),
+                f"{lwhat}, last frame mesh")
+    return counts
+
+
+def planet_faces():
+    """Six 2048^2 16-bit face sources of default_sphere_height_fn over each
+    cube side's uv, with a seeded noise."""
+    import numpy as np
+
+    from bevy_terrain_tpu_torch.math.coordinate import local_position_from_side_uv
+    from bevy_terrain_tpu_torch.utils.synthetic import default_sphere_height_fn
+
+    rng = np.random.default_rng(PRE_SEED + 1)
+    n = PRE_FACE
+    x = (np.arange(n) + 0.5) / n
+    uv = np.stack(np.meshgrid(x, x, indexing="xy"), axis=-1)
+    faces = []
+    for side in range(6):
+        h = default_sphere_height_fn(local_position_from_side_uv(side, uv))
+        h = h + 1e-4 * rng.standard_normal(h.shape)
+        faces.append((np.clip(np.rint(h * 65535.0), 1, 65535) / 65535.0)
+                     .astype(np.float32)[..., None])
+    return faces
+
+
+def planet_preprocess_path(card: str) -> dict:
+    """Six seeded faces preprocessed with ``preprocess_spherical`` (lods
+    0-2 of 512^2, cross-face stitched) on the card and on the host, every
+    tile held to the yardstick; then streamed at the 60 km Earth camera (K2
+    every frame)."""
+    import torch
+
+    from bevy_terrain_tpu_torch import SphericalDataset, Terrain
+    from bevy_terrain_tpu_torch.config import AttachmentConfig, TerrainConfig, TerrainViewConfig
+    from bevy_terrain_tpu_torch.ops import kernels
+    from bevy_terrain_tpu_torch.terrain_data import TileAtlas
+
+    what = "planet preprocess path"
+    model = sphere_model("sphere")
+    view, view_proj = sphere_view(model)
+    att = AttachmentConfig(name="height", texture_size=TEXTURE_SIZE, border_size=BORDER,
+                           mip_level_count=4)
+    t0 = time.perf_counter()
+    faces = planet_faces()
+    print(f"{what}: made six {PRE_FACE}^2 R16 face sources (seed {PRE_SEED + 1}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    lods = range(0, SPH_DATA_LODS)
+    dataset = SphericalDataset(attachment_index=0, paths=[str(s) for s in range(6)],
+                               lod_range=lods)
+    tiles = 6 * sum(1 << (2 * lod) for lod in lods)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pre_planet_") as tmp:
+        configs = {}
+        for path, dev_kw in (("host", dict(device=False)), ("device", dict(device=True))):
+            config = TerrainConfig(lod_count=SPH_LODS, model=model, atlas_size=SPH_ATLAS,
+                                   path="planet", attachments=(att,),
+                                   assets_root=str(Path(tmp) / path))
+            preprocess_run(f"{what} (6 x {PRE_FACE}^2 R16, lods 0-{SPH_DATA_LODS - 1})",
+                           TileAtlas(config, "cuda"),
+                           lambda p: p.clear_attachment(0).preprocess_spherical(dataset),
+                           tiles, card, loader=lambda p, cfg: faces[int(p)], **dev_kw)
+            configs[path] = config
+        hold_full_path(tile_files(Path(tmp) / "device", "planet", "height"),
+                       tile_files(Path(tmp) / "host", "planet", "height"), att.format.dtype,
+                       what)
+        terrain = Terrain(configs["device"])
+        terrain.add_view("cam", TerrainViewConfig(tile_capacity=SPH_CAPACITY),
+                         queue_capacity=2048, culling=True)
+        swhat = f"{what}, streamed"
+        out, launches, _ = stream(terrain, view, view_proj, "mesh_fused_spherical", swhat,
+                                  absent=("fetch_resample_cached",), timed=5)
+        n = out.tile_count
+        if n <= 100 or out.overflow != 0:
+            raise AssertionError(f"{swhat}: tile_count {n}, overflow {out.overflow}")
+        hmin, hmax = check_sphere_mesh(out.mesh, n, model, swhat)
+        if not hmax - hmin > 1000.0:
+            raise AssertionError(f"{swhat}: heights [{hmin}, {hmax}] carry no relief")
+        compare_spherical(out.raw_mesh, kernels.mesh_fused_spherical_reference(*out.mesh_inputs),
+                          f"{swhat}, last frame")
+        print(f"{swhat}: {n} tiles, heights [{hmin:.1f}, {hmax:.1f}] m")
+        torch.cuda.synchronize()
+    return {"mesh_fused_spherical": launches}
+
+
+def deepest_dataset(card: str) -> None:
+    """The deepest planar dataset of 512^2 tiles (border 2) whose full
+    read-back fits the card's free memory by ``planned_device_bytes`` (the
+    plan its memory check holds it to), R16 and Rgba8, the source at the
+    finest lod's resolution."""
+    import torch
+
+    from bevy_terrain_tpu_torch import PreprocessDataset, Preprocessor
+    from bevy_terrain_tpu_torch.config import AttachmentConfig, AttachmentFormat, TerrainConfig
+    from bevy_terrain_tpu_torch.terrain_data import TileAtlas
+
+    free = torch.cuda.mem_get_info()[0]
+    model, _, _, _ = bench_scene()
+    for fmt in (AttachmentFormat.R16, AttachmentFormat.RGBA8):
+        att = AttachmentConfig(name="a", texture_size=512, border_size=2, format=fmt)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as tmp:
+            pre = Preprocessor(TileAtlas(TerrainConfig(
+                lod_count=10, model=model, atlas_size=1, path="plan", attachments=(att,),
+                assets_root=tmp), "cpu"), device=False)
+        plans = []
+        for finest in range(4, 10):
+            n = (1 << finest) * att.center_size
+            plans.append((finest, pre.planned_device_bytes(
+                PreprocessDataset(lod_range=range(0, finest + 1)), (n, n, fmt.channels))))
+        fits = [f for f, need in plans if need <= free]
+        print(f"preprocess: full read-back plan, one planar {fmt.value} dataset of 512^2 tiles "
+              f"from a source at the finest lod's size: "
+              + ", ".join(f"lods 0-{f} {need / 1e9:.2f} GB" for f, need in plans)
+              + f"; {free / 1e9:.2f} GB free: the deepest that fits is lods 0-"
+              f"{max(fits) if fits else None}; {card}")
+
+
+def preprocess_path_phase() -> dict:
+    """The preprocess path (preprocess/, ops/preprocess*.py: torch ops and
+    numpy, no kernel of its own) on the card: the interchange fixture, the
+    bench geometry with its albedo, the planet; each device-made dataset
+    streamed through the mesh kernels. Returns the streams' launches."""
+    card = card_line()
+    t0 = time.perf_counter()
+    interchange_preprocess(card)
+    counts = planar_preprocess_path(card)
+    counts.update(planet_preprocess_path(card))
+    deepest_dataset(card)
+    print(f"preprocess path: {time.perf_counter() - t0:.1f} s in all; stream launches {counts}")
+    return counts
+
+
 # the rasterizer (render/raster.py: torch ops, no csrc kernel) on the
 # material frame at 1920x1080 with tools/raster_bench.py:95's knobs, and on
 # the planet at 1024^2 with 16 px bins and the first cap that drops nothing
@@ -2366,6 +2878,7 @@ def main(argv) -> int:
               **material_main_path_phase(),
               "fetch_resample": sweep_path()}
     vertex_main_path_phase()
+    preprocess_path_phase()
 
     print(json.dumps({"kernels": [
         {"name": k, "route": route, "source": src, "replaces": rep,

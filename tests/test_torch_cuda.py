@@ -862,3 +862,193 @@ def test_render_image_on_card(card_material_terrain, mode):
     assert same.mean() >= 0.999
     assert int(r.near_culled) == int(wr.near_culled) and int(r.bin_overflow) == int(wr.bin_overflow)
     np.testing.assert_allclose(img.cpu().numpy()[same], want.numpy()[same], rtol=0, atol=1e-4)
+
+
+# -- preprocess on the card ------------------------------------------------------
+
+# the JAX package's yardstick for its full device path against its host path
+# (tests/test_preprocess_device.py): at most 1 unit apart, on under 2% of texels
+PRE_MAX_UNITS, PRE_MAX_SHARE = 1, 0.02
+
+
+def _preprocess(root, spherical, atlas_device, **kw):
+    """The 68^2 fixtures of tests/test_preprocess_device.py (seeded uniform
+    sources, 2 lods), handed to the port's Preprocessor through ``loader=``
+    (no PIL on the card's machine). Returns {file name: bytes} of the tiles
+    and config.tc."""
+    from bevy_terrain_tpu_torch import (
+        AttachmentConfig, PreprocessDataset, Preprocessor, SphericalDataset, TerrainConfig,
+    )
+    from bevy_terrain_tpu_torch.terrain_data import TileAtlas
+
+    rng = np.random.default_rng(11)
+    # 16-bit sources, as load_source_image returns a 16-bit PNG
+    shape, count = ((64, 64), 6) if spherical else ((128, 128), 1)
+    sources = [(np.rint(rng.uniform(0.1, 1.0, shape) * 65535.0) / 65535.0)
+               .astype(np.float32)[..., None] for _ in range(count)]
+    model = (TerrainModel.sphere(np.zeros(3), 100.0, 0.0, 10.0) if spherical
+             else TerrainModel.planar(np.zeros(3), 1000.0, 0.0, 100.0))
+    config = TerrainConfig(
+        lod_count=2, model=model, atlas_size=64, path="t", assets_root=str(root),
+        attachments=(AttachmentConfig(name="height", texture_size=68, border_size=2,
+                                      mip_level_count=2),))
+    pp = Preprocessor(TileAtlas(config, atlas_device), loader=lambda p, cfg: sources[int(p)],
+                      **kw).clear_attachment(0)
+    if spherical:
+        pp.preprocess_spherical(SphericalDataset(attachment_index=0, lod_range=range(0, 2),
+                                                 paths=[str(i) for i in range(6)]))
+    else:
+        pp.preprocess_tile(PreprocessDataset(attachment_index=0, path="0",
+                                             lod_range=range(0, 2)))
+    pp.run(verbose=False)
+    out = {p.name: p.read_bytes() for p in sorted((root / "t/data/height").glob("*.bin"))}
+    out["config.tc"] = (root / "t/config.tc").read_bytes()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spherical", [False, True], ids=["planar", "spherical"])
+@pytest.mark.parametrize("readback", ["full", "delta"])
+def test_preprocess_device_path_on_the_card(tmp_path, spherical, readback):
+    """Full read-back within the reference's yardstick, delta byte-exact;
+    and the device path synchronizes once per lod stack, at its read-back
+    (counted by torch's sync debug mode: 2 lods, on 6 sides for a planet)."""
+    _hold_preprocess_on_the_card(tmp_path, spherical, readback)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spherical", [False, True], ids=["planar", "spherical"])
+@pytest.mark.parametrize("readback", ["full", "delta"])
+def test_preprocess_device_path_in_chunks_on_the_card(tmp_path, monkeypatch, spherical,
+                                                      readback):
+    """The same with stitch chunks of 3 tiles and downsample chunks of one
+    parent: still one sync per lod stack."""
+    from bevy_terrain_tpu_torch.preprocess import preprocessor
+
+    monkeypatch.setattr(preprocessor, "_CHUNK_BYTES", 3 * 68 * 68 * 4)
+    _hold_preprocess_on_the_card(tmp_path, spherical, readback)
+
+
+def _hold_preprocess_on_the_card(tmp_path, spherical, readback):
+    import warnings
+
+    _card()
+    host = _preprocess(tmp_path / "host", spherical, "cpu", device=False)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = _preprocess(tmp_path / readback, spherical, "cuda", device=True,
+                              readback=readback)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (the first switch to the warn mode in a process adds a notice: not counted)
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == (12 if spherical else 2), [str(w.message) for w in syncs]
+    assert set(got) == set(host) and len(host) == (6 * 5 + 1 if spherical else 5 + 1)
+    assert got.pop("config.tc") == host.pop("config.tc")
+    for name in host:
+        if readback == "delta":
+            assert got[name] == host[name], name
+            continue
+        d = np.abs(np.frombuffer(got[name], np.uint16).astype(np.int64)
+                   - np.frombuffer(host[name], np.uint16).astype(np.int64))
+        assert d.max() <= PRE_MAX_UNITS and (d != 0).mean() < PRE_MAX_SHARE, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spherical", [False, True], ids=["planar", "cross-face"])
+def test_preprocess_stack_ops_on_the_card_equal_the_cpu(spherical):
+    from bevy_terrain_tpu_torch.math.coordinate import TileCoordinate
+    from bevy_terrain_tpu_torch.ops import preprocess_device as ppd
+
+    dev = _card()
+    rng = np.random.default_rng(21)
+    ts, b = 68, 2
+    children = np.rint(rng.uniform(0, 65535, (12, ts, ts, 2))).astype(np.float32)
+    children[rng.uniform(size=children.shape) < 0.2] = 0.0
+    idx = np.array([[0, 1, 2, 3], [4, 5, 6, -1], [8, -1, 10, 11]], np.int64)
+    want = ppd.downsample_stack(torch.from_numpy(children), torch.from_numpy(idx), ts, b)
+    got = ppd.downsample_stack(torch.from_numpy(children).to(dev),
+                               torch.from_numpy(idx).to(dev), ts, b)
+    assert torch.equal(got.cpu(), want)
+
+    sides = range(6) if spherical else [0]
+    coords = [TileCoordinate(s, 1, x, y) for s in sides for x in range(2) for y in range(2)]
+    coords.pop(3)
+    index_of = {c: i for i, c in enumerate(coords)}
+    stack = torch.from_numpy(children[:1].repeat(len(coords), 0) + np.arange(
+        len(coords), dtype=np.float32)[:, None, None, None])
+    nbr_idx, nbr_side = ppd.stitch_plan(coords, index_of, spherical)
+    tile_sides = np.array([c.side for c in coords])
+    want = ppd.stitch_stack(stack, tile_sides, nbr_idx, nbr_side, b, spherical)
+    got = ppd.stitch_stack(stack.to(dev), tile_sides, nbr_idx, nbr_side, b, spherical)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(ppd.extract_borders(got, b).cpu(), ppd.extract_borders(want, b))
+
+
+@pytest.mark.cuda
+def test_preprocessor_auto_selects_the_device_path_on_the_card(tmp_path):
+    from bevy_terrain_tpu_torch import AttachmentConfig, Preprocessor, TerrainConfig
+    from bevy_terrain_tpu_torch.terrain_data import TileAtlas
+    from bevy_terrain_tpu_torch.utils import transfer
+
+    _card()
+    config = TerrainConfig(
+        lod_count=2, model=TerrainModel.planar(np.zeros(3), 1000.0, 0.0, 100.0),
+        atlas_size=8, path="t", assets_root=str(tmp_path),
+        attachments=(AttachmentConfig(name="height", texture_size=68, border_size=2),))
+    pp = Preprocessor(TileAtlas(config, "cuda"))
+    assert pp.device is True and pp.readback == "full"
+    assert transfer.d2h_seconds("cuda") < transfer._THRESHOLD_S
+    assert transfer.dispatch_seconds("cuda") < transfer._DISPATCH_THRESHOLD_S
+
+
+@pytest.mark.cuda
+def test_uint16_read_back_keeps_the_top_value():
+    from bevy_terrain_tpu_torch.ops import preprocess_device as ppd
+
+    dev = _card()
+    values = [0.0, 1.0, 255.0, 32767.0, 32768.0, 65534.0, 65535.0]
+    x = torch.tensor(values, device=dev).reshape(1, 7, 1, 1).expand(2, 7, 3, 1)
+    got = ppd.read_stored(ppd.to_stored(x, np.uint16), np.uint16)
+    assert got.dtype == np.uint16
+    np.testing.assert_array_equal(got[1, :, 2, 0], np.array(values, np.uint16))
+    assert int(got.max()) == 65535
+    # a stack held at the stored width reads back as the same f32
+    assert torch.equal(ppd.from_stored(ppd.to_stored(x, np.uint16)), x)
+
+
+@pytest.mark.cuda
+def test_preprocess_memory_check_reads_the_card():
+    from bevy_terrain_tpu_torch.preprocess import preprocessor
+
+    dev = _card()
+    free = preprocessor._free_device_bytes(dev)
+    assert 0 < free <= torch.cuda.get_device_properties(dev).total_memory
+
+
+@pytest.mark.cuda
+def test_split_mosaic_device_branch_on_the_card():
+    """``split_mosaic(use_device=True)``: the dense tent products on the
+    card in full f32 (TF32 off for the call whatever the caller set) agree
+    with the same products on the CPU and with the host 2-tap split to a
+    few f32 ulps."""
+    from bevy_terrain_tpu_torch.ops import preprocess as pp
+
+    _card()
+    rng = np.random.default_rng(31)
+    src = (np.rint(rng.uniform(0.05, 1.0, (300, 260, 2)) * 65535.0) / 65535.0).astype(np.float32)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got, valid = pp.split_mosaic(src, 2, 60, (0.05, 0.0), (0.9, 1.0), row_band=100,
+                                     use_device=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    cpu, cvalid = pp.split_mosaic(src, 2, 60, (0.05, 0.0), (0.9, 1.0), row_band=100,
+                                  use_device="cpu")
+    host, _ = pp.split_mosaic(src, 2, 60, (0.05, 0.0), (0.9, 1.0), row_band=100)
+    np.testing.assert_array_equal(valid, cvalid)
+    np.testing.assert_allclose(got, cpu, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, host, rtol=0, atol=1e-6)
