@@ -23,7 +23,10 @@ same-frame overflow guard; the rasterizer (``render/raster.py``: binning,
 edge functions, depth race and per-pixel shading in torch ops) and
 ``Terrain.render_image``; preprocessing (``Preprocessor``: source imagery to
 a tile dataset, on the host or as torch ops over whole-lod stacks on the
-atlas's device). Every TPU kernel of the JAX package has its CUDA
+atlas's device); the presets (``models``) and the timing helpers
+(``utils/timing.py``); the twin of ``__graft_entry__.entry`` (``entry.py``). The
+examples and the frame bench tools are in examples_torch/ and tools_torch/
+at the repo's root. Every TPU kernel of the JAX package has its CUDA
 counterpart in ``ops/kernels.py``.
 """
 
@@ -52,6 +55,7 @@ from bevy_terrain_tpu_torch.render.material import (
 from bevy_terrain_tpu_torch.render.pipeline import Terrain, TerrainFrameOutput
 from bevy_terrain_tpu_torch.render.raster import RasterOutput, rasterize_grid, render_view
 from bevy_terrain_tpu_torch.terrain_data import TileAtlas, TileTree
+from bevy_terrain_tpu_torch.terrain_data.sampling_api import sample_attachment, sample_height
 
 __all__ = [
     "AttachmentConfig",
@@ -79,4 +83,6 @@ __all__ = [
     "gradient_material",
     "rasterize_grid",
     "render_view",
+    "sample_attachment",
+    "sample_height",
 ]

@@ -20,9 +20,9 @@ artifacts:
   stitch on the device, and only the border strips read back.
 
 The device's working set is bounded: downsample and stitch run over a lod
-in chunks of at most ``_CHUNK_BYTES`` of f32 tiles, and the full read-back
-checks its planned peak against the device's free memory before it splits
-a dataset.
+in chunks of at most ``batch_tiles`` tiles and ``_CHUNK_BYTES`` of f32
+tiles, and the full read-back checks its planned peak against the device's
+free memory before it splits a dataset.
 
 Results enter the atlas's normal save path (bounded save slots, async
 writes, tile_atlas.rs:318-345 semantics).
@@ -34,7 +34,6 @@ import dataclasses
 import shutil
 import sys
 import time
-import warnings
 from pathlib import Path
 from typing import Optional
 
@@ -51,7 +50,6 @@ from bevy_terrain_tpu_torch.ops.preprocess import (
     stitch_tile,
 )
 from bevy_terrain_tpu_torch.terrain_data.tile_atlas import AtlasTileAttachment, TileAtlas
-from bevy_terrain_tpu_torch.utils import transfer
 
 # Downsample and stitch work through a lod's stack in chunks of at most this
 # many bytes of f32 tiles (at least one tile), so beside the job's stacks at
@@ -61,10 +59,10 @@ _CHUNK_BYTES = 64 << 20
 # (gathered children, their quadrants and masks, the sums; the stitched
 # clone), and of a row band of the split
 _CHUNK_COPIES, _BAND_COPIES = 8, 6
-
-
-def _chunk_tiles(cfg) -> int:
-    return max(1, _CHUNK_BYTES // (cfg.texture_size ** 2 * cfg.format.channels * 4))
+# f32 copies of a stitch chunk's halo (the gathered neighbours outside the
+# chunk, and their conversion from the stored width); a chunk of k tiles in
+# column order has at most 2k + 6 of them
+_HALO_COPIES = 2
 
 
 def _free_device_bytes(device) -> Optional[int]:
@@ -131,57 +129,49 @@ class Preprocessor:
     """
 
     def __init__(self, tile_atlas: TileAtlas, loader=None,
-                 device: Optional[bool] = None, naive: bool = False,
-                 readback: Optional[str] = None):
+                 device: Optional[bool] = None, batch_tiles: int = 256,
+                 naive: bool = False, readback: Optional[str] = None):
         """``device=True`` runs split/downsample/stitch as torch ops over
         whole-lod stacks on ``tile_atlas.device``
         (ops/preprocess_device.py); ``device=False`` keeps the per-tile host
-        numpy oracles. Default (None) auto-selects: the device path when the
-        atlas is on a CUDA device and both transfer probes pass
-        (utils/transfer: the stitched stacks stream home, and the path
-        syncs once per lod stack); a CUDA atlas whose probes fail takes the
-        host path with a warning. On a CPU atlas the stack ops ARE host
-        compute, so the host path runs; ``device=True`` there is for parity
-        tests.
+        numpy oracles. Default (None) decides by the atlas's device type: the
+        device path on a CUDA atlas, the host path on a CPU atlas (there the
+        stack ops ARE host compute; ``device=True`` on a CPU atlas is for
+        parity tests).
 
         ``loader(path, attachment_config)`` returns the source as (H, W, C)
         float32 in [0, 1], 0 = nodata; the default reads an image file with
         PIL (formats/tiff.py).
+
+        ``batch_tiles`` bounds the device stacks at deep lods: downsample and
+        stitch work through a lod in chunks of at most this many tiles, and
+        of at most ``_CHUNK_BYTES`` of f32 tiles, whichever is fewer. The
+        bytes written do not depend on it.
 
         ``naive=True`` pins the single-thread numpy CPU-reference oracle's
         split (dense tent matmuls; every host downsample here is numpy, the
         JAX package's oracle). Output stays byte-identical to the host path.
 
         ``readback`` (device path only) selects how stitched tiles return
-        to the host: ``"full"`` reads whole stitched stacks back (right when
-        device-to-host copies run at bus speed); ``"delta"`` keeps
-        split/downsample interiors host-side (bit-identical to the device
-        ops) and reads back ONLY the stitched border strips (~1.5% of the
-        bytes — stitch never writes interiors, stitch.wgsl:58-67). Default
-        auto-selects by the read-back probe. The full read-back holds every
-        lod of a dataset on the device (a cube's six sides together) and
-        raises MemoryError before the split when that would not fit;
-        ``"delta"`` holds one chunk of one lod at a time."""
-        dev = tile_atlas.device
+        to the host: ``"full"`` (the default) reads whole stitched stacks
+        back; ``"delta"`` keeps split/downsample interiors host-side
+        (bit-identical to the device ops) and reads back ONLY the stitched
+        border strips (~1.5% of the bytes — stitch never writes interiors,
+        stitch.wgsl:58-67). The full read-back holds every lod of a dataset
+        on the device (a cube's six sides together) and raises MemoryError
+        before the split when that would not fit; ``"delta"`` holds one
+        chunk of one lod at a time."""
+        if batch_tiles < 1:
+            raise ValueError(f"batch_tiles must be at least 1, got {batch_tiles}")
         if naive:
             device = False
         if device is None:
-            device = (
-                dev.type == "cuda"
-                and transfer.d2h_is_fast(dev)
-                and transfer.dispatch_is_fast(dev)
-            )
-            if dev.type == "cuda" and not device:
-                warnings.warn(
-                    f"Preprocessor: the transfer probes of {dev} failed "
-                    "(utils/transfer); preprocessing on the host",
-                    RuntimeWarning, stacklevel=2)
-        if readback is None and device:
-            readback = "full" if transfer.d2h_is_fast(dev) else "delta"
+            device = tile_atlas.device.type == "cuda"
         self.readback = readback or "full"
         self.atlas = tile_atlas
         self.loader = loader or _default_loader
         self.device = device
+        self.batch_tiles = batch_tiles
         self.naive = naive
         self._jobs: list = []
         self._dev_stacks: dict = {}
@@ -313,12 +303,19 @@ class Preprocessor:
         for key in [k for k in self._dev_stacks if k[0] == attachment_index and k[2] == lod]:
             del self._dev_stacks[key]
 
+    def _chunk_tiles(self, cfg) -> int:
+        """Tiles in one downsample or stitch chunk: at most ``batch_tiles``
+        and ``_CHUNK_BYTES`` of f32 tiles, and at least one."""
+        tile_bytes = cfg.texture_size ** 2 * cfg.format.channels * 4
+        return max(1, min(self.batch_tiles, _CHUNK_BYTES // tile_bytes))
+
     def planned_device_bytes(self, dataset: PreprocessDataset, source_shape) -> int:
         """About the most device memory the full read-back adds while it
         preprocesses ``dataset`` from a source of ``source_shape`` (H, W, C):
         its lod stacks at the stored width, the finest lod's stitched copy,
         the f32 source with its validity masks, and the f32 working set of
-        a chunk and of a row band."""
+        a chunk (with a stitch chunk's halo of neighbours) and of a row
+        band."""
         cfg = self._attachment(dataset).config
         tile = cfg.texture_size ** 2 * cfg.format.channels
         item = cfg.format.dtype.itemsize
@@ -326,8 +323,9 @@ class Preprocessor:
         H, W, C = source_shape
         P = (1 << max(dataset.lod_range)) * cfg.center_size
         band = cfg.center_size * max(W, P) * C * 4
+        chunk = min(self._chunk_tiles(cfg), max(counts))
         return ((sum(counts) + max(counts)) * tile * item + H * W * (C * 4 + 1) + H * P
-                + _CHUNK_COPIES * min(_CHUNK_BYTES, max(counts) * tile * 4)
+                + (_CHUNK_COPIES * chunk + _HALO_COPIES * (2 * chunk + 6)) * tile * 4
                 + _BAND_COPIES * band)
 
     def _split_device(self, dataset: PreprocessDataset):
@@ -423,7 +421,7 @@ class Preprocessor:
         dev = child_stack.device
         out = torch.empty((len(coords),) + tuple(child_stack.shape[1:]),
                           dtype=child_stack.dtype, device=dev)
-        step = max(1, _chunk_tiles(cfg) // 4)  # four children a parent
+        step = max(1, self._chunk_tiles(cfg) // 4)  # four children a parent
         for s in range(0, len(coords), step):
             block = idx[s:s + step]
             rows = np.unique(block[block >= 0])  # every parent has a child
@@ -436,13 +434,13 @@ class Preprocessor:
         return coords, out
 
     def _stitch_chunks(self, dataset: PreprocessDataset, coords, handle, gather):
-        """Stitch one lod's ``coords`` in chunks of at most ``_CHUNK_BYTES``
-        of f32 tiles. ``handle(c)`` names the pre-stitch tile at ``c`` (None
+        """Stitch one lod's ``coords`` in chunks of :meth:`_chunk_tiles`
+        tiles. ``handle(c)`` names the pre-stitch tile at ``c`` (None
         where there is none); ``gather(handles)`` makes the (n, ts, ts, C)
         f32 device stack of them. Yields (first row, stitched f32 chunk)."""
         cfg = self._attachment(dataset).config
         spherical = self.atlas.model.is_spherical
-        step = _chunk_tiles(cfg)
+        step = self._chunk_tiles(cfg)
         for s in range(0, len(coords), step):
             chunk = coords[s:s + step]
             index_of = {c: i for i, c in enumerate(chunk)}

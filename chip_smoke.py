@@ -105,7 +105,23 @@
    preprocessed albedo (K4 every frame), the planet at 60 km (K2 every
    frame). One ``preprocess:`` line per run: tiles/s, per-phase ms (CUDA
    events on the card's phases, the host clock for the rest), H2D and D2H
-   bytes, device memory peak, the card's name and power limit.
+   bytes, device memory peak, the card's name and power limit. The
+   interchange fixture also runs with ``batch_tiles=3`` (3-tile chunks: the
+   default's bytes), and ``device=None`` must decide by the device type
+   alone (no transfer probe consulted).
+11. Entry points path (``entry_points_path``), after the preprocess path:
+   each example twin (examples_torch/: preprocess_planar, minimal, planar,
+   preprocess_spherical, spherical, render_capture, in one assets directory)
+   and each frame tool twin (tools_torch/: refine_bench, earth_frame_bench,
+   flythrough_bench with ``--device-time``, material_frame_bench,
+   raster_bench) called in-process through its ``main(argv)`` at the JAX
+   defaults, then ``bevy_terrain_tpu_torch.entry.entry()``; the launch
+   counts set to 0 before each call and read after it against the kernels
+   the call must launch and those it must not (``ENTRY_POINTS``; entry()
+   and the preprocess and refinement twins none), the preprocess twins on
+   the device path, the flythrough with no overflow frame and its tiles
+   loaded. One ``entry:`` line per call: wall seconds, launches, the
+   call's own numbers.
 
 Every kernel call of phases 2-5 prints the sha256 of its inputs and of its
 output (``digest:`` lines): two trees built in one call are compared by
@@ -131,6 +147,11 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+from bevy_terrain_tpu_torch.utils.timing import cold_ms, cuda_ms, device_events, device_ms
+from tools_torch.scenes import (  # the bench.py frame, as the frame tools build it
+    BORDER, LOD_COUNT, SIDE, TEXTURE_SIZE, bench_frame, bench_scene,
+)
 
 ROOT = Path(__file__).resolve().parent
 
@@ -201,8 +222,6 @@ TOL_QUERY = {"planar": (1e-3, 1e-2), "planet": (5e-2, 1e-1)}
 TOL_QUERY_COLOR = (1e-5, 2.0 / 255.0)
 QUERY_POINTS = 65536  # what one physics or placement tick asks
 
-TEXTURE_SIZE, BORDER, LOD_COUNT, SIDE = 512, 2, 5, 8000.0
-VIEW = (SIDE * 0.03, 120.0, -SIDE * 0.02)
 
 # the Earth scene (tools/earth_frame_bench.py, tools/make_goldens.py::mesh_spherical_case)
 RADIUS, SPH_LODS, SPH_DATA_LODS, SPH_ATLAS, SPH_CAPACITY = 6.371e6, 13, 3, 512, 2048
@@ -257,63 +276,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, n: int = 30, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` over ``n`` runs (ms)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
-def device_ms(fn, n: int = 20) -> float:
-    """Device time of ``fn`` (ms per call): ``n`` calls queued behind a
-    ~100 ms sleep kernel, so the host's launch overhead is hidden and the
-    CUDA events time the device running them back to back."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
-def cold_ms(fn, n: int = 20) -> float:
-    """Median time of ``fn`` with the 50 MB L2 flushed before each call (a
-    256 MB write between launches)."""
-    import torch
-
-    scrub = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    pairs = []
-    for _ in range(n):
-        scrub.fill_(1.0)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -400,52 +362,6 @@ def compare_spherical(got, want, what: str) -> float:
     if over:
         raise AssertionError(f"{what}: kernel disagrees with the plain version on {over}")
     return max(errs["heights"], errs["positions"])
-
-
-def bench_scene():
-    """The bench.py frame: model, view config, camera, uniforms blob inputs."""
-    import numpy as np
-
-    from bevy_terrain_tpu_torch.config import TerrainViewConfig
-    from bevy_terrain_tpu_torch.math import TerrainModel, frustum
-
-    model = TerrainModel.planar(np.zeros(3), SIDE, 0.0, 250.0)
-    vc = TerrainViewConfig(tile_capacity=4096)
-    view = np.array(VIEW)
-    view_proj = frustum.view_projection(
-        view, view + np.array([1000.0, -40.0, 300.0]), np.pi / 3, 16 / 9)
-    return model, vc, view, view_proj
-
-
-def bench_frame():
-    """The bench.py frame's static config, packed uniforms and patch plan,
-    with the generator (``default_rng(0)``) that drew its atlas entries, for
-    the random height blocks."""
-    import numpy as np
-
-    from bevy_terrain_tpu_torch.math import TerrainModelApproximation
-    from bevy_terrain_tpu_torch.ops import patch_sampling, tile_tree
-    from bevy_terrain_tpu_torch.ops.params import StaticTerrainConfig, pack_frame_uniforms
-
-    model, vc, view, view_proj = bench_scene()
-    cfg = StaticTerrainConfig(
-        spherical=False, side_count=1, lod_count=LOD_COUNT, tree_size=vc.tree_size,
-        grid_size=vc.grid_size, refinement_count=vc.refinement_count,
-        queue_capacity=1024, tile_capacity=vc.tile_capacity, origin_lod=vc.origin_lod,
-        culling=True,
-    )
-    origins, vt_int, vt_frac = tile_tree.compute_view_anchors(model, view, LOD_COUNT,
-                                                              vc.tree_size)
-    approx = TerrainModelApproximation.compute(model, view, vc.origin_lod, 125.0)
-    # fully streamed state: every slot points at a loaded atlas tile
-    rng = np.random.default_rng(0)
-    entries = np.zeros((1, LOD_COUNT, vc.tree_size, vc.tree_size, 2), np.int32)
-    entries[..., 0] = rng.integers(0, 1024, entries.shape[:-1])
-    entries[..., 1] = np.arange(LOD_COUNT)[None, :, None, None]
-    blob = pack_frame_uniforms(model, view, approx, origins, entries, vt_int, vt_frac, vc,
-                               view_proj=view_proj)
-    plan = patch_sampling.make_patch_plan(TEXTURE_SIZE, 4, BORDER)
-    return cfg, vc, blob, plan, rng
 
 
 def kernel_phase(results: dict) -> None:
@@ -2179,8 +2095,10 @@ def interchange_preprocess(card: str) -> None:
     prefix = f"assets/{PATH}/"
     what = "interchange fixture"
     files = {}
+    transfer._reset_probe()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_kit_") as tmp:
         for path, kw in (("host", dict(device=False)), ("full", {}),
+                         ("full, 3-tile chunks", dict(batch_tiles=3)),
                          ("delta", dict(device=True, readback="delta"))):
             root = Path(tmp) / path
             config = TerrainConfig(
@@ -2192,21 +2110,28 @@ def interchange_preprocess(card: str) -> None:
                 border_size=KIT["border_size"], mip_level_count=KIT["mip_count"],
                 format=AttachmentFormat.R16))
             _, pre = preprocess_run(
-                f"{what} ({source.shape[0]}^2 R16 source, lods 0-{KIT_LODS - 1})",
+                f"{what} ({source.shape[0]}^2 R16 source, lods 0-{KIT_LODS - 1}"
+                + (", batch_tiles=3)" if "batch_tiles" in kw else ")"),
                 TileAtlas(config, "cuda"),
                 lambda p: p.clear_attachment(0).preprocess_tile(PreprocessDataset(
                     attachment_index=0, path="height.png", lod_range=range(0, KIT_LODS))),
                 21, card, loader=lambda p, cfg: source, **kw)
             if path == "full":
+                # the device type decides: no transfer probe ran
+                probed = sorted(transfer._D2H_S) + sorted(transfer._DISPATCH_S)
                 print(f"{what}: Preprocessor(TileAtlas(config, 'cuda')) selected device="
-                      f"{pre.device}, readback {pre.readback!r}; probes: 1 MB read-back "
+                      f"{pre.device}, readback {pre.readback!r}, probes consulted "
+                      f"{probed or 'none'}; then measured: 1 MB read-back "
                       f"{transfer.d2h_seconds('cuda') * 1e3:.3f} ms (limit "
                       f"{transfer._THRESHOLD_S * 1e3:.0f}), launch + sync "
                       f"{transfer.dispatch_seconds('cuda') * 1e3:.3f} ms (limit "
                       f"{transfer._DISPATCH_THRESHOLD_S * 1e3:.0f}); {card}")
-                if pre.device is not True or pre.readback != "full":
+                if pre.device is not True or pre.readback != "full" or probed:
                     raise AssertionError("the Preprocessor on the card did not select the "
-                                         "device path with the full read-back")
+                                         "device path with the full read-back by the "
+                                         "device type alone")
+            if kw.get("batch_tiles") and pre.batch_tiles != 3:
+                raise AssertionError(f"{what}: batch_tiles {pre.batch_tiles}, not 3")
             out = {"config.tc": (root / PATH / "config.tc").read_bytes()}
             for name, data in tile_files(root, PATH, "height").items():
                 out[f"data/height/{name}"] = data
@@ -2219,6 +2144,9 @@ def interchange_preprocess(card: str) -> None:
               f"reproduced")
         if bad or set(got) != set(want):
             raise AssertionError(f"{what} [{path}]: hashes differ for {bad}")
+    if files["full, 3-tile chunks"] != files["full"]:
+        raise AssertionError(f"{what}: batch_tiles=3 wrote other bytes than the default")
+    print(f"{what}: batch_tiles=3 (3-tile stitch chunks) wrote the default's bytes")
     if files["full"].pop("config.tc") != files["host"].pop("config.tc"):
         raise AssertionError(f"{what}: the full device path's config.tc differs")
     hold_full_path(files["full"], files["host"], np.uint16, what)
@@ -2487,6 +2415,144 @@ def preprocess_path_phase() -> dict:
     return counts
 
 
+# -- entry points: the example and tool twins, and the entry() twin --------
+
+# the kernels each entry point must launch (in the count of its run), and
+# those it must not; the albedo of examples_torch/planar.py and
+# render_capture.py has border 1 (models.albedo_attachment, as in the JAX
+# examples), so its patch plan is not the height's and its material is
+# staged: K1, the staged sampler and the shade, no K4 and no sampler kernel
+_MATERIAL_KERNELS = ("mesh_fused_albedo", "mesh_fused_shaded", "mesh_fused_spherical_albedo",
+                     "attach_sample_fused", "attach_sample_fused_packed")
+ENTRY_POINTS = {
+    # name: (module, argv, kernels required, kernels absent)
+    "examples preprocess_planar": ("examples_torch.preprocess_planar", [], (), "all"),
+    "examples minimal": ("examples_torch.minimal", [], ("mesh_fused_planar",), _MATERIAL_KERNELS),
+    "examples planar": ("examples_torch.planar", [], ("mesh_fused_planar",), _MATERIAL_KERNELS),
+    "examples preprocess_spherical": ("examples_torch.preprocess_spherical", [], (), "all"),
+    "examples spherical": ("examples_torch.spherical", [], ("mesh_fused_spherical",),
+                           _MATERIAL_KERNELS),
+    "examples render_capture": ("examples_torch.render_capture", [], ("mesh_fused_planar",),
+                                _MATERIAL_KERNELS),
+    "tools refine_bench": ("tools_torch.refine_bench", [], (), "all"),
+    "tools earth_frame_bench": ("tools_torch.earth_frame_bench", [], ("mesh_fused_spherical",),
+                                _MATERIAL_KERNELS),
+    "tools flythrough_bench": ("tools_torch.flythrough_bench", ["--device-time"],
+                               ("mesh_fused_planar",), _MATERIAL_KERNELS),
+    "tools material_frame_bench": ("tools_torch.material_frame_bench", [],
+                                   ("mesh_fused_planar", "mesh_fused_albedo", "mesh_fused_shaded",
+                                    "attach_sample_fused", "attach_sample_fused_packed"),
+                                   ("mesh_fused_spherical", "mesh_fused_spherical_albedo")),
+    "tools raster_bench": ("tools_torch.raster_bench", [], ("mesh_fused_planar",),
+                           _MATERIAL_KERNELS),
+}
+
+
+def _summary(result: dict) -> str:
+    """The numbers of an entry point's returned dict, short."""
+    import numpy as np
+
+    def short(v):
+        if isinstance(v, float):
+            return f"{v:.4g}"
+        if isinstance(v, (list, tuple, np.ndarray)) and len(v) > 8:
+            v = np.asarray(v)
+            return f"[{len(v)}: {v.min():.4g}..{v.max():.4g}]"
+        if isinstance(v, dict):
+            return "{" + ", ".join(f"{k}: {short(x)}" for k, x in v.items()) + "}"
+        if isinstance(v, np.ndarray):
+            return np.array2string(v, precision=4)
+        if isinstance(v, list) and v and isinstance(v[0], Path):
+            return "[" + ", ".join(p.name for p in v) + "]"
+        return str(v)
+
+    return ", ".join(f"{k} {short(v)}" for k, v in result.items())
+
+
+def entry_point(what: str, call, need=(), absent=()):
+    """Run ``call()`` on the card with the launch counts set to 0 just
+    before and read just after: each kernel in ``need`` must have launched,
+    none in ``absent`` ("all": no kernel at all). Prints one ``entry:`` line
+    (wall seconds, launches, the call's own numbers); returns (result,
+    counts)."""
+    import torch
+
+    reset_counts()
+    t0 = time.perf_counter()
+    result = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"entry: {what}: {wall:.1f} s wall; launches {launched or 'none'}; "
+          f"{_summary(result) if isinstance(result, dict) else result}")
+    if absent == "all":
+        absent = tuple(counts)
+    missing = [k for k in need if not counts[k]]
+    extra = [k for k in absent if counts[k]]
+    if missing or extra:
+        raise AssertionError(f"{what}: kernels {missing} did not launch, {extra} must not")
+    return result, counts
+
+
+def entry_points_path() -> None:
+    """The ports of the repo's examples and frame bench tools, each
+    ``main(argv)`` called in-process on the card at the JAX defaults (the
+    examples in one assets directory, as a user runs them in turn), and the
+    ``entry()`` twin: launches counted around each call."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from bevy_terrain_tpu_torch.entry import entry
+
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as tmp:
+        for what, (module, argv, need, absent) in ENTRY_POINTS.items():
+            if module.startswith("examples_torch."):
+                argv = argv + ["--assets", f"{tmp}/assets"]
+                if module.endswith("render_capture"):
+                    argv += ["--out", f"{tmp}/captures"]
+            main = importlib.import_module(module).main
+            result, counts = entry_point(what, lambda: main(argv), need, absent)
+            if "preprocess" in module and not (result["device_path"]
+                                               and result["readback"] == "full"):
+                raise AssertionError(f"{what}: the Preprocessor took the host path")
+            if module.endswith("minimal") and counts["mesh_fused_planar"] != len(
+                    result["tiles"]):
+                raise AssertionError(f"{what}: {counts['mesh_fused_planar']} mesh kernel "
+                                     f"launches in {len(result['tiles'])} frames")
+            if module.endswith(".spherical") and counts["mesh_fused_spherical"] != len(
+                    result["tiles"]):
+                raise AssertionError(f"{what}: {counts['mesh_fused_spherical']} mesh kernel "
+                                     f"launches in {len(result['tiles'])} frames")
+            if module.endswith("flythrough_bench"):
+                if result["overflow_frames"] != 0 or result["tiles_loaded"] <= 0:
+                    raise AssertionError(f"{what}: overflow frames "
+                                         f"{result['overflow_frames']}, tiles loaded "
+                                         f"{result['tiles_loaded']}")
+                if result["backend"] != torch.cuda.get_device_name(0):
+                    raise AssertionError(f"{what}: backend {result['backend']}")
+            if module.endswith("render_capture"):
+                for path in result["images"]:
+                    img = (np.load(path) if path.suffix == ".npy" else None)
+                    if img is not None and img.shape != (512, 512, 4):
+                        raise AssertionError(f"{what}: image {path} is {img.shape}")
+
+        def run_entry():
+            fn, args = entry()
+            positions, heights, count = fn(*args)
+            if not (positions.is_cuda and positions.dim() == 3 and positions.shape[-1] == 3
+                    and heights.shape == positions.shape[:2] and int(count) > 0
+                    and bool(torch.isfinite(positions).all())):
+                raise AssertionError("entry(): the frame is not finite (F, V, 3) on the card")
+            return {"positions": tuple(positions.shape), "tile_count": int(count)}
+
+        entry_point("bevy_terrain_tpu_torch.entry.entry()", run_entry, (), "all")
+    print(f"entry points path: {time.perf_counter() - t_all:.1f} s in all; {card_line()}")
+
+
 # the rasterizer (render/raster.py: torch ops, no csrc kernel) on the
 # material frame at 1920x1080 with tools/raster_bench.py:95's knobs, and on
 # the planet at 1024^2 with 16 px bins and the first cap that drops nothing
@@ -2743,17 +2809,6 @@ def planet_raster_path(terrain, view, stream_proj, card) -> None:
     print(f"raster: planet: the raster path took {time.perf_counter() - t0:.1f} s")
 
 
-def device_events(prof):
-    """The profiler's per-name averages of the kernels on the card. An aten
-    op's entry carries its kernels' device time too, so a sum over every
-    entry counts each kernel twice; the record_function ranges of
-    rasterize_grid (``raster::``) are spans, not kernels."""
-    from torch.autograd import DeviceType
-
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0 and not e.key.startswith("raster::")]
-
-
 def profile_stage(device_stage, what: str) -> None:
     """Kernel time by name over 10 device stages (torch.profiler)."""
     import torch
@@ -2879,6 +2934,7 @@ def main(argv) -> int:
               "fetch_resample": sweep_path()}
     vertex_main_path_phase()
     preprocess_path_phase()
+    entry_points_path()
 
     print(json.dumps({"kernels": [
         {"name": k, "route": route, "source": src, "replaces": rep,

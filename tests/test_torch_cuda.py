@@ -929,6 +929,19 @@ def test_preprocess_device_path_in_chunks_on_the_card(tmp_path, monkeypatch, sph
     _hold_preprocess_on_the_card(tmp_path, spherical, readback)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("readback", ["full", "delta"])
+def test_preprocess_batch_tiles_on_the_card(tmp_path, readback):
+    """``batch_tiles`` (the JAX package's fourth argument) bounds the device
+    chunks in tiles and changes no byte: 3-tile chunks write the default's
+    files, on a planet's cross-face stitch too."""
+    _card()
+    want = _preprocess(tmp_path / "default", True, "cuda", device=True, readback=readback)
+    got = _preprocess(tmp_path / "three", True, "cuda", device=True, batch_tiles=3,
+                      readback=readback)
+    assert got == want
+
+
 def _hold_preprocess_on_the_card(tmp_path, spherical, readback):
     import warnings
 
@@ -998,8 +1011,11 @@ def test_preprocessor_auto_selects_the_device_path_on_the_card(tmp_path):
         lod_count=2, model=TerrainModel.planar(np.zeros(3), 1000.0, 0.0, 100.0),
         atlas_size=8, path="t", assets_root=str(tmp_path),
         attachments=(AttachmentConfig(name="height", texture_size=68, border_size=2),))
+    transfer._reset_probe()
     pp = Preprocessor(TileAtlas(config, "cuda"))
     assert pp.device is True and pp.readback == "full"
+    # decided by the device type: no probe ran
+    assert not transfer._D2H_S and not transfer._DISPATCH_S
     assert transfer.d2h_seconds("cuda") < transfer._THRESHOLD_S
     assert transfer.dispatch_seconds("cuda") < transfer._DISPATCH_THRESHOLD_S
 

@@ -14,8 +14,10 @@ with its own atlas (the port's on the CPU):
   in chunks of a few tiles, frees each lod's stacks once it is stitched,
   holds them at the stored width, and raises MemoryError before the split
   when its plan does not fit the device;
-* ``device=None`` selects the device path only on a CUDA atlas whose two
-  transfer probes pass, and warns when a CUDA atlas falls back to the host;
+* ``device=None`` selects the device path with the full read-back on a
+  CUDA atlas, by the device type alone (no transfer probe), and the host
+  path on a CPU atlas; ``batch_tiles`` bounds the device chunks in tiles
+  without changing a byte;
 * the Rust-interchange fixture (the port's copy of tools/rust_interchange.py's
   source and settings) reproduces its committed sha256 for ``config.tc`` and
   all 21 tiles;
@@ -221,31 +223,30 @@ def test_full_read_back_raises_when_its_plan_does_not_fit(tmp_path, monkeypatch)
 
 
 def _fake_cuda_atlas(tmp_path):
-    """A CPU atlas that reports a CUDA device, so the probe matrix is what is
-    under test (as tests/test_preprocess_device.py pretends a TPU backend)."""
+    """A CPU atlas that reports a CUDA device, so the selection by device
+    type is what is under test (as tests/test_preprocess_device.py pretends
+    a TPU backend)."""
     atlas = TileAtlas(_config(bt, tmp_path, False), "cpu")
     atlas.device = torch.device("cuda")
     return atlas
 
 
 @pytest.mark.parametrize(
-    "d2h,dispatch,expect",
+    "d2h,dispatch,probes_pass",
     [(True, True, True), (True, False, False), (False, True, False), (False, False, False)],
 )
-def test_auto_select_requires_both_probes(tmp_path, monkeypatch, d2h, dispatch, expect):
+def test_auto_select_requires_both_probes(tmp_path, monkeypatch, d2h, dispatch, probes_pass):
+    """A CUDA atlas takes the device path with the full read-back whatever
+    the transfer probes would say: none is consulted, nothing warns."""
+    assert probes_pass == (d2h and dispatch)
     probed = []
     monkeypatch.setattr(transfer, "d2h_is_fast", lambda dev: probed.append(dev) or d2h)
     monkeypatch.setattr(transfer, "dispatch_is_fast", lambda dev: probed.append(dev) or dispatch)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         pp = pre.Preprocessor(_fake_cuda_atlas(tmp_path))
-    assert pp.device is expect
-    # a CUDA atlas that falls back to the host path says so
-    assert len([w for w in caught if "preprocessing on the host" in str(w.message)]) \
-        == (0 if expect else 1)
-    assert all(dev == torch.device("cuda") for dev in probed) and probed
-    if expect:
-        assert pp.readback == "full"  # a fast read-back reads whole stacks
+    assert pp.device is True and pp.readback == "full"
+    assert not probed and not caught
 
 
 def test_auto_select_picks_host_on_a_cpu_atlas(tmp_path, monkeypatch):
@@ -253,10 +254,66 @@ def test_auto_select_picks_host_on_a_cpu_atlas(tmp_path, monkeypatch):
     monkeypatch.setattr(transfer, "dispatch_is_fast", lambda dev: True)
     pp = pre.Preprocessor(TileAtlas(_config(bt, tmp_path, False), "cpu"))
     assert pp.device is False
-    # explicit device=True on a slow read-back link: only the strips come back
+    # explicit device=True reads whole stacks back unless asked for the strips,
+    # on a slow read-back link too: no probe decides
     monkeypatch.setattr(transfer, "d2h_is_fast", lambda dev: False)
     pp = pre.Preprocessor(_fake_cuda_atlas(tmp_path / "fake"), device=True)
-    assert pp.readback == "delta"
+    assert pp.readback == "full"
+    assert pre.Preprocessor(_fake_cuda_atlas(tmp_path / "delta"), device=True,
+                            readback="delta").readback == "delta"
+
+
+def _chunks_of(monkeypatch):
+    """Record the tiles of every device stitch chunk and the parents of
+    every downsample chunk."""
+    sizes = {"stitch": [], "downsample": []}
+    stitch, downsample = pre.ppd.stitch_stack, pre.ppd.downsample_stack
+
+    def stitch_stack(stack, tile_sides, *a, **k):
+        sizes["stitch"].append(len(tile_sides))
+        return stitch(stack, tile_sides, *a, **k)
+
+    def downsample_stack(children, local, *a, **k):
+        sizes["downsample"].append(len(local))
+        return downsample(children, local, *a, **k)
+
+    monkeypatch.setattr(pre.ppd, "stitch_stack", stitch_stack)
+    monkeypatch.setattr(pre.ppd, "downsample_stack", downsample_stack)
+    return sizes
+
+
+@pytest.mark.parametrize("readback", ["full", "delta"])
+def test_batch_tiles_bounds_the_device_chunks(tmp_path, monkeypatch, readback):
+    """``batch_tiles`` keeps the JAX package's place (the fourth argument,
+    not ``naive``), bounds the device chunks in tiles, and changes no
+    byte; values below 1 are refused."""
+    sizes = _chunks_of(monkeypatch)
+    default = run_port(tmp_path / "default", False, device=True, readback=readback)
+    assert max(sizes["stitch"]) == 16  # the finest lod (4x4 tiles) in one chunk
+    if readback == "full":
+        assert max(sizes["downsample"]) == 4
+    for how in ("position", "keyword"):
+        sizes["stitch"].clear()
+        sizes["downsample"].clear()
+        root = tmp_path / how
+        paths = _write_sources(root / "src", False, array_to_source)
+        atlas = TileAtlas(_config(bt, root, False), "cpu")
+        pp = (bt.Preprocessor(atlas, None, True, 3, False, readback) if how == "position"
+              else bt.Preprocessor(atlas, device=True, batch_tiles=3, readback=readback))
+        assert pp.batch_tiles == 3 and pp.naive is False and pp.device is True
+        _queue(pp, bt, paths, False, 3)
+        assert sizes["stitch"] and max(sizes["stitch"]) == 3
+        assert sum(sizes["stitch"]) == 1 + 4 + 16
+        if readback == "full":  # four children a parent: one parent a chunk
+            assert sizes["downsample"] == [1] * (1 + 4)
+        assert _artifacts(root) == default
+    # the fourth positional argument is batch_tiles: a CPU atlas keeps the host path
+    assert bt.Preprocessor(TileAtlas(_config(bt, tmp_path / "h", False), "cpu"), None, None,
+                           3).device is False
+    for bad in (0, -4):
+        with pytest.raises(ValueError, match="batch_tiles"):
+            bt.Preprocessor(TileAtlas(_config(bt, tmp_path / "bad", False), "cpu"),
+                            batch_tiles=bad)
 
 
 def test_probes_pass_on_a_cpu_device():
