@@ -119,14 +119,20 @@ def _vertex_geometry(side, lod, xy, tile_uv, uniforms: FrameUniforms,
 
 def generate_mesh_grid(tiles: RefinementOutput, block_array: torch.Tensor,
                        uniforms: FrameUniforms, cfg: StaticTerrainConfig, plan,
-                       max_value: float, assume_sorted: bool = False):
+                       max_value: float, assume_sorted: bool = False, fetch_fn=None,
+                       n_blocks: int | None = None):
     """The staged mesh stage on the (G+1)^2 grid layout, for every frame
     configuration (any grid size; planar or spherical, with or without the
     Taylor high-precision path): the JAX package's generate_mesh_grid.
 
     The half-grid heights come from :func:`kernels.fetch_resample_cached`
     at grid size 16 (one launch per frame), else from the staged functions
-    (patch_sampling.fetch_patches, halfgrid_resample). The blend toward the
+    (patch_sampling.fetch_patches, halfgrid_resample). ``fetch_fn(block_array,
+    ids) -> (F, 64, 64) f32`` replaces ``fetch_patches`` and takes the staged
+    functions at every grid size: the hook of the sharded-atlas fetch
+    (parallel/sharded_atlas.py), where ``block_array`` is the shards and the
+    ids are global (pass the global ``n_blocks``, else
+    ``block_array.shape[0]`` is taken). The blend toward the
     coarser data lod is the half-grid's, at the tile-centre ratio; with
     ``cfg.blend_per_vertex`` the plain half-grid and its 1-2-1 smoothed
     copy are both interpolated and mixed by the per-vertex ratio. Morph,
@@ -138,20 +144,21 @@ def generate_mesh_grid(tiles: RefinementOutput, block_array: torch.Tensor,
     """
     F = cfg.tile_capacity
     G = cfg.grid_size
-    tiles, batch = ps.plan_patch_batch(tiles, uniforms, cfg, plan, block_array.shape[0],
-                                       assume_sorted=assume_sorted)
+    tiles, batch = ps.plan_patch_batch(
+        tiles, uniforms, cfg, plan, n_blocks if n_blocks is not None else block_array.shape[0],
+        assume_sorted=assume_sorted)
     dev = block_array.device
     t_side = tiles.tile_side[:F]
     t_lod = tiles.tile_lod[:F].clamp(min=0)
     t_xy = tiles.tile_xy[:F]
 
     per_vertex = cfg.blend and cfg.blend_per_vertex
-    if G == 16:
+    if G == 16 and fetch_fn is None:
         count = tiles.tile_count.reshape(1).to(torch.int32)
         h_mix = kernels.fetch_resample_cached(block_array, batch.ids, batch.geom, count)[:F]
         h_mix = h_mix / max_value
     else:
-        patch = ps.fetch_patches(block_array, batch.ids[:F, None])
+        patch = (fetch_fn or ps.fetch_patches)(block_array, batch.ids[:F, None])
         h_mix = ps.halfgrid_resample(
             patch, batch.geom[:F, 0:2], batch.geom[:F, 2], cfg,
             ratio=batch.geom[:F, 4] if (cfg.blend and not per_vertex) else None,

@@ -571,10 +571,9 @@ class Terrain:
         self.atlas.update(released, requested)
         self.atlas.flush_uploads()
 
-        # 3.-5. per view: adjust entries, height probe, approximation,
-        # device stage (plugin.rs:50-55 + render schedule)
-        height = self.atlas.attachments[0]
-        outputs = {}
+        # 3.-4. per view: adjust entries, height probe, approximation, the
+        # packed uniforms (plugin.rs:50-55)
+        blobs = []
         for view_id, pos in view_positions.items():
             tree = self.tile_trees[view_id]
             tree.adjust_to_tile_atlas(self.atlas)
@@ -582,13 +581,17 @@ class Terrain:
             approx = TerrainModelApproximation.compute(
                 self.config.model, pos, tree.origin_lod, tree.approximate_height
             )
-            blob = pack_frame_uniforms(
+            blobs.append(pack_frame_uniforms(
                 self.config.model, pos, approx, tree.origins, tree.entries,
                 tree.view_tile_int, tree.view_tile_frac,
                 self.view_configs[view_id],
                 view_proj=view_projections.get(view_id),
-            )
-            blob_dev = interop.blob_to_device(blob, self.device)  # ONE copy per frame
+            ))
+
+        # 5. per view: the device stage (render schedule)
+        outputs = {}
+        for (view_id, pos), blob_dev in zip(view_positions.items(),
+                                            self._blobs_to_device(blobs)):
             self._last_blobs[view_id] = blob_dev
             freezing = self.debug is not None and self.debug.freeze
             frozen = self._frozen_tiles.get(view_id) if freezing and self.use_grid_mesh else None
@@ -608,6 +611,10 @@ class Terrain:
             outputs[view_id] = out
         self.frame_index += 1
         return outputs
+
+    def _blobs_to_device(self, blobs: list) -> list:
+        """The views' packed uniforms on the device: ONE copy per view."""
+        return [interop.blob_to_device(b, self.device) for b in blobs]
 
     def _device_stage(self, blob_dev: torch.Tensor, cfg: StaticTerrainConfig,
                       frozen=None) -> TerrainFrameOutput:

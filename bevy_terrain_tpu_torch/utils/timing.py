@@ -10,6 +10,8 @@ measures its launches, not its work. The helpers:
 * :func:`benchmark`: host wall time per call with a
   ``torch.cuda.synchronize()`` after each on the card (the JAX module
   fetches an output byte instead). Slightly pessimistic: it adds one sync.
+* :func:`device_breakdown`: the same kernels' time by name, per call
+  (the census tools' top ops).
 * :func:`cuda_ms`, :func:`device_ms`, :func:`cold_ms`: CUDA-event times of
   a call (stream span; back to back behind a sleep kernel; with the L2
   flushed before each launch).
@@ -21,6 +23,7 @@ the device helpers raise there.
 
 from __future__ import annotations
 
+import collections
 import statistics
 import time
 from dataclasses import dataclass, field
@@ -55,22 +58,72 @@ def device_events(prof):
 _MARK_CYCLES, _TAIL_MARKS, _TRACES = 1000, 16, 3
 
 
-def _per_call_us(records, runs: int, label: str) -> list:
-    """Device time (us) of each of ``runs`` calls: the summed durations of
-    the records between marker ``i`` and marker ``i + 1``. ``records`` are
-    (start us, duration us, is a marker) of one trace's device records.
-    Raises when a marker is missing, a call holds no record, or the calls
-    hold different numbers of records."""
-    marks = sorted(t for t, _, mark in records if mark)
+def _between_markers(records, runs: int, label: str) -> list:
+    """The records of each of ``runs`` calls: those between marker ``i``
+    and marker ``i + 1``. ``records`` are (start us, duration us, is a
+    marker, ...) of one trace's device records. Raises when a marker is
+    missing, a call holds no record, or the calls hold different numbers of
+    records."""
+    marks = sorted(r[0] for r in records if r[2])
     if len(marks) < runs + 1:
         raise RuntimeError(f"{label}: the trace holds {len(marks)} of the {runs + 1} markers "
                            "around the calls")
-    calls = [[d for t, d, mark in records if not mark and marks[i] < t < marks[i + 1]]
+    calls = [[r for r in records if not r[2] and marks[i] < r[0] < marks[i + 1]]
              for i in range(runs)]
     counts = [len(c) for c in calls]
     if not all(counts) or len(set(counts)) != 1:
         raise RuntimeError(f"{label}: the calls hold {counts} device records on the card")
-    return [sum(c) for c in calls]
+    return calls
+
+
+def _per_call_us(records, runs: int, label: str) -> list:
+    """Device time (us) of each of ``runs`` calls: the summed durations of
+    the records between marker ``i`` and marker ``i + 1``
+    (:func:`_between_markers`)."""
+    return [sum(r[1] for r in c) for c in _between_markers(records, runs, label)]
+
+
+def _kernel_rows(calls, label: str) -> list:
+    """[(name, launches per call, ms per call)], largest first, of calls
+    whose records are (start us, duration us, is a marker, name). Raises
+    when the calls launched different kernels."""
+    per_call = [collections.Counter(r[3] for r in c) for c in calls]
+    if any(p != per_call[0] for p in per_call):
+        raise RuntimeError(f"{label}: the calls launched different kernels on the card")
+    ms = collections.defaultdict(float)
+    for c in calls:
+        for r in c:
+            ms[r[3]] += r[1] / len(calls) / 1e3
+    return sorted(((name, n, ms[name]) for name, n in per_call[0].items()),
+                  key=lambda r: -r[2])
+
+
+def _device_records(prof) -> list:
+    """(start us, duration us, name) of a profiler trace's records on the
+    card that started inside the trace: kernels, copies and fills, not the
+    user annotations or the ``raster::`` ranges."""
+    from torch.autograd import DeviceType
+
+    result = prof.profiler.kineto_results
+    t0 = result.trace_start_ns()
+    return [(e.start_ns() / 1e3, e.duration_ns() / 1e3, e.name()) for e in result.events()
+            if e.device_type() == DeviceType.CUDA and e.start_ns() >= t0
+            and not e.is_user_annotation() and not e.name().startswith("raster::")]
+
+
+def _traced_calls(fn, args, runs: int) -> list:
+    """One profiler trace of ``runs + 1`` calls of ``fn(*args)``, each
+    after a marker kernel and followed by a sync, then more markers: its
+    device records as (start us, duration us, is a marker, name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(runs + 1 + _TAIL_MARKS):
+            torch.cuda._sleep(_MARK_CYCLES)
+            if i <= runs:  # the call after the ``runs`` read is not read
+                fn(*args)
+            torch.cuda.synchronize()
+    return [(t, d, "spin_kernel" in name, name) for t, d, name in _device_records(prof)]
 
 
 def device_time_ms(fn, *args, label: str = "bench", runs: int = 5) -> float:
@@ -82,27 +135,32 @@ def device_time_ms(fn, *args, label: str = "bench", runs: int = 5) -> float:
     ``raster::`` ranges).
     ``label`` names the measurement in errors. Raises without a card, and
     when a call runs no kernel on it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     _need_card("device_time_ms")
     fn(*args)  # first-use costs (kernel builds, allocator growth) stay outside
     torch.cuda.synchronize()
     for attempt in range(_TRACES):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(runs + 1 + _TAIL_MARKS):
-                torch.cuda._sleep(_MARK_CYCLES)
-                if i <= runs:  # the call after the ``runs`` read is not read
-                    fn(*args)
-                torch.cuda.synchronize()
-        result = prof.profiler.kineto_results
-        t0 = result.trace_start_ns()
-        records = [(e.start_ns() / 1e3, e.duration_ns() / 1e3, "spin_kernel" in e.name())
-                   for e in result.events()
-                   if e.device_type() == DeviceType.CUDA and e.start_ns() >= t0
-                   and not e.is_user_annotation() and not e.name().startswith("raster::")]
         try:
-            return float(np.median(_per_call_us(records, runs, label))) / 1e3
+            return float(np.median(_per_call_us(_traced_calls(fn, args, runs), runs,
+                                                label))) / 1e3
+        except RuntimeError:
+            if attempt == _TRACES - 1:
+                raise
+
+
+def device_breakdown(fn, *args, label: str = "breakdown", runs: int = 5):
+    """The CUDA kernels of ``fn(*args)`` by name, per call, read from the
+    trace :func:`device_time_ms` reads (``runs`` calls between marker
+    kernels, :func:`_kernel_rows`). Returns (device ms per call, [(name,
+    launches per call, ms per call)] by time, largest first). Raises without
+    a card."""
+    _need_card("device_breakdown")
+    fn(*args)
+    torch.cuda.synchronize()
+    for attempt in range(_TRACES):
+        try:
+            rows = _kernel_rows(_between_markers(_traced_calls(fn, args, runs), runs, label),
+                                label)
+            return sum(r[2] for r in rows), rows
         except RuntimeError:
             if attempt == _TRACES - 1:
                 raise

@@ -122,6 +122,21 @@
    the device path, the flythrough with no overflow frame and its tiles
    loaded. One ``entry:`` line per call: wall seconds, launches, the
    call's own numbers.
+12. Multi-view path (``multi_view_path``, ``parallel/``), last: four
+   distinct unculled cameras over a synthetic 8k^2 planar dataset through
+   one ``MultiViewTerrain`` (capacity 4096): K1 exactly once per view per
+   frame and nothing else, each view's tiles and mesh of the same sha256 as
+   a ``Terrain`` stepping the same views over the same atlas, the device
+   memory peak against one block store, the ``update`` wall per view count
+   in turns with that ``Terrain``, device kernel time and kernels a frame;
+   the block store in 4 shards (the staged path with the sharded fetch: no
+   kernel launch, each view within 2e-2 m of the replicated frame per
+   tile); two views (60 km, 20 km) over the synthetic planet (K2 once per
+   view, bit-equal); ``multi_view_frame_step`` with 4 distinct spherical
+   cameras (no kernel); then ``entry.dryrun_multichip(4)`` and the tool
+   twins multi_view_bench, fetch_kernel_sweep, census_frame, earth_census
+   and preprocess_compute_bench at the JAX defaults, launches counted
+   (``MV_TOOLS``), one ``entry:`` line each; ``multi_view:`` lines.
 
 Every kernel call of phases 2-5 prints the sha256 of its inputs and of its
 output (``digest:`` lines): two trees built in one call are compared by
@@ -148,7 +163,10 @@ import tempfile
 import time
 from pathlib import Path
 
-from bevy_terrain_tpu_torch.utils.timing import cold_ms, cuda_ms, device_events, device_ms
+from bevy_terrain_tpu_torch.utils.timing import (
+    cold_ms, cuda_ms, device_breakdown, device_events, device_ms,
+)
+from tools_torch.fetch_kernel_sweep import sweep_inputs  # K7's inputs, as its tool builds them
 from tools_torch.scenes import (  # the bench.py frame, as the frame tools build it
     BORDER, LOD_COUNT, SIDE, TEXTURE_SIZE, bench_frame, bench_scene,
 )
@@ -895,32 +913,6 @@ def waves_sweep(runs: dict, live: int) -> None:
 
 
 # -- half-grid kernel phase ------------------------------------------------------
-
-
-def sweep_inputs():
-    """The inputs of tools/fetch_kernel_sweep.py (lines 28-45), on the card:
-    4096 random quads of 8x8-block mip runs, 8192 tiles at random patch
-    positions with steps 0.5-1 and blend ratios 0-1, ``default_rng(0)``.
-    Returns (block_array, ids (F, 4), geom (F, 8))."""
-    import numpy as np
-    import torch
-
-    from bevy_terrain_tpu_torch.ops import patch_sampling
-
-    rng = np.random.default_rng(0)
-    N, F, g = 4096, 8192, 8
-    blocks = patch_sampling.quad_rows(
-        rng.integers(0, 30000, size=(N, 32, 32)).astype(np.int32), g)
-    tl = rng.integers(0, N - g - 2, size=(F,)).astype(np.int32)
-    ids = np.stack([tl, tl + 1, tl + g, tl + g + 1], axis=-1).astype(np.int32)
-    geom = np.concatenate([
-        rng.uniform(0, 30, size=(F, 2)).astype(np.float32),
-        rng.uniform(0.5, 1.0, size=(F, 1)).astype(np.float32),
-        np.ones((F, 1), np.float32),
-        rng.uniform(0.0, 1.0, size=(F, 1)).astype(np.float32),
-        np.zeros((F, 3), np.float32),
-    ], axis=1)
-    return tuple(torch.from_numpy(a).cuda() for a in (blocks, ids, geom))
 
 
 def k7_support(geom):
@@ -2457,6 +2449,8 @@ def _summary(result: dict) -> str:
             return f"{v:.4g}"
         if isinstance(v, (list, tuple, np.ndarray)) and len(v) > 8:
             v = np.asarray(v)
+            if v.dtype.kind not in "biuf":  # rows the call printed itself
+                return f"[{len(v)} rows]"
             return f"[{len(v)}: {v.min():.4g}..{v.max():.4g}]"
         if isinstance(v, dict):
             return "{" + ", ".join(f"{k}: {short(x)}" for k, x in v.items()) + "}"
@@ -2551,6 +2545,326 @@ def entry_points_path() -> None:
 
         entry_point("bevy_terrain_tpu_torch.entry.entry()", run_entry, (), "all")
     print(f"entry points path: {time.perf_counter() - t_all:.1f} s in all; {card_line()}")
+
+
+# -- multi-view path (parallel/) ------------------------------------------------
+
+# four distinct cameras over the planar main path's 8k^2 dataset. A
+# MultiViewTerrain packs no view projection, so its frames are unculled:
+# these heights keep each under the main path's capacity of 4096 (2401,
+# 2983, 2887 and 2455 tiles at the scene's mean height; 8000+ at the bench
+# camera's 120 m)
+MV_VIEWS = {"v0": (240.0, 700.0, -160.0), "v1": (-880.0, 500.0, 560.0),
+            "v2": (1500.0, 500.0, 900.0), "v3": (-2000.0, 600.0, -1500.0)}
+MV_TIMED = 10
+TOL_MV_STAGED = 2e-2  # m: the fused-vs-staged yardstick (tests/test_multi_view.py:150-161)
+# the planet's two views, (direction, altitude m); unculled, the default
+# morph distance needs 11 000-14 000 tiles a view, so the view config halves
+# it (2976 and 3918 tiles at the mean height) under 8192 slots
+MV_PLANET = {"far": ((0.0, 0.0, 1.0), 60_000.0), "near": ((0.3, 0.2, 1.0), 20_000.0)}
+MV_PLANET_VIEW = dict(tile_capacity=8192, morph_distance=8.0)
+_MESH_KERNELS = tuple(k for k, *_ in KERNELS if k.startswith("mesh_fused"))
+# the tool twins of the multi-view slice: (module, argv, kernels required,
+# kernels absent), as ENTRY_POINTS
+MV_TOOLS = {
+    "tools multi_view_bench": ("tools_torch.multi_view_bench", [], ("mesh_fused_planar",),
+                               _MATERIAL_KERNELS + ("fetch_resample_cached", "fetch_resample")),
+    "tools fetch_kernel_sweep": ("tools_torch.fetch_kernel_sweep", [], ("fetch_resample",),
+                                 _MESH_KERNELS + ("fetch_resample_cached",)),
+    "tools census_frame": ("tools_torch.census_frame", [], ("fetch_resample_cached",),
+                           _MESH_KERNELS + ("fetch_resample",)),
+    "tools earth_census": ("tools_torch.earth_census", [], ("mesh_fused_spherical",),
+                           _MATERIAL_KERNELS + ("fetch_resample_cached", "fetch_resample")),
+    "tools preprocess_compute_bench": ("tools_torch.preprocess_compute_bench", [], (), "all"),
+}
+
+
+def mv_stream(terrain, positions, timed: int = 0):
+    """Stream a MultiViewTerrain (or a Terrain with the same views) until no
+    tile is queued or loading, then ``timed`` frames, each synchronized.
+    Returns (last outputs, frames, update walls in s of the timed frames)."""
+    import torch
+
+    frames = 0
+    for i in range(300):
+        out = terrain.update(positions)
+        frames += 1
+        if i > 3 and not terrain.atlas.state.to_load and not any(
+                a.loading for a in terrain.atlas.attachments):
+            break
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        out = terrain.update(positions)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        frames += 1
+    return out, frames, walls
+
+
+def frame_sha(tiles, mesh) -> str:
+    """sha256 of a view's sorted tile list and grid mesh, field by field."""
+    h = hashlib.sha256()
+    for obj in (tiles, mesh):
+        for f in dataclasses.fields(obj):
+            x = getattr(obj, f.name)
+            h.update(f"{f.name} {x.dtype} {tuple(x.shape)}".encode())
+            h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mv_same_as_terrain(mvt, positions, what: str) -> "object":
+    """A Terrain with the same views over the multi-view terrain's atlas,
+    streamed; then one frame of each: every view's sha256 of tiles and mesh
+    must be equal, and the mesh kernel's product of each view is held
+    against its plain version on the same inputs (the multi-view path's own
+    tile counts and capacity). Returns the Terrain."""
+    from bevy_terrain_tpu_torch import Terrain
+    from bevy_terrain_tpu_torch.ops import kernels
+
+    ref = Terrain(mvt.config)  # the card by default
+    ref.atlas = mvt.atlas  # the same residency, so the same atlas slots
+    for v in positions:
+        ref.add_view(v, mvt.view_config, queue_capacity=mvt.cfg.queue_capacity)
+    mv_stream(ref, positions)
+    outs, routs = mvt.update(positions), ref.update(positions)
+    for v in positions:
+        a = frame_sha(outs[v].tiles, outs[v].mesh)
+        b = frame_sha(routs[v].tiles, routs[v].mesh)
+        print(f"multi_view: {what} {v}: {outs[v].tile_count} tiles, sha256 {a[:16]} "
+              f"(Terrain {b[:16]})")
+        if a != b:
+            raise AssertionError(f"{what} {v}: the multi-view frame is not the single-view "
+                                 "Terrain's")
+        if mvt.cfg.spherical:
+            compare_spherical(routs[v].raw_mesh,
+                              kernels.mesh_fused_spherical_reference(*routs[v].mesh_inputs),
+                              f"multi_view: {what} {v}")
+        else:
+            compare(routs[v].raw_mesh, kernels.mesh_fused_planar_reference(*routs[v].mesh_inputs),
+                    f"multi_view: {what} {v}")
+    return ref
+
+
+def mv_per_key(got, want, what: str) -> dict:
+    """Tile sets equal; heights and positions per tile key within
+    TOL_MV_STAGED. Returns the largest differences."""
+    import torch
+
+    n = got.tile_count
+    if n != want.tile_count:
+        raise AssertionError(f"{what}: {n} tiles against {want.tile_count}")
+
+    def keys(tiles):
+        t = torch.cat([tiles.tile_side[:n, None], tiles.tile_lod[:n, None], tiles.tile_xy[:n]],
+                      dim=1).long()
+        k = ((t[:, 0] * 64 + t[:, 1]) * 2**24 + t[:, 2]) * 2**24 + t[:, 3]
+        order = torch.argsort(k)
+        return k[order], order
+
+    ka, ia = keys(got.tiles)
+    kb, ib = keys(want.tiles)
+    if not torch.equal(ka, kb):
+        raise AssertionError(f"{what}: the tile sets differ")
+    worst = {}
+    for f in ("heights", "positions"):
+        worst[f] = float((getattr(got.mesh, f)[:n][ia] - getattr(want.mesh, f)[:n][ib])
+                         .abs().max())
+        hold(worst[f], TOL_MV_STAGED, f"{what}: {f}")
+    return worst
+
+
+def multi_view_path() -> None:
+    """parallel/ on the card: MultiViewTerrain over the planar main path's
+    dataset (replicated: K1 once per view per frame, each view bit-equal to
+    a Terrain with the same views over the same atlas, walls and device
+    time; sharded: no mesh kernel, within the fused-vs-staged yardstick),
+    over the synthetic planet (K2 once per view, bit-equal), the spherical
+    multi_view_frame_step (no kernel), then ``dryrun_multichip(4)`` and the
+    slice's tool twins with their kernels counted."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from bevy_terrain_tpu_torch.config import AttachmentConfig, TerrainConfig, TerrainViewConfig
+    from bevy_terrain_tpu_torch.entry import dryrun_multichip, sphere_views
+    from bevy_terrain_tpu_torch.parallel import MultiViewTerrain, multi_view_frame_step
+    from bevy_terrain_tpu_torch.utils.synthetic import (
+        generate_planar_dataset, generate_spherical_dataset,
+    )
+    t_all = time.perf_counter()
+    card = card_line()
+    model, vc, _, _ = bench_scene()
+    att = AttachmentConfig(name="height", texture_size=TEXTURE_SIZE, border_size=BORDER,
+                           mip_level_count=4)
+    positions = {v: np.array(p) for v, p in MV_VIEWS.items()}
+    V = len(positions)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mv_") as tmp:
+        t0 = time.perf_counter()
+        generate_planar_dataset("smoke", LOD_COUNT, att, root=tmp)
+        print(f"multi_view: wrote the planar dataset in {time.perf_counter() - t0:.1f} s")
+        config = TerrainConfig(lod_count=LOD_COUNT, model=model, atlas_size=1024,
+                               path="smoke", attachments=(att,), assets_root=tmp)
+        view_config = TerrainViewConfig(tile_capacity=vc.tile_capacity)
+
+        # 1. planar, replicated: the fused mesh kernel once per view
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mvt = MultiViewTerrain(config, list(positions), view_config=view_config,
+                               queue_capacity=1024)
+        torch.cuda.synchronize()
+        atlas_bytes = torch.cuda.memory_allocated() - base
+        store = tensor_bytes(mvt.atlas.attachments[0].block_array)
+        if not (mvt.cfg.pallas_sampling and mvt.device.type == "cuda"):
+            raise AssertionError("MultiViewTerrain did not select the fused kernel on the card")
+        reset_counts()
+        t0 = time.perf_counter()
+        outs, frames, walls = mv_stream(mvt, positions, timed=MV_TIMED)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        tiles = [outs[v].tile_count for v in positions]
+        overflow = [int(outs[v].tiles.overflow) for v in positions]
+        print(f"multi_view: planar replicated: {V} views, {frames} frames in "
+              f"{time.perf_counter() - t0:.1f} s, launches {counts}; tiles {tiles}, overflow "
+              f"{overflow}; update {statistics.median(walls) * 1e3:.3f} ms median wall over "
+              f"{MV_TIMED} frames ({min(walls) * 1e3:.3f}-{max(walls) * 1e3:.3f}); stacked blob "
+              f"{tuple(mvt.terrain.last_stacked.shape)} int32, "
+              f"{tensor_bytes(mvt.terrain.last_stacked)} bytes "
+              f"a frame in one copy; device memory peak {peak / 1e6:.1f} MB over the atlas's "
+              f"{atlas_bytes / 1e6:.1f} MB (block store {store / 1e6:.1f} MB, held once)")
+        if counts["mesh_fused_planar"] != V * frames or any(
+                counts[k] for k in counts if k != "mesh_fused_planar"):
+            raise AssertionError(f"planar replicated: K1 must launch {V} times in each of "
+                                 f"{frames} frames, and nothing else: {counts}")
+        if min(tiles) <= 0 or any(overflow):
+            raise AssertionError(f"planar replicated: tiles {tiles}, overflow {overflow}")
+        if peak - atlas_bytes >= store:
+            raise AssertionError("planar replicated: the frame held a second block store")
+        for v in positions:
+            mesh = outs[v].mesh
+            n = outs[v].tile_count
+            if not all(bool(torch.isfinite(getattr(mesh, f)[:n]).all())
+                       for f in ("heights", "positions", "uvs")):
+                raise AssertionError(f"planar replicated {v}: non-finite mesh")
+        ref = mv_same_as_terrain(mvt, positions, "planar replicated")
+        print(f"multi_view: planar replicated checked in {time.perf_counter() - t_all:.1f} s")
+
+        # the update wall per view count: the Terrain steps 1, 2 or 4 of the
+        # views (one blob copy each), the MultiViewTerrain all 4 (one copy)
+        def wall(terrain, pos, n=MV_TIMED):
+            ts = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                terrain.update(pos)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            return statistics.median(ts) * 1e3
+
+        sub = {k: dict(list(positions.items())[:k]) for k in (1, 2, V)}
+        turns = [wall(mvt, positions), wall(ref, positions), wall(ref, positions),
+                 wall(mvt, positions)]
+        per_count = {k: wall(ref, p) for k, p in sub.items()}
+        print(f"multi_view: planar update wall in turns, MultiViewTerrain ({V} views) / "
+              f"Terrain ({V} views) / Terrain / MultiViewTerrain: "
+              + " / ".join(f"{t:.3f}" for t in turns) + " ms; Terrain with "
+              + ", ".join(f"{k} view{'s' if k > 1 else ''} {t:.3f}"
+                          for k, t in per_count.items()) + f" ms; {card}")
+        for what, fn in (("MultiViewTerrain 4 views", lambda: mvt.update(positions)),
+                         ("Terrain 1 view", lambda: ref.update(sub[1]))):
+            total, rows = device_breakdown(fn, label=what)
+            k1 = next((r for r in rows if "mesh_fused" in r[0]), None)
+            print(f"multi_view: planar {what}: device kernel time {total:.4f} ms a frame, "
+                  f"{sum(r[1] for r in rows)} kernels a frame; K1 {k1[1] if k1 else 0} "
+                  f"launches, {k1[2] if k1 else 0:.4f} ms in all; {card}")
+        del ref
+
+        # 2. planar, the block store in 4 shards: the staged path, no kernel
+        smvt = MultiViewTerrain(config, list(positions), view_config=view_config,
+                                queue_capacity=1024, shard_atlas=True, blend_per_vertex=True)
+        reset_counts()
+        souts, sframes, swalls = mv_stream(smvt, positions, timed=3)
+        counts = read_counts()
+        shards = smvt.terrain.blocks()
+        print(f"multi_view: planar sharded: {sframes} frames, launches {counts}; shards "
+              f"{tuple(shards.shape)}, a view of the store: "
+              f"{shards.data_ptr() == smvt.atlas.attachments[0].block_array.data_ptr()}; "
+              f"update {statistics.median(swalls) * 1e3:.3f} ms median wall")
+        if any(counts.values()) or smvt.cfg.pallas_sampling or shards.shape[0] != V:
+            raise AssertionError(f"planar sharded: kernels launched {counts}, or not {V} "
+                                 "shards on the staged path")
+        for v in positions:
+            worst = mv_per_key(souts[v], outs[v], f"planar sharded {v}")
+            print(f"multi_view: planar sharded {v} vs replicated: {souts[v].tile_count} "
+                  f"tiles, max |staged - fused| " + ", ".join(
+                      f"{k} {x:.3e}" for k, x in worst.items())
+                  + f" (tol {TOL_MV_STAGED:.0e})")
+        del mvt, smvt, outs, souts
+
+    # 3. the planet: two views, the spherical mesh kernel once per view
+    smodel = sphere_model("sphere")
+    ppos = {}
+    for v, (d, alt) in MV_PLANET.items():
+        d = np.array(d) / np.linalg.norm(d)
+        ppos[v] = smodel.surface_position(d * RADIUS, alt)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mv_sphere_") as tmp:
+        t0 = time.perf_counter()
+        generate_spherical_dataset("smoke_sphere", SPH_DATA_LODS, att, root=tmp)
+        print(f"multi_view: wrote the planet dataset in {time.perf_counter() - t0:.1f} s")
+        config = TerrainConfig(lod_count=SPH_LODS, model=smodel, atlas_size=SPH_ATLAS,
+                               path="smoke_sphere", attachments=(att,), assets_root=tmp)
+        pmvt = MultiViewTerrain(config, list(ppos),
+                                view_config=TerrainViewConfig(**MV_PLANET_VIEW))
+        reset_counts()
+        pouts, pframes, pwalls = mv_stream(pmvt, ppos, timed=5)
+        counts = read_counts()
+        ptiles = [pouts[v].tile_count for v in ppos]
+        print(f"multi_view: planet: {len(ppos)} views (60 km, 20 km), {pframes} frames, "
+              f"launches {counts}; tiles {ptiles}; update "
+              f"{statistics.median(pwalls) * 1e3:.3f} ms median wall; {card}")
+        if counts["mesh_fused_spherical"] != len(ppos) * pframes or any(
+                counts[k] for k in counts if k != "mesh_fused_spherical"):
+            raise AssertionError(f"planet: K2 must launch {len(ppos)} times a frame, and "
+                                 f"nothing else: {counts}")
+        for v in ppos:
+            n = pouts[v].tile_count
+            if n <= 100 or int(pouts[v].tiles.overflow):
+                raise AssertionError(f"planet {v}: {n} tiles, overflow")
+            check_sphere_mesh(pouts[v].mesh, n, smodel, f"planet {v}")
+        mv_same_as_terrain(pmvt, ppos, "planet")
+        del pmvt, pouts
+
+    # 4. multi_view_frame_step: 4 distinct spherical cameras, the per-vertex
+    # path (no kernel)
+    cfg, uniform_list, slab = sphere_views(4)
+    reset_counts()
+    step_pos, _, step_counts = multi_view_frame_step([torch.device("cuda")] * 4, cfg,
+                                                     uniform_list, slab)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    step_tiles = step_counts.tolist()
+    print(f"multi_view: multi_view_frame_step: views {step_pos.shape[0]}, tiles {step_tiles}, "
+          f"launches {counts}")
+    if (step_pos.shape[0] != 4 or min(step_tiles) <= 0 or any(counts.values())
+            or not bool(torch.isfinite(step_pos).all())):
+        raise AssertionError("multi_view_frame_step: not 4 finite views of tiles, or a kernel "
+                             "launched")
+
+    # 5. the dry run and the slice's tool twins, kernels counted
+    entry_point("bevy_terrain_tpu_torch.entry.dryrun_multichip(4)", lambda: dryrun_multichip(4),
+                ("mesh_fused_planar",),
+                _MATERIAL_KERNELS + ("fetch_resample_cached", "fetch_resample",
+                                     "mesh_fused_spherical"))
+    for what, (module, argv, need, absent) in MV_TOOLS.items():
+        main = importlib.import_module(module).main
+        result, counts = entry_point(what, lambda: main(argv), need, absent)
+        if module.endswith("multi_view_bench") and not result["multi_view_fused"]:
+            raise AssertionError(f"{what}: MultiViewTerrain took the staged path")
+        if module.endswith("census_frame") and counts["fetch_resample_cached"] < 2:
+            raise AssertionError(f"{what}: K6 did not run in the profiled frames")
+    print(f"multi_view path: {time.perf_counter() - t_all:.1f} s in all; {card}")
 
 
 # the rasterizer (render/raster.py: torch ops, no csrc kernel) on the
@@ -2810,26 +3124,13 @@ def planet_raster_path(terrain, view, stream_proj, card) -> None:
 
 
 def profile_stage(device_stage, what: str) -> None:
-    """Kernel time by name over 10 device stages (torch.profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    device_stage()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            device_stage()
-        torch.cuda.synchronize()
-    events = device_events(prof)
-    rows = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
-    total = sum(e.self_device_time_total for e in events)
-    n_kernels = sum(e.count for e in events)
-    print(f"profile ({what}): {total / 10 / 1e3:.4f} ms device kernel time per stage, "
-          f"{n_kernels / 10:.0f} kernels per stage")
-    for i, e in enumerate(rows):
-        if i < 12 or any(k in e.key for k in ("mesh_fused", "fetch_resample", "attach_sample")):
-            print(f"profile:   {e.key[:60]:60s} {e.count // 10:4d}x "
-                  f"{e.self_device_time_total / 10 / 1e3:.4f} ms")
+    """Kernel time by name over 10 device stages (``device_breakdown``)."""
+    total, rows = device_breakdown(device_stage, label=what, runs=10)
+    print(f"profile ({what}): {total:.4f} ms device kernel time per stage, "
+          f"{sum(r[1] for r in rows)} kernels per stage")
+    for i, (key, count, ms) in enumerate(rows):
+        if i < 12 or any(k in key for k in ("mesh_fused", "fetch_resample", "attach_sample")):
+            print(f"profile:   {key[:60]:60s} {count:4d}x {ms:.4f} ms")
 
 
 # ptxas names of the kernel instances: mesh_fused_kernel<SPHERICAL,
@@ -2935,6 +3236,7 @@ def main(argv) -> int:
     vertex_main_path_phase()
     preprocess_path_phase()
     entry_points_path()
+    multi_view_path()
 
     print(json.dumps({"kernels": [
         {"name": k, "route": route, "source": src, "replaces": rep,

@@ -1068,3 +1068,99 @@ def test_split_mosaic_device_branch_on_the_card():
     np.testing.assert_array_equal(valid, cvalid)
     np.testing.assert_allclose(got, cpu, rtol=0, atol=1e-6)
     np.testing.assert_allclose(got, host, rtol=0, atol=1e-6)
+
+
+def _multi_view_scene(root):
+    """tests/test_multi_view.py's scene: a 3-lod synthetic planar dataset
+    (512^2 R16 tiles, 1000 m, a 64-slot atlas), capacity 512 views, and 4 of
+    its seeded cameras."""
+    from bevy_terrain_tpu_torch.config import AttachmentConfig, TerrainConfig
+    from bevy_terrain_tpu_torch.utils.synthetic import generate_planar_dataset
+
+    att = AttachmentConfig(name="height", texture_size=512, border_size=2, mip_level_count=4)
+    generate_planar_dataset("terrains/mv", 3, att, root=str(root))
+    config = TerrainConfig(lod_count=3, model=TerrainModel.planar(np.zeros(3), 1000.0, 0.0,
+                                                                   100.0),
+                           atlas_size=64, path="terrains/mv", attachments=(att,),
+                           assets_root=str(root))
+    rng = np.random.default_rng(5)
+    positions = {f"v{i}": np.array([rng.uniform(-300, 300), rng.uniform(80, 400),
+                                    rng.uniform(-300, 300)]) for i in range(8)}
+    vc = TerrainViewConfig(tile_capacity=512, morph_distance=2.0, blend_distance=1.0)
+    return config, dict(list(positions.items())[:4]), vc
+
+
+def _stream_views(terrain, positions):
+    for _ in range(200):
+        terrain.update(positions)
+        if not terrain.atlas.state.to_load and not any(
+                a.loading for a in terrain.atlas.attachments):
+            break
+    return terrain.update(positions)
+
+
+@pytest.mark.cuda
+def test_multi_view_frames_equal_the_terrain_on_the_card(tmp_path):
+    """MultiViewTerrain on the card: the fused mesh kernel once per view per
+    frame, each view bit-equal to a Terrain with the same views over the
+    same atlas; the sharded store (the staged path, no kernel) within the
+    fused-vs-staged 2e-2 m of it per tile."""
+    from bevy_terrain_tpu_torch import Terrain
+    from bevy_terrain_tpu_torch.parallel import MultiViewTerrain
+
+    _card()
+    config, positions, vc = _multi_view_scene(tmp_path)
+    mvt = MultiViewTerrain(config, list(positions), view_config=vc, queue_capacity=1024)
+    assert mvt.cfg.pallas_sampling and mvt.device.type == "cuda"
+    _stream_views(mvt, positions)
+    before = kernels.mesh_fused_planar.launches
+    outs = mvt.update(positions)
+    torch.cuda.synchronize()
+    assert kernels.mesh_fused_planar.launches == before + len(positions)
+    ref = Terrain(config)
+    ref.atlas = mvt.atlas
+    for v in positions:
+        ref.add_view(v, vc, queue_capacity=1024)
+    _stream_views(ref, positions)
+    outs, ref_outs = mvt.update(positions), ref.update(positions)
+    sharded = MultiViewTerrain(config, list(positions), view_config=vc, queue_capacity=1024,
+                               shard_atlas=True, blend_per_vertex=True)
+    assert not sharded.cfg.pallas_sampling
+    launches = {name: getattr(kernels, name).launches for name in (
+        "mesh_fused_planar", "fetch_resample_cached", "fetch_resample")}
+    souts = _stream_views(sharded, positions)
+    assert launches == {name: getattr(kernels, name).launches for name in launches}
+    for v in positions:
+        a, b = outs[v], ref_outs[v]
+        for obj_a, obj_b in ((a.tiles, b.tiles), (a.mesh, b.mesh)):
+            for f in dataclasses.fields(obj_a):
+                assert torch.equal(getattr(obj_a, f.name), getattr(obj_b, f.name)), (v, f.name)
+        n = a.tile_count
+        assert n > 0 and souts[v].tile_count == n
+
+        def by_key(out):
+            t = out.tiles
+            return {(int(s), int(l), int(x), int(y)): i for i, (s, l, (x, y)) in enumerate(zip(
+                t.tile_side[:n].tolist(), t.tile_lod[:n].tolist(), t.tile_xy[:n].tolist()))}
+
+        ka, ks = by_key(a), by_key(souts[v])
+        assert set(ka) == set(ks)
+        ia = torch.tensor([ka[k] for k in sorted(ka)], device="cuda")
+        is_ = torch.tensor([ks[k] for k in sorted(ka)], device="cuda")
+        for f in ("heights", "positions"):
+            err = float((getattr(a.mesh, f)[ia] - getattr(souts[v].mesh, f)[is_]).abs().max())
+            assert err <= 2e-2, (v, f, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4, 8])
+def test_sharded_fetch_equals_the_plain_gather_on_the_card(n):
+    from bevy_terrain_tpu_torch.parallel import fetch_patches_sharded, shard_blocks
+
+    dev = _card()
+    rng = np.random.default_rng(n)
+    blocks = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, (37, 32, 128),
+                                           dtype=np.int64).astype(np.int32)).to(dev)
+    ids = torch.from_numpy(rng.integers(0, 37, (300, 4)).astype(np.int32)).to(dev)
+    got = fetch_patches_sharded(shard_blocks(n, blocks), ids)
+    assert torch.equal(got, patch_sampling.fetch_patches(blocks, ids))

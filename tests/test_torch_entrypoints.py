@@ -7,6 +7,9 @@
   heights and positions are held to the yardsticks the port's spherical
   tests use near the surface (tests/test_torch_spherical_mesh.py::JAX_TOL,
   "sphere_near": heights 0.2 m, positions 6.0 m).
+* ``dryrun_multichip(4, device="cpu")`` against the repo's
+  ``__graft_entry__.dryrun_multichip(4)`` on 4 virtual CPU devices: the
+  tile count of each view and the per-view mesh shape, exactly.
 * ``utils/timing``: ``benchmark`` and ``Timer`` on a CPU callable; every
   helper that times the card raises in a process without one.
 """
@@ -20,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from bevy_terrain_tpu_torch.entry import entry
+from bevy_terrain_tpu_torch.entry import dryrun_multichip, entry
 from bevy_terrain_tpu_torch.utils import timing
 from tests.test_torch_patch_sampling import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_spherical_mesh import JAX_TOL
@@ -56,6 +59,35 @@ def test_entry_runs_on_the_card_by_default():
         entry()
 
 
+def test_dryrun_multichip_runs_on_the_card_by_default():
+    """No fallback: without a card the default dry run raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this process has a card")
+    with pytest.raises((RuntimeError, AssertionError)):
+        dryrun_multichip(4)
+
+
+def test_dryrun_multichip_matches_the_jax_dry_run(capsys):
+    """The port's dry run on the CPU against ``__graft_entry__.
+    dryrun_multichip(4)`` on 4 virtual CPU devices: the same tile count per
+    view on the sharded atlas, the same per-view mesh shape."""
+    import re
+
+    import __graft_entry__ as g
+
+    g.dryrun_multichip(4)
+    jline = capsys.readouterr().out
+    want = [int(x) for x in re.search(r"\(tiles \[([0-9, ]+)\]\)", jline).group(1).split(",")]
+    jmesh = re.search(r"per-view mesh (\([0-9, ]+\))", jline).group(1)
+    got = dryrun_multichip(4, device="cpu")
+    line = capsys.readouterr().out
+    print(jline, line)
+    assert line.startswith("dryrun_multichip OK: 4 views on cpu")
+    assert got["sharded_tiles"] == got["replicated_tiles"] == want
+    assert all(c > 0 for c in want) and str(got["mesh"]) == jmesh
+    assert len(got["spherical_tiles"]) == 4 and all(c > 0 for c in got["spherical_tiles"])
+
+
 def test_benchmark_and_timer_on_a_cpu_callable():
     calls = []
 
@@ -78,7 +110,8 @@ def test_benchmark_and_timer_on_a_cpu_callable():
     assert summary["a"] >= 1.0 and summary["b"] < summary["a"]
 
 
-@pytest.mark.parametrize("helper", ["device_time_ms", "cuda_ms", "device_ms", "cold_ms"])
+@pytest.mark.parametrize("helper", ["device_time_ms", "cuda_ms", "device_ms", "cold_ms",
+                                    "device_breakdown"])
 def test_device_timing_raises_without_a_card(helper):
     if torch.cuda.is_available():
         pytest.skip("this process has a card")
@@ -108,3 +141,20 @@ def test_device_time_reads_each_call_between_markers():
     with pytest.raises(RuntimeError, match=r"\[2, 1\] device records"):
         timing._per_call_us([(0.0, 1.0, True), (1.0, 3.0, False), (2.0, 3.0, False),
                              (5.0, 1.0, True), (6.0, 3.0, False), (9.0, 1.0, True)], 2, "t")
+
+
+def test_device_breakdown_rows_per_call():
+    """The breakdown's rows: each kernel's launches and time per call from
+    the records between markers, largest first; calls that launched
+    different kernels raise (a trace that lost a record is taken again)."""
+    records = [(0.0, 1.0, True, "spin"), (1.0, 3000.0, False, "k_a"),
+               (5.0, 1000.0, False, "k_b"), (6.0, 1000.0, False, "k_b"),
+               (10.0, 1.0, True, "spin"), (11.0, 5000.0, False, "k_a"),
+               (17.0, 1000.0, False, "k_b"), (18.0, 3000.0, False, "k_b"),
+               (20.0, 1.0, True, "spin"), (21.0, 9.0, False, "k_c")]
+    calls = timing._between_markers(records, 2, "t")
+    assert timing._kernel_rows(calls, "t") == [("k_a", 1, 4.0), ("k_b", 2, 3.0)]
+    assert timing._per_call_us(records, 2, "t") == [5000.0, 9000.0]
+    odd = records[:5] + [(11.0, 5000.0, False, "k_c")] + records[6:]
+    with pytest.raises(RuntimeError, match="different kernels"):
+        timing._kernel_rows(timing._between_markers(odd, 2, "t"), "t")

@@ -73,7 +73,7 @@ def test_every_port_module_imports_without_jax():
     # every module of the example and tool twins
     n_port, n_twins = map(int, out.stdout.split()[-2:])
     assert n_port == len(SOURCES) - 2
-    assert n_twins == len(TWIN_SOURCES) - len(TWINS) and n_twins >= 6 + 1 + 6
+    assert n_twins == len(TWIN_SOURCES) - len(TWINS) and n_twins >= 6 + 1 + 6 + 5
 
 
 @pytest.mark.parametrize("what", ["port", "chip_smoke", "twins"])
@@ -85,13 +85,16 @@ def test_no_source_imports_jax_or_the_jax_package(what):
         "port": [f"bevy_terrain_tpu_torch/{m}" for m in (
             "formats/tiff.py", "utils/transfer.py", "ops/preprocess.py",
             "ops/preprocess_device.py", "preprocess/preprocessor.py", "preprocess/__init__.py",
-            "models/__init__.py", "utils/timing.py", "entry.py")],
+            "models/__init__.py", "utils/timing.py", "entry.py", "parallel/__init__.py",
+            "parallel/multi_view.py", "parallel/sharded_atlas.py")],
         "chip_smoke": ["chip_smoke.py"],
         "twins": [f"examples_torch/{m}.py" for m in (
             "preprocess_planar", "minimal", "planar", "spherical", "preprocess_spherical",
             "render_capture")] + [f"tools_torch/{m}.py" for m in (
                 "scenes", "refine_bench", "earth_frame_bench", "flythrough_bench",
-                "material_frame_bench", "raster_bench")],
+                "material_frame_bench", "raster_bench", "multi_view_bench",
+                "fetch_kernel_sweep", "census_frame", "earth_census",
+                "preprocess_compute_bench")],
     }[what]
     for module in expected:
         assert module in names

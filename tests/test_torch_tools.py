@@ -2,9 +2,11 @@
 
 Each runs on the port at a shrunk size (the bench scene's atlas cut to 8
 slots and, where the scene's tiles are sampled, its capacity to 512; the
-flythrough's frames to 6 and its data lods to 2; one timed call a row)
-and prints its keys: the JAX tool's JSON keys, or its rows. On the CPU a
-row is host wall, named so, never a device time.
+flythrough's frames to 6 and its data lods to 2; the fetch sweep's quads to
+512; the frame census's capacity to 512; the preprocess compute bench's
+tiles to 64^2 from a 256^2 source; one timed call a row) and prints its
+keys: the JAX tool's JSON keys, or its rows. On the CPU a row is host wall
+or host self time, named so, never a device time.
 
 ``refine_bench``'s ``refine_tiles`` tile count on the bench scene equals
 the JAX ``refine_tiles`` count on tools/multi_view_bench.py's
@@ -21,7 +23,9 @@ import tools_torch.scenes as scenes
 from bevy_terrain_tpu_torch.utils import timing
 from tests.test_torch_patch_sampling import one_torch_thread  # noqa: F401 (autouse)
 from tools_torch import (
-    earth_frame_bench, flythrough_bench, material_frame_bench, raster_bench, refine_bench,
+    census_frame, earth_census, earth_frame_bench, fetch_kernel_sweep, flythrough_bench,
+    material_frame_bench, multi_view_bench, preprocess_compute_bench, raster_bench,
+    refine_bench,
 )
 
 
@@ -135,8 +139,71 @@ def test_raster_bench_prints_its_rows(capsys, small_scene):
     assert 0.0 < got["coverage"] <= 1.0 and got["timing"] == "CPU wall"
 
 
+def test_multi_view_bench_prints_its_rows(capsys, small_scene):
+    got = multi_view_bench.main(["--cpu"])
+    out = capsys.readouterr().out
+    print(out)
+    for row in ("single view:", "two views, one card, shared atlas:", "per-view ratio",
+                "MultiViewTerrain (staged grid path): ok"):
+        assert row in out, row
+    assert got["timing"] == "CPU wall" and got["single_us"] > 0 and got["double_us"] > 0
+    # capacity 512: the bench camera and the second one both fill it
+    assert got["single_tiles"] == 512 and got["double_tiles"] == [512, 512]
+    assert got["multi_view_tiles"] > 0 and not got["multi_view_fused"]
+
+
+def test_fetch_kernel_sweep_holds_k7_to_the_staged_functions(capsys, one_timed_call):
+    from bevy_terrain_tpu_torch.ops import kernels
+
+    waves = kernels.HALFGRID_WAVES
+    got = fetch_kernel_sweep.main(["--cpu", "3", "512"])
+    out = capsys.readouterr().out
+    print(out)
+    assert "waves=3 max |kernel - staged|" in out and "waves=3 CPU wall:" in out
+    assert got["waves"] == 3 and got["tiles"] == 8192 and got["n_blocks"] == 512
+    assert got["max_abs_err"] < 1e-2 and got["timing"] == "CPU wall"
+    assert kernels.HALFGRID_WAVES == waves  # the sweep's setting is undone
+
+
+def test_census_frame_prints_its_top_ops(monkeypatch, capsys):
+    monkeypatch.setattr(scenes, "ATLAS_SLOTS", 8)
+    monkeypatch.setattr(census_frame, "CAPACITY", 512)
+    got = census_frame.main(["--cpu"])
+    out = capsys.readouterr().out
+    print(out)
+    assert "census_frame: CPU self time total" in out
+    assert got["timing"] == "CPU self time" and got["total_ms"] > 0
+    assert got["tiles"] == 512 and len(got["top"]) == 30
+    assert all(ms > 0 for _, _, ms in got["top"])
+
+
+def test_earth_census_prints_its_top_ops(capsys):
+    got = earth_census.main(["--cpu"])
+    out = capsys.readouterr().out
+    print(out)
+    assert "earth_census: CPU self time total" in out and len(got["top"]) == 30
+    # the 60 km Earth frame of tools/earth_frame_bench.py (PERF.md section 4)
+    assert got["tiles"] == 1512 and got["overflow"] == 0
+
+
+def test_preprocess_compute_bench_prints_its_rows(monkeypatch, capsys):
+    monkeypatch.setattr(preprocess_compute_bench, "TS", 64)
+    monkeypatch.setattr(preprocess_compute_bench, "SOURCE", 256)
+    got = preprocess_compute_bench.main(["--cpu"])
+    out = capsys.readouterr().out
+    print(out)
+    for row in ("CPU torch ops compute:", "host compute:", "ratio:"):
+        assert row in out, row
+    # 4 lods of 8^2 + 4^2 + 2^2 + 1 tiles stitched, plus the 64 split: the
+    # JAX tool's counts
+    assert got["device_tiles"] == 85 + 64 and got["host_tiles"] == 85
+    assert got["timing"] == "CPU torch ops" and got["ratio"] > 0
+
+
 @pytest.mark.parametrize("tool", [refine_bench, material_frame_bench, raster_bench,
-                                  earth_frame_bench, flythrough_bench],
+                                  earth_frame_bench, flythrough_bench, multi_view_bench,
+                                  fetch_kernel_sweep, census_frame, earth_census,
+                                  preprocess_compute_bench],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_tools_run_on_the_card_by_default(tool, monkeypatch):
     """No fallback: without ``--cpu`` a tool asks for the card, and raises

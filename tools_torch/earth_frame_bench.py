@@ -27,6 +27,74 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
+RADIUS = 6_371_000.0
+MAX_HEIGHT = 9_000.0
+LODS = 13
+DATA_LODS = 3
+
+
+def earth_terrain(device, capacity: int, queue: int):
+    """The Earth scene's terrain on ``device``: six 256^2 synthetic faces
+    preprocessed into 3 data lods of 512^2 R16 tiles (a 512-slot atlas),
+    13 geometry lods, one culled view "cam"."""
+    import bevy_terrain_tpu_torch as bt
+    from bevy_terrain_tpu_torch.math.coordinate import local_position_from_side_uv
+    from bevy_terrain_tpu_torch.models import height_attachment
+    from bevy_terrain_tpu_torch.terrain_data import TileAtlas
+    from examples_torch import sources
+
+    def planet(p):
+        return np.clip(
+            0.5 + 0.3 * np.sin(3 * p[..., 0]) * np.cos(2 * p[..., 2]), 0.05, 1.0
+        )
+
+    tmp = Path(tempfile.mkdtemp(prefix="earth_bench_"))
+    n = 256
+    uv = (np.arange(n) + 0.5) / n
+    uu, vv = np.meshgrid(uv, uv, indexing="xy")
+    grid_uv = np.stack([uu, vv], axis=-1)
+    faces = {}  # the 16-bit PNGs the JAX tool writes, as they read back
+    for side in range(6):
+        p = local_position_from_side_uv(side, grid_uv)
+        path = tmp / f"f{side}.png"
+        faces[str(path)] = sources.height_source(planet(p), path)
+
+    config = bt.TerrainConfig(
+        lod_count=LODS,
+        model=bt.TerrainModel.sphere(np.zeros(3), RADIUS, 0.0, MAX_HEIGHT),
+        atlas_size=512,
+        path="earth",
+        assets_root=str(tmp / "assets"),
+        attachments=(height_attachment(texture_size=512, mips=4),),
+    )
+    atlas = TileAtlas(config, device)
+    bt.Preprocessor(atlas, loader=sources.loader(faces)).clear_attachment(
+        0).preprocess_spherical(
+        bt.SphericalDataset(attachment_index=0, paths=list(faces),
+                            lod_range=range(0, DATA_LODS))
+    ).run(verbose=False)
+
+    terrain = bt.Terrain(config, device=device)
+    terrain.add_view(
+        "cam", bt.TerrainViewConfig(tile_capacity=capacity),
+        queue_capacity=queue, culling=True,
+    )
+    return terrain
+
+
+def settle(terrain, view, view_proj):
+    """Stream until no tile is queued or loading (at least 5 frames), then
+    one more frame: its output for "cam"."""
+    for i in range(200):
+        terrain.update({"cam": view}, {"cam": view_proj})
+        if i > 3 and not terrain.atlas.state.to_load and not any(
+            a.loading for a in terrain.atlas.attachments
+        ):
+            break
+        time.sleep(0.01)
+    return terrain.update({"cam": view}, {"cam": view_proj})["cam"]
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cpu", action="store_true")
@@ -47,70 +115,18 @@ def main(argv=None) -> dict:
     device = "cpu" if args.cpu else "cuda"
     # (the JAX tool's jax_compilation_cache_dir has no counterpart here)
 
-    import bevy_terrain_tpu_torch as bt
-    from bevy_terrain_tpu_torch.math.coordinate import local_position_from_side_uv
     from bevy_terrain_tpu_torch.math.frustum import view_projection
-    from bevy_terrain_tpu_torch.models import height_attachment
-    from bevy_terrain_tpu_torch.terrain_data import TileAtlas
     from bevy_terrain_tpu_torch.utils.timing import benchmark, device_time_ms
-    from examples_torch import sources
 
-    R = 6_371_000.0
-    MAXH = 9_000.0
-    LODS = 13
-    DATA_LODS = 3
-
-    def planet(p):
-        return np.clip(
-            0.5 + 0.3 * np.sin(3 * p[..., 0]) * np.cos(2 * p[..., 2]), 0.05, 1.0
-        )
-
-    tmp = Path(tempfile.mkdtemp(prefix="earth_bench_"))
-    n = 256
-    uv = (np.arange(n) + 0.5) / n
-    uu, vv = np.meshgrid(uv, uv, indexing="xy")
-    grid_uv = np.stack([uu, vv], axis=-1)
-    faces = {}  # the 16-bit PNGs the JAX tool writes, as they read back
-    for side in range(6):
-        p = local_position_from_side_uv(side, grid_uv)
-        path = tmp / f"f{side}.png"
-        faces[str(path)] = sources.height_source(planet(p), path)
-
-    config = bt.TerrainConfig(
-        lod_count=LODS,
-        model=bt.TerrainModel.sphere(np.zeros(3), R, 0.0, MAXH),
-        atlas_size=512,
-        path="earth",
-        assets_root=str(tmp / "assets"),
-        attachments=(height_attachment(texture_size=512, mips=4),),
-    )
-    atlas = TileAtlas(config, device)
-    bt.Preprocessor(atlas, loader=sources.loader(faces)).clear_attachment(
-        0).preprocess_spherical(
-        bt.SphericalDataset(attachment_index=0, paths=list(faces),
-                            lod_range=range(0, DATA_LODS))
-    ).run(verbose=False)
-
-    terrain = bt.Terrain(config, device=device)
-    terrain.add_view(
-        "cam", bt.TerrainViewConfig(tile_capacity=args.capacity),
-        queue_capacity=args.queue, culling=True,
-    )
+    terrain = earth_terrain(device, args.capacity, args.queue)
     if args.adaptive:
         terrain.enable_adaptive_capacity(
             "cam", ladder=[1024, 2048, 4096], headroom=args.headroom
         )
 
-    view = np.array([0.0, 0.0, R + args.altitude_km * 1e3])
+    view = np.array([0.0, 0.0, RADIUS + args.altitude_km * 1e3])
     vp = view_projection(view, view * 0.5, np.pi / 3, 16 / 9)
-    for i in range(200):
-        out = terrain.update({"cam": view}, {"cam": vp})
-        if i > 3 and not terrain.atlas.state.to_load and not any(
-            a.loading for a in terrain.atlas.attachments
-        ):
-            break
-        time.sleep(0.01)
-    out = terrain.update({"cam": view}, {"cam": vp})["cam"]
+    out = settle(terrain, view, vp)
     tiles = out.tile_count
     overflow = out.overflow
 

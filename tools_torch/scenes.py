@@ -26,7 +26,7 @@ from bevy_terrain_tpu_torch.ops import patch_sampling, tile_tree
 from bevy_terrain_tpu_torch.ops.params import (
     StaticTerrainConfig, pack_frame_uniforms, unpack_frame_uniforms,
 )
-from bevy_terrain_tpu_torch.utils.timing import benchmark, device_time_ms
+from bevy_terrain_tpu_torch.utils.timing import benchmark, device_breakdown, device_time_ms
 
 TEXTURE_SIZE, BORDER, LOD_COUNT, SIDE = 512, 2, 5, 8000.0
 ATLAS_SLOTS = 1024
@@ -90,3 +90,31 @@ def time_ms(fn, *args, label: str = "bench", on_card: bool = True):
     if on_card:
         return device_time_ms(fn, *args, label=label), "device"
     return benchmark(fn, *args, n=3, warmup=1)["min_ms"], "CPU wall"
+
+
+def top_ops(fn, *args, label: str = "census", on_card: bool = True, n: int = 30) -> dict:
+    """Print and return where ``fn(*args)``'s time goes, per call: on the
+    card its CUDA kernels by self device time (:func:`device_breakdown`,
+    kernels only), or on the CPU its ops by self host time in one profiled
+    call (not a device time). Prints the total and the first ``n`` rows
+    (ms, launches or calls, name)."""
+    if on_card:
+        total, rows = device_breakdown(fn, *args, label=label)
+        what = "device"
+    else:
+        from torch.profiler import ProfilerActivity, profile
+
+        fn(*args)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn(*args)
+        rows = sorted(((e.key, e.count, e.self_cpu_time_total / 1e3)
+                       for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                      key=lambda r: -r[2])
+        total, what = sum(r[2] for r in rows), "CPU self time"
+    calls = sum(r[1] for r in rows)
+    print(f"{label}: {what} total {total:.3f} ms per call, {calls} "
+          f"{'kernels' if on_card else 'ops'}")
+    for name, count, ms in rows[:n]:
+        print(f"{ms:9.3f} ms {count:5d}x  {name[:70]}")
+    return {"timing": what, "total_ms": total, "launches": calls,
+            "top": [(name, count, ms) for name, count, ms in rows[:n]]}
