@@ -43,7 +43,10 @@ def atlas_from_numpy(atlas: TileAtlas, block_arrays, host_data, tile_states) -> 
       tile_states: mapping ``(side, lod, x, y) -> (atlas_index, requests,
         loading_remaining)`` of the resident tiles.
 
-    Pending loads and staged uploads are dropped. Returns ``atlas``.
+    Pending loads and staged uploads are dropped. The native runtime's
+    residency machine cannot be handed slots, so the filled state runs the
+    Python machine from here on (``TileAtlasState(use_native=False)``'s
+    path, the oracle the native one is fuzzed against). Returns ``atlas``.
     """
     for att, blocks, data in zip(atlas.attachments, block_arrays, host_data):
         if isinstance(blocks, (list, tuple)):
@@ -67,6 +70,7 @@ def atlas_from_numpy(atlas: TileAtlas, block_arrays, host_data, tile_states) -> 
         att.data = [None if d is None else np.asarray(d) for d in data]
 
     state = atlas.state
+    state._native = None
     state.tile_states.clear()
     state.to_load.clear()
     state.unused_tiles = OrderedDict(

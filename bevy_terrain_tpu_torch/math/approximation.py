@@ -65,6 +65,26 @@ class TerrainModelApproximation:
         view_world_position = np.asarray(view_world_position, np.float64)
         origin_count = float(1 << origin_lod)
 
+        from bevy_terrain_tpu_torch import native
+
+        if model.kind == "spherical" and native.available():
+            # C++ full path for true spheres (tr_taylor_from_world): face
+            # pick + warp + 6-side projection + derivative chain, one call;
+            # ellipsoids keep the host bisection projector below.
+            # Fuzz-tested in test_torch_native.py.
+            m = np.asarray(model.world_from_local, np.float64)
+            lm = np.asarray(model.local_from_world, np.float64)
+            oxy, ouv, co = native.taylor_from_world(
+                view_world_position, m[:3, :4], lm[:3, :4], origin_count
+            )
+            return TerrainModelApproximation(
+                origin_lod=origin_lod,
+                approximate_height=float(approximate_height),
+                origin_xy=oxy, origin_uv=ouv,
+                c=co[0], c_s=co[1], c_t=co[2],
+                c_ss=co[3], c_st=co[4], c_tt=co[5],
+            )
+
         view_coordinate = Coordinate.from_world_position(view_world_position, model)
 
         # vectorized over all 6 sides at once (same math as the reference's
@@ -98,12 +118,30 @@ class TerrainModelApproximation:
                 c=zero, c_s=zero, c_t=zero, c_ss=zero, c_st=zero, c_tt=zero,
             )
 
+        from bevy_terrain_tpu_torch import native
+
+        if native.available():
+            # C++ path (terrain_runtime.cpp tr_taylor_spherical): the same
+            # f64 chain as below without numpy's small-array overhead;
+            # fuzz-tested in test_torch_native.py
+            m3x4 = np.asarray(model.world_from_local, np.float64)[:3, :4]
+            oxy, ouv, co = native.taylor_spherical(
+                uv, view_world_position, m3x4, origin_count
+            )
+            return TerrainModelApproximation(
+                origin_lod=origin_lod,
+                approximate_height=float(approximate_height),
+                origin_xy=oxy, origin_uv=ouv,
+                c=co[0], c_s=co[1], c_t=co[2],
+                c_ss=co[3], c_st=co[4], c_tt=co[5],
+            )
+
         s = uv[:, 0]
         t = uv[:, 1]  # (6,)
 
         # u(s) = (2s-1)/sqrt(1-4Cs(s-1)), v(t) likewise
         # (reference terrain_model.rs:279-302). Powers are repeated
-        # products, as the JAX package's native runtime computes them.
+        # products, as the native runtime computes them.
         ud = np.sqrt(1.0 - 4.0 * C_SQR * s * (s - 1.0))
         u = (2.0 * s - 1.0) / ud
         u_ds = 2.0 * (C_SQR + 1.0) / (ud * ud * ud)
@@ -149,7 +187,7 @@ class TerrainModelApproximation:
         c_dtt = 2.0 * v * l_dt * l_dt - l * (2.0 * v_dt * l_dt + v * l_dtt) + v_dtt * l * l
 
         # per side: rotate (a, b, c) into cube xyz, scale by 1/l^power, map
-        # to world. Written as the JAX package's native runtime writes it
+        # to world. Written as the native runtime writes it
         # (terrain_runtime.cpp tr_taylor_spherical: explicit 3-term sums,
         # 1/l^power by repeated division, c = w + (translation - view)), so
         # the f32 coefficients match it bit for bit, signs of zero included

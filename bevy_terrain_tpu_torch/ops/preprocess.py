@@ -15,8 +15,9 @@ of the reference's preprocess compute shaders (src/shaders/preprocess/):
   neighbours with the cube-sphere cross-face texel remap, falling back to
   clamp-repeat of the tile's own edge when a neighbour is missing.
 
-These are the numpy branches of the JAX module, which it keeps
-bit-identical to its C++ runtime's (that runtime is not ported yet). The
+The 2-tap split and the downsample run in the native runtime
+(native/terrain_runtime.cpp) unless ``BT_DISABLE_NATIVE=1``; their numpy
+branches, bit-identical to it, stay as the fallback and the oracles. The
 dense tent products ``_resize_rows`` / ``_resize_cols`` are torch ops in
 full f32 and serve ``split_mosaic(use_device=...)``, as in the JAX module;
 the preprocessor's device path splits with
@@ -149,17 +150,27 @@ def split_mosaic(
         # computed here with the same f64->f32 rounding and the same
         # y-pass-then-x-pass f32 intermediate), without the dense (P, W)
         # matrices
-        xw0, xw1, x0i, x1i = _tap_weights(px, W)
-        for y0 in range(0, P, row_band):
-            yw0, yw1, y0i, y1i = _tap_weights(py[y0 : y0 + row_band], H)
-            band = (
-                source[y0i] * yw0[:, None, None]
-                + source[y1i] * yw1[:, None, None]
-            )  # (band, W, C) f32
-            bands.append(
-                band[:, x0i] * xw0[None, :, None]
-                + band[:, x1i] * xw1[None, :, None]
-            )
+        from bevy_terrain_tpu_torch import native as _native
+
+        if _native.available():
+            for y0 in range(0, P, row_band):
+                bands.append(
+                    _native.split_bilinear(
+                        source, px, py[y0 : y0 + row_band]
+                    )
+                )
+        else:
+            xw0, xw1, x0i, x1i = _tap_weights(px, W)
+            for y0 in range(0, P, row_band):
+                yw0, yw1, y0i, y1i = _tap_weights(py[y0 : y0 + row_band], H)
+                band = (
+                    source[y0i] * yw0[:, None, None]
+                    + source[y1i] * yw1[:, None, None]
+                )  # (band, W, C) f32
+                bands.append(
+                    band[:, x0i] * xw0[None, :, None]
+                    + band[:, x1i] * xw1[None, :, None]
+                )
     mosaic = np.concatenate(bands, axis=0)  # (P, P, C)
 
     # validity: all 4 gather taps of CHANNEL 0 nonzero — the reference
@@ -197,8 +208,8 @@ def extract_tile_from_mosaic(
     """Cut one tile out of the mosaic: center texels from the resample
     (where valid), borders zero, invalid texels keep existing data
     (split.wgsl:19-42). ``quantized`` optionally passes the whole mosaic
-    already quantized to ``dtype`` (bit-identical to the per-tile formula
-    below) so the hot path is a plain slice copy."""
+    already quantized to ``dtype`` (native.quantize — bit-identical to the
+    per-tile formula below) so the hot path is a plain slice copy."""
     center = texture_size - 2 * border_size
     y0, x0 = tile_y * center, tile_x * center
     v = valid[y0 : y0 + center, x0 : x0 + center]
@@ -229,10 +240,18 @@ def downsample_tile(
     borders zero. ``children`` ordered (2x, 2y), (2x+1, 2y), (2x, 2y+1),
     (2x+1, 2y+1) (coordinate.rs:197-206); missing children count as nodata.
 
-    The JAX package dispatches this to its C++ runtime (same f64
-    accumulation and half-to-even rounding, parity-fuzzed there); until that
-    runtime is ported, it is :func:`downsample_tile_numpy`.
+    Dispatches to the C++ twin unless ``BT_DISABLE_NATIVE=1`` (same f64
+    accumulation and half-to-even rounding; parity-fuzzed in
+    test_torch_native.py); :func:`downsample_tile_numpy` stays as the oracle.
     """
+    c = next((ch for ch in children if ch is not None), None)
+    if c is not None and c.dtype in (np.uint8, np.uint16):
+        from bevy_terrain_tpu_torch import native as _native
+
+        if _native.available():
+            return _native.downsample(
+                children, texture_size, border_size, c.dtype, c.shape[-1]
+            )
     return downsample_tile_numpy(children, texture_size, border_size)
 
 

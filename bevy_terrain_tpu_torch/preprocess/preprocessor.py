@@ -11,7 +11,8 @@ the phases.
 Tasks are processed in whole-lod batches. Three paths write the same
 artifacts:
 
-* the host path: numpy per tile (ops/preprocess.py);
+* the host path: numpy per tile, its split, quantize and downsample in
+  the native runtime (ops/preprocess.py, native/);
 * the device path, ``readback="full"``: split, downsample and stitch as
   torch ops over whole-lod stacks on the atlas's device
   (ops/preprocess_device.py), the stacks held there at the format's stored
@@ -45,6 +46,7 @@ from bevy_terrain_tpu_torch.ops import preprocess_device as ppd
 from bevy_terrain_tpu_torch.ops.preprocess import (
     _tap_weights,
     downsample_tile,
+    downsample_tile_numpy,
     extract_tile_from_mosaic,
     split_mosaic,
     stitch_tile,
@@ -148,9 +150,9 @@ class Preprocessor:
         of at most ``_CHUNK_BYTES`` of f32 tiles, whichever is fewer. The
         bytes written do not depend on it.
 
-        ``naive=True`` pins the single-thread numpy CPU-reference oracle's
-        split (dense tent matmuls; every host downsample here is numpy, the
-        JAX package's oracle). Output stays byte-identical to the host path.
+        ``naive=True`` pins the single-thread numpy CPU-reference oracle
+        (dense tent-matmul split, numpy downsample, no native helpers).
+        Output stays byte-identical to every other path.
 
         ``readback`` (device path only) selects how stitched tiles return
         to the host: ``"full"`` (the default) reads whole stitched stacks
@@ -268,21 +270,32 @@ class Preprocessor:
             source, finest, cfg.center_size, dataset.top_left,
             dataset.bottom_right, naive=self.naive,
         )
+        # quantize the whole mosaic once (bit-identical to the per-tile
+        # formula; C++ single pass) so extraction is a plain slice copy
+        quantized = None
+        dtype = np.dtype(cfg.format.dtype)
+        if not self.naive and dtype in (np.uint8, np.uint16):
+            from bevy_terrain_tpu_torch import native as _native
+
+            if _native.available():
+                quantized = _native.quantize(mosaic, cfg.format.max_value, dtype)
         for c in dataset.overlapping_tiles(finest):
             atlas_index = self.atlas.state.get_or_allocate_tile(c)
             existing = attachment.data[atlas_index]
             attachment.data[atlas_index] = extract_tile_from_mosaic(
                 mosaic, valid, c.x, c.y, cfg.texture_size, cfg.border_size,
                 cfg.format.dtype, cfg.format.max_value, existing,
+                quantized=quantized,
             )
 
     def _downsample_host(self, dataset: PreprocessDataset, lod: int) -> None:
         attachment = self._attachment(dataset)
         cfg = attachment.config
+        downsample = downsample_tile_numpy if self.naive else downsample_tile
         for c in dataset.overlapping_tiles(lod):
             children = [self._data(attachment, child) for child in c.children()]
             atlas_index = self.atlas.state.get_or_allocate_tile(c)
-            attachment.data[atlas_index] = downsample_tile(
+            attachment.data[atlas_index] = downsample(
                 children, cfg.texture_size, cfg.border_size
             )
 

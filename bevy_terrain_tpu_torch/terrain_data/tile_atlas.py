@@ -4,8 +4,10 @@ Torch twin of the JAX package's ``terrain_data/tile_atlas.py`` (behavioral
 twin of the reference's ``TileAtlas``, tile_atlas.rs):
 
 * **Residency state machine (host)** — ``TileAtlasState``, copied from the
-  JAX package's Python path: request-counted tiles, FIFO of unused slots as
-  LRU cache, bounded load/save slot budgets, best-loaded-ancestor lookup.
+  JAX package: request-counted tiles, FIFO of unused slots as LRU cache,
+  bounded load/save slot budgets, best-loaded-ancestor lookup; every
+  transition mirrored into the native runtime's machine
+  (native/terrain_runtime.cpp), which walks the best tiles.
 * **Async file IO (host)** — thread-pool load/save of raw ``.bin`` tile
   payloads with mip generation at load. The pool only reads files and
   builds numpy mips; device uploads happen in :meth:`TileAtlas.flush_uploads`
@@ -236,8 +238,16 @@ class AtlasAttachment:
         if atlas_index == INVALID_ATLAS_INDEX or self.data[atlas_index] is None:
             return np.zeros(4)
         uv = np.asarray(atlas_uv) * self.config.scale + self.config.offset
+        data = self.data[atlas_index]
+        from bevy_terrain_tpu_torch import native
+
+        if np.ndim(uv) == 1 and native.available() and data.flags.c_contiguous:
+            # C++ single-tap path (terrain_runtime.cpp tr_sample_bilinear):
+            # identical math, without the numpy chain's per-call overhead
+            # for scalar queries
+            return native.sample_bilinear(data, uv, self.config.format.max_value)
         return attachment_io.sample_bilinear_host(
-            self.data[atlas_index], uv, self.config.format.max_value
+            data, uv, self.config.format.max_value
         )
 
 
@@ -251,10 +261,30 @@ class AtlasTileAttachment:
 
 
 class TileAtlasState:
-    """Residency state machine (reference tile_atlas.rs:282-504), the JAX
-    package's Python path."""
+    """Residency state machine (reference tile_atlas.rs:282-504).
 
-    def __init__(self, atlas_size: int, attachment_count: int, existing_tiles):
+    Unless ``BT_DISABLE_NATIVE=1`` or ``use_native=False``, every state
+    transition is mirrored into the native runtime's C++ machine
+    (bevy_terrain_tpu_torch/native) and the per-frame ``get_best_tiles``
+    batch walk runs natively (the Python walk remains the oracle —
+    equivalence is fuzz-tested in tests/test_torch_native.py).
+    """
+
+    def __init__(self, atlas_size: int, attachment_count: int, existing_tiles,
+                 use_native: Optional[bool] = None):
+        from bevy_terrain_tpu_torch import native as native_mod
+
+        if use_native is None:
+            use_native = native_mod.available()
+        self._native = (
+            native_mod.NativeResidency(atlas_size, attachment_count)
+            if use_native
+            else None
+        )
+        if self._native is not None and existing_tiles:
+            self._native.add_existing(
+                np.array([self._key(t) for t in existing_tiles], np.int64)
+            )
         self.tile_states: dict[TileCoordinate, _TileState] = {}
         # FIFO of unused slots == LRU cache (tile_atlas.rs:506-515)
         self.unused_tiles: OrderedDict[int, TileCoordinate] = OrderedDict(
@@ -297,6 +327,8 @@ class TileAtlasState:
         state.loading_remaining -= 1
         if state.loading_remaining == 0:
             self._loaded_dirty = True
+        if self._native is not None:
+            self._native.loaded(self._key(tile.coordinate))
 
     def saved_tile_attachment(self) -> None:
         self.save_slots += 1
@@ -328,6 +360,8 @@ class TileAtlasState:
         tile existing + Loaded immediately."""
         if coordinate == TileCoordinate.INVALID:
             return INVALID_ATLAS_INDEX
+        if self._native is not None:
+            self._native.get_or_allocate(self._key(coordinate))
         self.existing_tiles.add(coordinate)
         state = self.tile_states.get(coordinate)
         if state is not None:
@@ -354,6 +388,9 @@ class TileAtlasState:
             self._denied[coordinate] = self._denied.get(coordinate, 0) + 1
             self.exhausted_requests += 1
             return
+        if self._native is not None:
+            self._native.request(self._key(coordinate))
+            self._native.drain_loads()  # Python to_load is authoritative
         state = self.tile_states.get(coordinate)
         if state is not None:
             if state.requests == 0:
@@ -392,6 +429,8 @@ class TileAtlasState:
             else:
                 self._denied[coordinate] = denied - 1
             return
+        if self._native is not None:
+            self._native.release(self._key(coordinate))
         state = self.tile_states.get(coordinate)
         if state is None:
             raise RuntimeError("Tried releasing a tile, which is not present.")
@@ -399,7 +438,8 @@ class TileAtlasState:
             # Over-release of a cached (requests == 0, LRU-resident) tile:
             # the reference underflows its u32 refcount here in release
             # builds (tile_atlas.rs:459-475). Guard + loud counter instead,
-            # mirroring the graceful-exhaustion precedent above.
+            # mirroring the graceful-exhaustion precedent above. The
+            # native backend applies the identical guard (fuzz parity).
             self.release_underflows += 1
             return
         state.requests -= 1
@@ -425,6 +465,10 @@ class TileAtlasState:
         """Vectorized parent walk: for each (side, lod, x, y) find the
         deepest loaded ancestor. Returns (atlas_index, atlas_lod) int32
         arrays (INVALID where nothing is loaded)."""
+        if self._native is not None:
+            shape = np.asarray(side).shape
+            idx, lod_out = self._native.best_tiles(side, lod, x, y)
+            return idx.reshape(shape), lod_out.reshape(shape)
         self._refresh_loaded()
         side = np.asarray(side, np.int64)
         lod = np.asarray(lod, np.int64)

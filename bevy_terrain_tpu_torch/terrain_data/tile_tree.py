@@ -114,11 +114,21 @@ class TileTree:
         return world + self.approximate_height * n
 
     def compute_requests(self, view_world_position) -> None:
-        """Reference ``compute_requests`` + ``update`` (tile_tree.rs:268-359),
-        as one vectorized numpy f64 scan."""
+        """Reference ``compute_requests`` + ``update`` (tile_tree.rs:268-359).
+
+        Runs the C++ scan (native/terrain_runtime.cpp::tr_scan_requests)
+        unless ``BT_DISABLE_NATIVE=1`` — identical f64 math without numpy's
+        per-call interpreter overhead; the vectorized numpy scan below
+        remains the fallback and the fuzz oracle (test_torch_native.py).
+        """
         model = self.model
         self.view_world_position = np.asarray(view_world_position, np.float64)
         S, L, T = model.side_count, self.lod_count, self.tree_size
+
+        if self._use_native_scan():
+            self._compute_anchors_native()
+            self._compute_requests_native()
+            return
 
         self.origins, self.view_tile_int, self.view_tile_frac = compute_view_anchors(
             model, self.view_world_position, L, T
@@ -155,6 +165,87 @@ class TileTree:
         self.requested_tiles = self._collect(request_new, new_xy)
         self.tile_xy = new_xy
         self.tile_requested = new_requested
+
+    def _use_native_scan(self) -> bool:
+        if getattr(self, "_native_scan", None) is None:
+            from bevy_terrain_tpu_torch import native
+
+            self._native_scan = native.available()
+        return self._native_scan
+
+    def _compute_anchors_native(self) -> None:
+        """Per-frame view anchors via the C++ runtime (tr_project_view_uv +
+        tr_view_anchors), written into the preallocated (S, L, 2) arrays.
+        Ellipsoids keep the host bisection projector for the view
+        coordinate; the anchor loop is still native."""
+        from bevy_terrain_tpu_torch import native
+
+        model = self.model
+        if model.kind == "spherical":
+            side_uv = native.project_view_uv(self.view_world_position, self._scan_lm)
+        elif model.kind == "planar":
+            lm = self._scan_lm
+            x, y, z = self.view_world_position
+            u = lm[0, 0] * x + lm[0, 1] * y + lm[0, 2] * z + lm[0, 3] + 0.5
+            w = lm[2, 0] * x + lm[2, 1] * y + lm[2, 2] * z + lm[2, 3] + 0.5
+            side_uv = np.array(
+                [[min(max(u, 0.0), 1.0), min(max(w, 0.0), 1.0)]]
+            )
+        else:
+            vc = Coordinate.from_world_position(self.view_world_position, model)
+            side_uv = np.empty((model.side_count, 2), np.float64)
+            for side in range(model.side_count):
+                side_uv[side] = vc.project_to_side(side, model).uv
+        native.view_anchors(
+            side_uv, self.lod_count, self.tree_size,
+            self.origins, self.view_tile_int, self.view_tile_frac,
+        )
+
+    @property
+    def _scan_lm(self) -> np.ndarray:
+        lm = getattr(self, "_scan_lm_cache", None)
+        if lm is None:
+            lm = np.ascontiguousarray(
+                np.asarray(self.model.local_from_world, np.float64)[:3, :4]
+            )
+            self._scan_lm_cache = lm
+        return lm
+
+    def _compute_requests_native(self) -> None:
+        from bevy_terrain_tpu_torch import native
+
+        model = self.model
+        m = getattr(self, "_scan_m_cache", None)
+        if m is None:
+            m = np.ascontiguousarray(
+                np.asarray(model.world_from_local, np.float64)[:3, :4]
+            )
+            self._scan_m_cache = m
+            self._scan_inv_cache = np.ascontiguousarray(np.linalg.inv(m[:3, :3]))
+        inv_m3 = self._scan_inv_cache
+        rel, req = native.scan_requests(
+            1 if model.is_spherical else 0,
+            m, inv_m3,
+            np.ascontiguousarray(self.view_world_position, np.float64),
+            self.approximate_height, self.load_distance,
+            np.ascontiguousarray(self.origins, np.int32),
+            np.ascontiguousarray(self.view_tile_int, np.int32),
+            np.ascontiguousarray(self.view_tile_frac, np.float64),
+            self.tile_xy, self.tile_requested,
+        )
+        self.released_tiles = self._from_keys(rel)
+        self.requested_tiles = self._from_keys(req)
+
+    @staticmethod
+    def _from_keys(keys: np.ndarray) -> list[TileCoordinate]:
+        sides = keys >> 57
+        lods = (keys >> 52) & 0x1F
+        xs = (keys >> 26) & 0x3FFFFFF
+        ys = keys & 0x3FFFFFF
+        return [
+            TileCoordinate(int(s), int(l), int(x), int(y))
+            for s, l, x, y in zip(sides, lods, xs, ys)
+        ]
 
     def _collect(self, mask: np.ndarray, xy: np.ndarray) -> list[TileCoordinate]:
         sides, lods, xs, ys = (

@@ -7,6 +7,9 @@
    prints each kernel's registers and shared memory (``ptxas -v``) and its
    blocks per SM on this card (the library's ``kernel_occupancy`` query);
    fails if K1, K6 or K7 holds fewer than 4 blocks per SM or K2 fewer than 3.
+   Then builds the native host runtime (``native/terrain_runtime.cpp``,
+   g++) and prints a ``native:`` line: ``uname -m``, ``g++ --version``, the
+   flags, the build seconds, the hash of source and flags, the card.
 2. Planar kernel phase, at the frame's real shapes (the bench.py scene: 8k^2
    planar terrain, 5 lods, tile capacity 4096, culled camera, a 1024-slot
    random atlas): refinement and patch plan on the card against the same
@@ -45,7 +48,24 @@
    of resident blocks in turns, the outputs bit-equal at each. Then the
    staged mesh (``meshgen.generate_mesh_grid``) against the fused mesh
    kernel on the same tiles.
-6. Main paths: a synthetic 8k^2 planar dataset; a synthetic six-side
+6. Native path (``native_path``), first of the paths: the deep streaming
+   flythrough (tools_torch/flythrough_bench.py's scene, 120 frames) and the
+   sphere main path's planet (20 frames at 60 km, 20 at 3 km) through
+   ``Terrain.update`` with tile loads in step, and the preprocess host
+   path on the bench geometry's height (341 R16 tiles) and the interchange
+   fixture: run here with the native runtime, then twice in a child process
+   with ``BT_DISABLE_NATIVE=1`` (the numpy paths; ``python3 chip_smoke.py
+   --native-child DIR``), then here again. Every frame's sha256 (sorted
+   requested and released keys, entries, packed blob, ``raw_mesh``) and
+   every file written must be equal in the four runs, the fixture's 22
+   committed sha256 reproduced; each native entry point the path uses must
+   have run (``native.counts()``). ``native:`` lines give the host
+   prologue (scan; residency + IO; adjust, height, Taylor, pack) apart from
+   the device stage, per run in turns, medians and spreads on the host
+   clock; the preprocess tiles/s in turns. Then ``ops/tile_tree.py``'s
+   device twin of the scan on the card against its f64 host twin on each
+   scene's last frame: tile_xy equal, masks agreeing on over 99% of slots.
+7. Main paths: a synthetic 8k^2 planar dataset; a synthetic six-side
    planet, fused (the Taylor path) and then staged (``add_view(...,
    high_precision=False)``: ``generate_mesh_grid``, K6 once per frame and no
    mesh kernel), the two stages timed in turns; the planet with a
@@ -66,15 +86,15 @@
    and read just after), the output must be finite, in range and match the
    plain version; a torch.profiler pass breaks each device stage's time
    down by kernel.
-7. Query path, on the streamed planar terrain and on the planet with its
+8. Query path, on the streamed planar terrain and on the planet with its
    albedo: ``Terrain.query_heights`` / ``query_attachment`` on 65 536
    seeded world points, the card against the same ops on the CPU and
    against the host sampling API on 256 of them, timed; no kernel launches.
-8. Adaptive capacity path, on the planar terrain: a fly-in and two
+9. Adaptive capacity path, on the planar terrain: a fly-in and two
    teleports over the capacity ladder against the same path at the fixed
    capacity: no frame drops geometry, the teleport re-dispatches its frame,
    the settled frames are equal.
-9. Raster path (``render/raster.py``, torch ops, no kernel of its own), on
+10. Raster path (``render/raster.py``, torch ops, no kernel of its own), on
    two main paths' terrains after one more counted frame: the material
    frame (K4 in the frame) at 1920x1080 under the bench camera with
    tools/raster_bench.py's knobs, through ``Terrain.render_image`` per-pixel
@@ -86,7 +106,7 @@
    rasterize_grid's three phases; ``raster:`` lines with the card's name
    and power limit) and held to the same ``render_view`` on the CPU fed the
    card's frame products, at half the width and height.
-10. Preprocess path (``preprocess/``, ``ops/preprocess*.py``: torch ops and
+11. Preprocess path (``preprocess/``, ``ops/preprocess*.py``: torch ops and
    numpy, no kernel of its own), after the main paths, every source made in
    numpy from a seed and handed over by ``loader=`` (no PIL): the
    interchange fixture (its hashes in tools/interchange_expected.json,
@@ -109,7 +129,7 @@
    interchange fixture also runs with ``batch_tiles=3`` (3-tile chunks: the
    default's bytes), and ``device=None`` must decide by the device type
    alone (no transfer probe consulted).
-11. Entry points path (``entry_points_path``), after the preprocess path:
+12. Entry points path (``entry_points_path``), after the preprocess path:
    each example twin (examples_torch/: preprocess_planar, minimal, planar,
    preprocess_spherical, spherical, render_capture, in one assets directory)
    and each frame tool twin (tools_torch/: refine_bench, earth_frame_bench,
@@ -122,7 +142,7 @@
    the device path, the flythrough with no overflow frame and its tiles
    loaded. One ``entry:`` line per call: wall seconds, launches, the
    call's own numbers.
-12. Multi-view path (``multi_view_path``, ``parallel/``), last: four
+13. Multi-view path (``multi_view_path``, ``parallel/``), last: four
    distinct unculled cameras over a synthetic 8k^2 planar dataset through
    one ``MultiViewTerrain`` (capacity 4096): K1 exactly once per view per
    frame and nothing else, each view's tiles and mesh of the same sha256 as
@@ -2062,29 +2082,87 @@ def hold_full_path(got: dict, want: dict, dtype, what: str) -> float:
     return share
 
 
+def kit_source():
+    """The interchange fixture's source as load_source_image returns its
+    16-bit PNG (no PNG is read): (H, W, 1) f32 in [0, 1]."""
+    import numpy as np
+
+    from bevy_terrain_tpu_torch.utils.synthetic import INTERCHANGE as KIT, interchange_source
+
+    return interchange_source(KIT["source_size"])[..., None].astype(np.float32) / 65535.0
+
+
+def kit_config(root: Path):
+    """The interchange fixture's TerrainConfig over ``root``."""
+    import numpy as np
+
+    from bevy_terrain_tpu_torch import (
+        AttachmentConfig, AttachmentFormat, TerrainConfig, TerrainModel,
+    )
+    from bevy_terrain_tpu_torch.utils.synthetic import INTERCHANGE as KIT
+
+    return TerrainConfig(
+        lod_count=KIT["lod_count"],
+        model=TerrainModel.planar(np.zeros(3), KIT["terrain_size"], 0.0, KIT["height"]),
+        atlas_size=32, path=KIT["path"], assets_root=str(root),
+    ).add_attachment(AttachmentConfig(
+        name="height", texture_size=KIT["texture_size"],
+        border_size=KIT["border_size"], mip_level_count=KIT["mip_count"],
+        format=AttachmentFormat.R16))
+
+
+def kit_run(what: str, root: Path, card: str, **kw):
+    """One preprocess run of the interchange fixture into ``root``; returns
+    (the preprocessor, its files: config.tc and the tiles, by name)."""
+    from bevy_terrain_tpu_torch import PreprocessDataset
+    from bevy_terrain_tpu_torch.terrain_data import TileAtlas
+    from bevy_terrain_tpu_torch.utils.synthetic import INTERCHANGE as KIT
+
+    source, lods = kit_source(), KIT["lod_count"]
+    _, pre = preprocess_run(
+        f"{what} ({source.shape[0]}^2 R16 source, lods 0-{lods - 1}"
+        + (", batch_tiles=3)" if "batch_tiles" in kw else ")"),
+        TileAtlas(kit_config(root), "cuda"),
+        lambda p: p.clear_attachment(0).preprocess_tile(PreprocessDataset(
+            attachment_index=0, path="height.png", lod_range=range(0, lods))),
+        21, card, loader=lambda p, cfg: source, **kw)
+    out = {"config.tc": (root / KIT["path"] / "config.tc").read_bytes()}
+    for name, data in tile_files(root, KIT["path"], "height").items():
+        out[f"data/height/{name}"] = data
+    return pre, out
+
+
+def kit_expected() -> dict:
+    """The committed sha256 of the fixture's files (tools/interchange_expected.json,
+    read as data), by the names :func:`kit_run` gives them."""
+    from bevy_terrain_tpu_torch.utils.synthetic import INTERCHANGE as KIT
+
+    expected = json.loads((ROOT / "tools" / "interchange_expected.json").read_text())
+    prefix = f"assets/{KIT['path']}/"
+    return {k[len(prefix):]: v for k, v in expected.items() if k.startswith(prefix)}
+
+
+def kit_matches(files: dict) -> int:
+    """How many of the committed sha256 ``files`` reproduces; raises unless
+    all and no other file."""
+    want = kit_expected()
+    got = {k: hashlib.sha256(v).hexdigest() for k, v in files.items()}
+    bad = sorted(k for k in want if got.get(k) != want[k])
+    if bad or set(got) != set(want):
+        raise AssertionError(f"interchange fixture: hashes differ for {bad}")
+    return len(want)
+
+
 def interchange_preprocess(card: str) -> None:
     """The interchange fixture (utils/synthetic.INTERCHANGE, its hashes in
     tools/interchange_expected.json) on ``TileAtlas(config, "cuda")``:
     the host path and the delta read-back reproduce the committed sha256 of
     config.tc and the 21 tiles; ``device=None`` selects the device path with
     the full read-back, which holds its yardstick."""
-    import hashlib
-
     import numpy as np
 
-    from bevy_terrain_tpu_torch import (
-        AttachmentConfig, AttachmentFormat, PreprocessDataset, TerrainConfig, TerrainModel,
-    )
-    from bevy_terrain_tpu_torch.terrain_data import TileAtlas
     from bevy_terrain_tpu_torch.utils import transfer
-    from bevy_terrain_tpu_torch.utils.synthetic import INTERCHANGE as KIT, interchange_source
 
-    PATH, KIT_LODS = KIT["path"], KIT["lod_count"]
-    # what load_source_image returns for the kit's 16-bit PNG: no PNG is read
-    source = interchange_source(KIT["source_size"])[..., None].astype(np.float32) / 65535.0
-    expected = json.loads((Path(__file__).resolve().parent / "tools"
-                           / "interchange_expected.json").read_text())
-    prefix = f"assets/{PATH}/"
     what = "interchange fixture"
     files = {}
     transfer._reset_probe()
@@ -2092,22 +2170,7 @@ def interchange_preprocess(card: str) -> None:
         for path, kw in (("host", dict(device=False)), ("full", {}),
                          ("full, 3-tile chunks", dict(batch_tiles=3)),
                          ("delta", dict(device=True, readback="delta"))):
-            root = Path(tmp) / path
-            config = TerrainConfig(
-                lod_count=KIT_LODS,
-                model=TerrainModel.planar(np.zeros(3), KIT["terrain_size"], 0.0, KIT["height"]),
-                atlas_size=32, path=PATH, assets_root=str(root),
-            ).add_attachment(AttachmentConfig(
-                name="height", texture_size=KIT["texture_size"],
-                border_size=KIT["border_size"], mip_level_count=KIT["mip_count"],
-                format=AttachmentFormat.R16))
-            _, pre = preprocess_run(
-                f"{what} ({source.shape[0]}^2 R16 source, lods 0-{KIT_LODS - 1}"
-                + (", batch_tiles=3)" if "batch_tiles" in kw else ")"),
-                TileAtlas(config, "cuda"),
-                lambda p: p.clear_attachment(0).preprocess_tile(PreprocessDataset(
-                    attachment_index=0, path="height.png", lod_range=range(0, KIT_LODS))),
-                21, card, loader=lambda p, cfg: source, **kw)
+            pre, files[path] = kit_run(what, Path(tmp) / path, card, **kw)
             if path == "full":
                 # the device type decides: no transfer probe ran
                 probed = sorted(transfer._D2H_S) + sorted(transfer._DISPATCH_S)
@@ -2124,18 +2187,9 @@ def interchange_preprocess(card: str) -> None:
                                          "device type alone")
             if kw.get("batch_tiles") and pre.batch_tiles != 3:
                 raise AssertionError(f"{what}: batch_tiles {pre.batch_tiles}, not 3")
-            out = {"config.tc": (root / PATH / "config.tc").read_bytes()}
-            for name, data in tile_files(root, PATH, "height").items():
-                out[f"data/height/{name}"] = data
-            files[path] = out
-    want = {k[len(prefix):]: v for k, v in expected.items() if k.startswith(prefix)}
     for path in ("host", "delta"):
-        got = {k: hashlib.sha256(v).hexdigest() for k, v in files[path].items()}
-        bad = sorted(k for k in want if got.get(k) != want[k])
-        print(f"{what} [{path}]: {len(want) - len(bad)} of {len(want)} committed sha256 "
-              f"reproduced")
-        if bad or set(got) != set(want):
-            raise AssertionError(f"{what} [{path}]: hashes differ for {bad}")
+        n = kit_matches(files[path])
+        print(f"{what} [{path}]: {n} of {n} committed sha256 reproduced")
     if files["full, 3-tile chunks"] != files["full"]:
         raise AssertionError(f"{what}: batch_tiles=3 wrote other bytes than the default")
     print(f"{what}: batch_tiles=3 (3-tile stitch chunks) wrote the default's bytes")
@@ -2150,7 +2204,20 @@ def planar_sources():
     [0, 1] quantized to their 16 and 8 bits, a seeded noise under the height."""
     import numpy as np
 
-    from bevy_terrain_tpu_torch.utils.synthetic import default_color_fn, default_height_fn
+    from bevy_terrain_tpu_torch.utils.synthetic import default_color_fn
+
+    a = PRE_ALBEDO
+    y = (np.arange(a) + 0.5) / a
+    u, v = np.meshgrid(y, y, indexing="xy")
+    albedo = (np.rint(np.clip(default_color_fn(u, v), 0, 1) * 255.0) / 255.0).astype(np.float32)
+    return planar_height_source(), albedo
+
+
+def planar_height_source():
+    """The 8192^2 height source of :func:`planar_sources`."""
+    import numpy as np
+
+    from bevy_terrain_tpu_torch.utils.synthetic import default_height_fn
 
     rng = np.random.default_rng(PRE_SEED)
     n = PRE_SOURCE
@@ -2160,11 +2227,7 @@ def planar_sources():
         u, v = np.meshgrid(x, x[r:r + 1024], indexing="xy")
         h = default_height_fn(u, v) + 1e-4 * rng.standard_normal(u.shape, np.float32)
         height[r:r + 1024, :, 0] = np.clip(np.rint(h * 65535.0), 1, 65535) / np.float32(65535.0)
-    a = PRE_ALBEDO
-    y = (np.arange(a) + 0.5) / a
-    u, v = np.meshgrid(y, y, indexing="xy")
-    albedo = (np.rint(np.clip(default_color_fn(u, v), 0, 1) * 255.0) / 255.0).astype(np.float32)
-    return height, albedo
+    return height
 
 
 def planar_preprocess_path(card: str) -> dict:
@@ -3194,6 +3257,369 @@ def print_occupancy() -> None:
                                  f"per SM, fewer than {least}")
 
 
+# -- native path -----------------------------------------------------------------
+
+# the deep streaming flythrough (tools_torch/flythrough_bench.py, BASELINE.json
+# configs[4]: 12 geometry lods over 5 data lods, capacity 8192, 120 frames from
+# 12 km to 60 m) and the sphere main path's planet at 60 km, then at 3 km,
+# where the Taylor near field runs: (altitude m, frames)
+NATIVE_FLY_FRAMES = 120
+NATIVE_PLANET = ((60_000.0, 20), (3_000.0, 20))
+NATIVE_SCENES = {"flythrough": "mesh_fused_planar", "planet": "mesh_fused_spherical"}
+# the native entry points Terrain.update runs on each scene
+NATIVE_ENTRIES = ("scan_requests", "view_anchors", "NativeResidency.add_existing",
+                  "NativeResidency.request", "NativeResidency.drain_loads",
+                  "NativeResidency.release", "NativeResidency.loaded",
+                  "NativeResidency.best_tiles", "sample_bilinear")
+NATIVE_PLANET_ENTRIES = ("taylor_from_world", "project_view_uv")
+# the host prologue's steps (render/pipeline.py Terrain.update 1-4), then the
+# device stage (step 5, to the end of the frame's work)
+NATIVE_STEPS = ("scan", "residency + IO", "adjust + height + Taylor + pack", "device stage")
+# the device twin of the scan against its f64 host twin (tests/test_ops.py)
+TWIN_MIN_AGREE = 0.99
+
+
+def native_build_line(card: str) -> None:
+    """Build (or load) the native runtime first of all, so that a failed
+    build stops the run before the long paths; print the ``native:`` line."""
+    import os
+    import platform
+
+    from bevy_terrain_tpu_torch import native
+
+    if os.environ.get("BT_DISABLE_NATIVE"):
+        raise AssertionError("BT_DISABLE_NATIVE is set: the main process must run the "
+                             "native runtime")
+    if not native.available():
+        raise AssertionError("the native runtime is not available")
+    cxx = subprocess.run([*native._compiler(), "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()[0]
+    info = native.build_info
+    print(f"native: uname -m {platform.machine()}; {info['cxx']}: {cxx}; flags {info['flags']}; "
+          f"built in {info['seconds']:.2f} s; source+flags sha256 {info['hash'][:16]}; "
+          f"{Path(info['path']).relative_to(ROOT)}; {card}")
+
+
+@contextlib.contextmanager
+def loads_in_step():
+    """Each tile load finishes before ``start_loading`` returns, so a frame
+    sees the same resident tiles in every run, whatever its timing."""
+    from concurrent import futures
+
+    from bevy_terrain_tpu_torch.terrain_data.tile_atlas import AtlasAttachment
+
+    start = AtlasAttachment.start_loading
+
+    def start_loading(self, pool, tile):
+        start(self, pool, tile)
+        futures.wait([self.loading[-1][0]])
+
+    AtlasAttachment.start_loading = start_loading
+    try:
+        yield
+    finally:
+        AtlasAttachment.start_loading = start
+
+
+@contextlib.contextmanager
+def prologue_clock(terrain, marks: dict):
+    """Record in ``marks`` the host clock when the view's request scan and
+    the atlas's uploads return, and when the blobs go to the device (the end
+    of the host prologue)."""
+    tree, atlas = terrain.tile_trees["cam"], terrain.atlas
+    scan, flush, blobs = tree.compute_requests, atlas.flush_uploads, terrain._blobs_to_device
+
+    def after(name, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            marks[name] = time.perf_counter()
+            return out
+        return call
+
+    def to_device(*a, **k):
+        marks["blobs"] = time.perf_counter()
+        return blobs(*a, **k)
+
+    tree.compute_requests = after("scan", scan)
+    atlas.flush_uploads = after("flush", flush)
+    terrain._blobs_to_device = to_device
+    try:
+        yield
+    finally:
+        del tree.compute_requests, atlas.flush_uploads, terrain._blobs_to_device
+
+
+def native_terrain(scene: str, root: Path):
+    """(Terrain on the card, [(view, view_proj) per frame], model) of a
+    native-path scene over the datasets under ``root``."""
+    from bevy_terrain_tpu_torch import Terrain
+    from bevy_terrain_tpu_torch.config import AttachmentConfig, TerrainConfig, TerrainViewConfig
+    from bevy_terrain_tpu_torch.models import streaming_flythrough_view
+    from tools_torch.flythrough_bench import flight_path, flight_view_proj, flythrough_config
+
+    if scene == "flythrough":
+        terrain = Terrain(flythrough_config(str(root / "fly")))
+        terrain.add_view("cam", streaming_flythrough_view(tile_capacity=8192),
+                         queue_capacity=16384, culling=True)
+        path = flight_path(NATIVE_FLY_FRAMES)
+        return terrain, [(path[i], flight_view_proj(path, i)) for i in range(len(path))]
+    model = sphere_model("sphere")
+    att = AttachmentConfig(name="height", texture_size=TEXTURE_SIZE, border_size=BORDER,
+                           mip_level_count=4)
+    terrain = Terrain(TerrainConfig(lod_count=SPH_LODS, model=model, atlas_size=SPH_ATLAS,
+                                    path="planet", attachments=(att,),
+                                    assets_root=str(root / "planet")))
+    terrain.add_view("cam", TerrainViewConfig(tile_capacity=SPH_CAPACITY), queue_capacity=2048,
+                     culling=True)
+    return terrain, [sphere_view(model, alt) for alt, n in NATIVE_PLANET for _ in range(n)]
+
+
+def native_datasets(root: Path) -> None:
+    """The flythrough's and the planet's datasets, and the bench geometry's
+    8192^2 height source as a .npy, under ``root`` (made once, read by both
+    processes)."""
+    import numpy as np
+
+    from bevy_terrain_tpu_torch.config import AttachmentConfig
+    from bevy_terrain_tpu_torch.utils.synthetic import (
+        generate_planar_dataset, generate_spherical_dataset,
+    )
+    from tools_torch.flythrough_bench import DATA_LODS, flythrough_config
+
+    t0 = time.perf_counter()
+    fly = flythrough_config(str(root / "fly"))
+    n_fly = len(generate_planar_dataset(fly.path, DATA_LODS, fly.attachments[0],
+                                        root=str(root / "fly")))
+    att = AttachmentConfig(name="height", texture_size=TEXTURE_SIZE, border_size=BORDER,
+                           mip_level_count=4)
+    n_planet = len(generate_spherical_dataset("planet", SPH_DATA_LODS, att,
+                                              root=str(root / "planet")))
+    np.save(root / "height.npy", planar_height_source())
+    print(f"native path: wrote the flythrough's {n_fly} tiles, the planet's {n_planet} and a "
+          f"{PRE_SOURCE}^2 height source in {time.perf_counter() - t0:.1f} s")
+
+
+def native_scene(scene: str, root: Path) -> dict:
+    """One run of ``scene`` through ``Terrain.update`` on the card, tile
+    loads in step. Per frame: the sha256 of the sorted requested and
+    released keys, the entries, the packed blob and ``raw_mesh`` (its
+    ``tile_count`` rows), and the host clock of the prologue's steps and
+    the device stage (ms). Then the device twin of the scan against its
+    host twin on the last frame."""
+    import numpy as np
+    import torch
+
+    from bevy_terrain_tpu_torch.ops import tile_tree
+
+    def keys(tiles):
+        return np.array(sorted((c.side, c.lod, c.x, c.y) for c in tiles), np.int64)
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    terrain, views = native_terrain(scene, root)
+    tree = terrain.tile_trees["cam"]
+    frames, steps, marks = [], [], {}
+    reset_counts()
+    with loads_in_step(), prologue_clock(terrain, marks):
+        for view, view_proj in views:
+            t0 = time.perf_counter()
+            out = terrain.update({"cam": view}, {"cam": view_proj})["cam"]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            steps.append([(marks["scan"] - t0) * 1e3, (marks["flush"] - marks["scan"]) * 1e3,
+                          (marks["blobs"] - marks["flush"]) * 1e3, (t1 - marks["blobs"]) * 1e3])
+            n = out.tile_count
+            frames.append({
+                "requested": sha(keys(tree.requested_tiles)),
+                "released": sha(keys(tree.released_tiles)), "entries": sha(tree.entries),
+                "blob": sha(terrain._last_blobs["cam"].cpu().numpy()),
+                "raw_mesh": sha(out.raw_mesh[:n].cpu().numpy()), "tiles": n})
+    launches = read_counts()[NATIVE_SCENES[scene]]
+    if launches < len(views):
+        raise AssertionError(f"native path, {scene}: {NATIVE_SCENES[scene]} launched "
+                             f"{launches} times in {len(views)} frames")
+    uniforms, cfg = terrain.frame_inputs("cam")
+    xy, req = tile_tree.tile_tree_update(uniforms, cfg)
+    xy_host, req_host = tile_tree.tile_tree_update_host(
+        terrain.config.model, views[-1][0], uniforms, cfg)
+    return {"frames": frames, "steps": steps, "launches": launches,
+            "twin_xy_equal": bool(np.array_equal(xy.cpu().numpy(), xy_host)),
+            "twin_agree": float(np.mean(req.cpu().numpy() == req_host)),
+            "twin_slots": int(req_host.size),
+            "resident": sum(s.loading_remaining == 0
+                            for s in terrain.atlas.state.tile_states.values())}
+
+
+def native_preprocess(root: Path, card: str) -> dict:
+    """The preprocess host path on the bench geometry (the 8192^2 R16 height
+    source over lods 0-4 of 512^2: 341 tiles) and on the interchange
+    fixture: the tiles/s and the sha256 of every file written."""
+    import numpy as np
+
+    from bevy_terrain_tpu_torch import PreprocessDataset
+    from bevy_terrain_tpu_torch.config import AttachmentConfig, TerrainConfig
+    from bevy_terrain_tpu_torch.terrain_data import TileAtlas
+
+    source = np.load(root / "height.npy")
+    model = bench_scene()[0]
+    att = AttachmentConfig(name="height", texture_size=TEXTURE_SIZE, border_size=BORDER,
+                           mip_level_count=4)
+    tiles = sum(1 << (2 * lod) for lod in range(LOD_COUNT))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_native_pre_") as tmp:
+        config = TerrainConfig(lod_count=LOD_COUNT, model=model, atlas_size=PRE_ATLAS,
+                               path="pre", attachments=(att,), assets_root=tmp)
+        wall, _ = preprocess_run(
+            f"native path, bench geometry height (R16, lods 0-{LOD_COUNT - 1})",
+            TileAtlas(config, "cuda"),
+            lambda p: p.clear_attachment(0).preprocess_tile(PreprocessDataset(
+                attachment_index=0, path="height.png", lod_range=range(LOD_COUNT))),
+            tiles, card, loader=lambda p, cfg: source, device=False)
+        files = tile_files(Path(tmp), "pre", "height")
+        files["config.tc"] = (Path(tmp) / "pre" / "config.tc").read_bytes()
+        _, kit = kit_run("native path, interchange fixture", Path(tmp) / "kit", card,
+                         device=False)
+    return {"tiles_per_s": tiles / wall, "wall_s": wall,
+            "hashes": {k: hashlib.sha256(v).hexdigest() for k, v in files.items()},
+            "kit": {k: hashlib.sha256(v).hexdigest() for k, v in kit.items()}}
+
+
+def native_runs(root: Path, card: str) -> dict:
+    """One run of each scene and of the preprocess host path."""
+    import torch
+
+    out = {scene: native_scene(scene, root) for scene in NATIVE_SCENES}
+    torch.cuda.empty_cache()
+    out["preprocess"] = native_preprocess(root, card)
+    return out
+
+
+def native_child(root: Path) -> int:
+    """The numpy side of the native path, in a process of its own with
+    ``BT_DISABLE_NATIVE=1``: two runs, written to ``root/numpy.json``."""
+    import os
+
+    from bevy_terrain_tpu_torch import native
+
+    if os.environ.get("BT_DISABLE_NATIVE") != "1" or native.available():
+        raise AssertionError("the numpy side must run with BT_DISABLE_NATIVE=1")
+    native.reset_counts()
+    card = card_line()
+    runs = [native_runs(root, card) for _ in range(2)]
+    calls = {k: v for k, v in native.counts().items() if v}
+    if calls:
+        raise AssertionError(f"native entry points ran with BT_DISABLE_NATIVE=1: {calls}")
+    (root / "numpy.json").write_text(json.dumps(runs))
+    return 0
+
+
+def spread(xs) -> str:
+    import numpy as np
+
+    p10, p50, p90 = np.percentile(xs, [10, 50, 90])
+    return f"{p50:.3f} ms (p10 {p10:.3f}, p90 {p90:.3f})"
+
+
+def native_path() -> None:
+    """The native host runtime on the main path: the flythrough and the
+    planet through ``Terrain.update`` and the preprocess host path, with
+    the native runtime here and with the numpy paths (``BT_DISABLE_NATIVE=1``)
+    in a child process, in turns (native, numpy, numpy, native): every
+    frame and every file byte-equal; each native entry point the path uses
+    ran; the host prologue timed apart from the device stage; the device
+    twin of the request scan against its host twin on the card."""
+    import os
+
+    from bevy_terrain_tpu_torch import native
+
+    if os.environ.get("BT_DISABLE_NATIVE"):
+        raise AssertionError("BT_DISABLE_NATIVE is set in the main process")
+    card = card_line()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as tmp:
+        root = Path(tmp)
+        native_datasets(root)
+        native.reset_counts()
+        first = native_runs(root, card)
+        calls = native.counts()
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--native-child", str(root)],
+            env={**os.environ, "BT_DISABLE_NATIVE": "1"}, capture_output=True, text=True,
+            timeout=900, cwd=ROOT)
+        for line in child.stdout.splitlines():
+            if line.startswith("preprocess:"):
+                print(line.replace("preprocess: native path", "preprocess: numpy child"))
+        if child.returncode != 0:
+            raise AssertionError(f"native path: the numpy child failed ({child.returncode}):\n"
+                                 f"{child.stderr[-4000:]}")
+        numpy_runs = json.loads((root / "numpy.json").read_text())
+        print(f"native path: the numpy child (BT_DISABLE_NATIVE=1) ran two runs in "
+              f"{time.perf_counter() - t0:.1f} s")
+        last = native_runs(root, card)
+    turns = [("native", first), ("numpy", numpy_runs[0]), ("numpy", numpy_runs[1]),
+             ("native", last)]
+
+    for scene in NATIVE_SCENES:
+        want = first[scene]
+        for i, (side, run) in enumerate(turns[1:], 2):
+            got = run[scene]
+            if len(got["frames"]) != len(want["frames"]):
+                raise AssertionError(f"native path, {scene}: run {i} has "
+                                     f"{len(got['frames'])} frames")
+            for f, (a, b) in enumerate(zip(want["frames"], got["frames"])):
+                bad = sorted(k for k in a if a[k] != b[k])
+                if bad:
+                    raise AssertionError(f"native path, {scene}: frame {f} of run {i} "
+                                         f"({side}) differs from run 1 (native) in {bad}")
+        print(f"native path, {scene}: {len(want['frames'])} frames of 4 runs in turns "
+              f"(native, numpy, numpy, native) sha256-equal in the requested and released "
+              f"keys, entries, packed blob and raw_mesh; tiles "
+              f"{min(f['tiles'] for f in want['frames'])}-"
+              f"{max(f['tiles'] for f in want['frames'])}, {want['resident']} tiles resident "
+              f"at the end, {NATIVE_SCENES[scene]} {want['launches']} launches")
+        for i, (side, run) in enumerate(turns, 1):
+            st = run[scene]["steps"]
+            cols = list(zip(*st))
+            prologue = [sum(r[:3]) for r in st]
+            print(f"native: {scene} run {i} ({side}): host prologue {spread(prologue)} = "
+                  + ", ".join(f"{n} {statistics.median(c):.3f}"
+                              for n, c in zip(NATIVE_STEPS[:3], cols[:3]))
+                  + f"; {NATIVE_STEPS[3]} {spread(cols[3])}; host clock, {len(st)} frames, "
+                  f"loads in step; {card}")
+        if not want["twin_xy_equal"] or want["twin_agree"] <= TWIN_MIN_AGREE:
+            raise AssertionError(f"native path, {scene}: the device twin of the scan: tile_xy "
+                                 f"equal {want['twin_xy_equal']}, masks agree "
+                                 f"{want['twin_agree']:.4f}")
+        print(f"native path, {scene}: ops/tile_tree.tile_tree_update on the card against "
+              f"tile_tree_update_host (last frame, {want['twin_slots']} slots): tile_xy equal, "
+              f"request masks agree on {want['twin_agree']:.4%} (limit {TWIN_MIN_AGREE:.0%})")
+
+    need = NATIVE_ENTRIES + NATIVE_PLANET_ENTRIES
+    if any(calls[k] == 0 for k in need):
+        raise AssertionError(f"native path: entry points that never ran: "
+                             f"{[k for k in need if calls[k] == 0]}")
+    print("native path: native calls in run 1: "
+          + ", ".join(f"{k} {v}" for k, v in calls.items() if v))
+
+    pre = first["preprocess"]
+    for i, (side, run) in enumerate(turns[1:], 2):
+        if run["preprocess"]["hashes"] != pre["hashes"]:
+            raise AssertionError(f"native path: preprocess run {i} ({side}) wrote other bytes")
+        if run["preprocess"]["kit"] != pre["kit"]:
+            raise AssertionError(f"native path: interchange fixture run {i} ({side}) differs")
+    want_kit = kit_expected()
+    if pre["kit"] != want_kit:
+        raise AssertionError("native path: the interchange fixture's host path does not "
+                             "reproduce the committed sha256")
+    print(f"native path, preprocess host path: the bench geometry's {len(pre['hashes'])} files "
+          f"and the interchange fixture's {len(want_kit)} of {len(want_kit)} committed sha256 "
+          f"equal in 4 runs; tiles/s in turns: "
+          + " / ".join(f"{side} {run['preprocess']['tiles_per_s']:.1f}" for side, run in turns)
+          + f"; {card}")
+    print(f"native path: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv) -> int:
     import torch
 
@@ -3203,6 +3629,8 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     from bevy_terrain_tpu_torch.ops import kernels
 
+    if argv[:1] == ["--native-child"]:
+        return native_child(Path(argv[1]))
     name = torch.cuda.get_device_name(0)
     card = card_line()
     print(f"device: {name} ({torch.cuda.device_count()} visible); nvidia-smi: {card}; "
@@ -3219,6 +3647,8 @@ def main(argv) -> int:
     print_resources(log.getvalue())
     if hasattr(kernels, "kernel_occupancy"):  # not in the trees before it
         print_occupancy()
+    if "--kernel-phases" not in argv:
+        native_build_line(card)
 
     results: dict = {}
     kernel_phase(results)
@@ -3228,6 +3658,7 @@ def main(argv) -> int:
     if "--kernel-phases" in argv:
         print(json.dumps({"kernel_phases": results}))
         return 0
+    native_path()
     counts = {"mesh_fused_planar": main_path_phase(),
               **sphere_main_path_phase(),
               **sphere_material_main_path_phase(),

@@ -1164,3 +1164,42 @@ def test_sharded_fetch_equals_the_plain_gather_on_the_card(n):
     ids = torch.from_numpy(rng.integers(0, 37, (300, 4)).astype(np.int32)).to(dev)
     got = fetch_patches_sharded(shard_blocks(n, blocks), ids)
     assert torch.equal(got, patch_sampling.fetch_patches(blocks, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["planar", "sphere"])
+def test_tile_tree_twin_on_the_card_matches_the_host_twin(kind):
+    """``ops/tile_tree.tile_tree_update`` as torch ops on the card against
+    ``tile_tree_update_host``, the exact f64 numpy twin (tests/test_ops.py's
+    yardstick): slot coordinates equal, request masks agree on more than 99%
+    of slots; and equal to the same twin on the CPU."""
+    dev = _card()
+    if kind == "planar":
+        model = TerrainModel.planar(np.array([0.0, -100.0, 0.0]), 1000.0, 0.0, 250.0)
+        view, lods = np.array([120.0, -40.0, -300.0]), 4
+    else:
+        model = TerrainModel.sphere(np.zeros(3), 6.4e6, 0.0, 9000.0)
+        view, lods = model.position_local_to_world(np.array([0.6, 0.0, 0.8]), 3000.0), 8
+    vc = TerrainViewConfig()
+    origins, vt_int, vt_frac = tile_tree.compute_view_anchors(model, view, lods, vc.tree_size)
+    approx = TerrainModelApproximation.compute(
+        model, view, vc.origin_lod, (model.min_height + model.max_height) / 2)
+    entries = np.zeros((model.side_count, lods, vc.tree_size, vc.tree_size, 2), np.int32)
+    blob = pack_frame_uniforms(model, view, approx, origins, entries, vt_int, vt_frac, vc)
+    cfg = StaticTerrainConfig(
+        spherical=model.is_spherical, side_count=model.side_count, lod_count=lods,
+        tree_size=vc.tree_size, grid_size=vc.grid_size, refinement_count=vc.refinement_count,
+        queue_capacity=4096, tile_capacity=vc.tile_capacity, origin_lod=vc.origin_lod,
+    )
+    S, T = model.side_count, vc.tree_size
+    u = unpack_frame_uniforms(torch.from_numpy(blob).to(dev), S, lods, T)
+    xy, req = tile_tree.tile_tree_update(u, cfg)
+    assert xy.device.type == req.device.type == "cuda"
+    xy_host, req_host = tile_tree.tile_tree_update_host(model, view, u, cfg)
+    np.testing.assert_array_equal(xy.cpu().numpy(), xy_host)
+    agree = float(np.mean(req.cpu().numpy() == req_host))
+    assert agree > 0.99, f"request masks agree only {agree:.4f}"
+    u_cpu = unpack_frame_uniforms(torch.from_numpy(blob), S, lods, T)
+    xy_cpu, req_cpu = tile_tree.tile_tree_update(u_cpu, cfg)
+    assert torch.equal(xy.cpu(), xy_cpu)
+    assert float((req.cpu() == req_cpu).float().mean()) > 0.99

@@ -29,10 +29,15 @@ ALLOWANCE = {
     "formats/tiff.py": 11,
     "debug/__init__.py": 15,
     "math/coordinate.py": 18,
-    "terrain_data/tile_tree.py": 97,  # the native branches dropped
-    "math/approximation.py": 115,  # the Taylor coefficients in the native op order
-    "ops/preprocess.py": 142,  # the native branches dropped, torch resizes
+    "terrain_data/tile_tree.py": 8,  # comments: the reference's path, the tests' name
+    "native/terrain_runtime.cpp": 28,  # comments: paths, the build, no TPU-host timings
+    "ops/tile_tree.py": 48,  # the device twin as torch ops
+    "math/approximation.py": 85,  # the Taylor coefficients in the native op order
+    "ops/preprocess.py": 99,  # torch resizes
     "utils/synthetic.py": 161,  # the spherical, colour and interchange fixtures
+    # the g++ build into build/native/ that raises in place of a quiet None,
+    # the call counters, the in-place arrays' checks
+    "native/__init__.py": 198,
 }
 
 

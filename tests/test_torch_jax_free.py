@@ -6,7 +6,8 @@ The card's machine has no jax, and importing any module of
 So every module of ``bevy_terrain_tpu_torch``, ``examples_torch/`` and
 ``tools_torch/`` must import in a process where ``import jax`` fails,
 without loading a module of the JAX package or PIL (the source loader
-imports PIL when it is called); and no source file of the port, of its
+imports PIL when it is called) and without building the native runtime
+(it builds at first use); and no source file of the port, of its
 examples and tools, nor chip_smoke.py, may name jax, the JAX package or the
 repo's ``tools/`` (the JAX package's tooling, whose modules import it) in
 an import statement, at any depth.
@@ -64,6 +65,8 @@ def test_every_port_module_imports_without_jax():
                         if m == "bevy_terrain_tpu" or m.startswith("bevy_terrain_tpu."))
         assert not loaded, loaded
         assert "PIL" not in sys.modules, "PIL imported at module level"
+        from bevy_terrain_tpu_torch import native
+        assert native._lib is None, "the native runtime was built at import"
         print(len(names), len(twins))
     """)
     out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
@@ -86,7 +89,8 @@ def test_no_source_imports_jax_or_the_jax_package(what):
             "formats/tiff.py", "utils/transfer.py", "ops/preprocess.py",
             "ops/preprocess_device.py", "preprocess/preprocessor.py", "preprocess/__init__.py",
             "models/__init__.py", "utils/timing.py", "entry.py", "parallel/__init__.py",
-            "parallel/multi_view.py", "parallel/sharded_atlas.py")],
+            "parallel/multi_view.py", "parallel/sharded_atlas.py", "native/__init__.py",
+            "ops/tile_tree.py")],
         "chip_smoke": ["chip_smoke.py"],
         "twins": [f"examples_torch/{m}.py" for m in (
             "preprocess_planar", "minimal", "planar", "spherical", "preprocess_spherical",

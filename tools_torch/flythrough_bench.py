@@ -30,6 +30,50 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+DATA_LODS = 5
+SIZE = 40_000.0  # 40 km across, swisstopo-ish extent
+MAX_H = 2500.0
+
+
+def flight_path(n: int) -> np.ndarray:
+    """(n, 3) camera positions: a descent from 12 km altitude to 60 m
+    while crossing half the terrain."""
+    s = np.linspace(0.0, 1.0, n)
+    return np.stack([
+        -0.35 * SIZE + 0.6 * SIZE * s,
+        12_000.0 * (1.0 - s) ** 2 + 60.0,
+        0.25 * SIZE - 0.4 * SIZE * s,
+    ], axis=-1)
+
+
+def flight_view_proj(path: np.ndarray, i: int) -> np.ndarray:
+    """The 60-degree forward-looking camera of frame ``i``: near the ground
+    a deep quadtree emits far beyond tile_capacity without frustum culling
+    — flying a real culled camera IS the production workload."""
+    from bevy_terrain_tpu_torch.math.frustum import view_projection
+
+    tgt = path[min(i + 1, len(path) - 1)] + np.array([1.0, -0.2, 0.0])
+    return view_projection(path[i], tgt, np.pi / 3, 16 / 9)
+
+
+def flythrough_config(root: str, lod_count: int = 12):
+    """The terrain's config over the dataset at ``root`` (5 data lods of
+    512^2 R16 tiles, ``generate_planar_dataset("terrains/fly", ...)``)."""
+    import bevy_terrain_tpu_torch as bt
+
+    att = bt.AttachmentConfig(
+        name="height", texture_size=512, border_size=2, mip_level_count=4,
+        format=bt.AttachmentFormat.R16,
+    )
+    return bt.TerrainConfig(
+        lod_count=lod_count,
+        model=bt.TerrainModel.planar(np.zeros(3), SIZE, 0.0, MAX_H),
+        atlas_size=1024,
+        path="terrains/fly",
+        attachments=(att,),
+        assets_root=root,
+    )
+
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
@@ -50,27 +94,12 @@ def main(argv=None) -> dict:
     from bevy_terrain_tpu_torch.models import streaming_flythrough_view
     from bevy_terrain_tpu_torch.utils.synthetic import generate_planar_dataset
 
-    DATA_LODS = 5
-    SIZE = 40_000.0  # 40 km across, swisstopo-ish extent
-    MAX_H = 2500.0
-
     root = tempfile.mkdtemp(prefix="flythrough_")
-    att = bt.AttachmentConfig(
-        name="height", texture_size=512, border_size=2, mip_level_count=4,
-        format=bt.AttachmentFormat.R16,
-    )
+    config = flythrough_config(root, args.lod_count)
     t0 = time.perf_counter()
-    generate_planar_dataset("terrains/fly", DATA_LODS, att, root=root)
+    generate_planar_dataset(config.path, DATA_LODS, config.attachments[0], root=root)
     gen_s = time.perf_counter() - t0
 
-    config = bt.TerrainConfig(
-        lod_count=args.lod_count,
-        model=bt.TerrainModel.planar(np.zeros(3), SIZE, 0.0, MAX_H),
-        atlas_size=1024,
-        path="terrains/fly",
-        attachments=(att,),
-        assets_root=root,
-    )
     terrain = bt.Terrain(config, device=device)
     terrain.add_view("cam", streaming_flythrough_view(tile_capacity=8192),
                      queue_capacity=16384, culling=True)
@@ -84,23 +113,11 @@ def main(argv=None) -> dict:
 
     probe = TileTree(terrain.atlas, streaming_flythrough_view(tile_capacity=8192))
 
-    # descend from 12 km altitude to 60 m while crossing half the terrain
     n = args.frames
-    s = np.linspace(0.0, 1.0, n)
-    path = np.stack([
-        -0.35 * SIZE + 0.6 * SIZE * s,
-        12_000.0 * (1.0 - s) ** 2 + 60.0,
-        0.25 * SIZE - 0.4 * SIZE * s,
-    ], axis=-1)
-
-    # 60-degree forward-looking camera: near the ground a deep quadtree
-    # emits far beyond tile_capacity without frustum culling — flying a
-    # real culled camera IS the production workload
-    from bevy_terrain_tpu_torch.math.frustum import view_projection
+    path = flight_path(n)
 
     def vp(i):
-        tgt = path[min(i + 1, n - 1)] + np.array([1.0, -0.2, 0.0])
-        return view_projection(path[i], tgt, np.pi / 3, 16 / 9)
+        return flight_view_proj(path, i)
 
     host_ms, frame_ms, loads, overflows = [], [], [], []
     tiles = []
