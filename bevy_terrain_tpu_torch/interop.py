@@ -8,14 +8,12 @@ uploads its own blob through :func:`blob_to_device` too.
 
 from __future__ import annotations
 
-from collections import OrderedDict
-
 import numpy as np
 import torch
 
 from bevy_terrain_tpu_torch.math.coordinate import TileCoordinate
 from bevy_terrain_tpu_torch.terrain_data import attachment as attachment_io
-from bevy_terrain_tpu_torch.terrain_data.tile_atlas import TileAtlas, _TileState
+from bevy_terrain_tpu_torch.terrain_data.tile_atlas import TileAtlas, TileAtlasState, _TileState
 
 
 def blob_to_device(blob: np.ndarray, device) -> torch.Tensor:
@@ -44,9 +42,9 @@ def atlas_from_numpy(atlas: TileAtlas, block_arrays, host_data, tile_states) -> 
         loading_remaining)`` of the resident tiles.
 
     Pending loads and staged uploads are dropped. The native runtime's
-    residency machine cannot be handed slots, so the filled state runs the
-    Python machine from here on (``TileAtlasState(use_native=False)``'s
-    path, the oracle the native one is fuzzed against). Returns ``atlas``.
+    residency machine cannot be handed slots, so the atlas gets a new
+    ``TileAtlasState(use_native=False)``: the Python machine, the oracle
+    the native one is fuzzed against, from here on. Returns ``atlas``.
     """
     for att, blocks, data in zip(atlas.attachments, block_arrays, host_data):
         if isinstance(blocks, (list, tuple)):
@@ -69,13 +67,8 @@ def atlas_from_numpy(atlas: TileAtlas, block_arrays, host_data, tile_states) -> 
             for index, d in enumerate(data) if d is not None])
         att.data = [None if d is None else np.asarray(d) for d in data]
 
-    state = atlas.state
-    state._native = None
-    state.tile_states.clear()
-    state.to_load.clear()
-    state.unused_tiles = OrderedDict(
-        (i, TileCoordinate.INVALID) for i in range(atlas.atlas_size)
-    )
+    state = atlas.state = TileAtlasState(atlas.atlas_size, len(atlas.attachments),
+                                         atlas.state.existing_tiles, use_native=False)
     for (side, lod, x, y), (index, requests, loading) in tile_states.items():
         coordinate = TileCoordinate(int(side), int(lod), int(x), int(y))
         state.tile_states[coordinate] = _TileState(int(index), int(requests), int(loading))
@@ -84,5 +77,4 @@ def atlas_from_numpy(atlas: TileAtlas, block_arrays, host_data, tile_states) -> 
             state.unused_tiles.pop(int(index), None)
         else:
             state.unused_tiles[int(index)] = coordinate
-    state._loaded_dirty = True
     return atlas

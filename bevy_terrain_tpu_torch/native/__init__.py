@@ -10,9 +10,9 @@ native backend is tested against.
 
 The library is built from ``terrain_runtime.cpp`` at first use, with ``g++``
 (or ``$CXX``) and :data:`CXXFLAGS`, into ``build/native/`` at the root of the
-checkout, under a name keyed by a hash of the compiler, the flags and the
-source. A build or load that fails raises with the compiler's message: no
-caller falls back to the Python paths unless asked, by
+checkout, under a name keyed by a hash of the compiler and its version,
+the flags and the source. A build or load that fails raises with the
+compiler's message: no caller falls back to the Python paths unless asked, by
 ``BT_DISABLE_NATIVE=1`` (every optional native branch) or
 ``TileAtlasState(use_native=False)`` (the residency machine).
 
@@ -43,8 +43,9 @@ CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-ffp-contract=off
     ["-march=x86-64-v3"] if platform.machine() == "x86_64" else [])
 _lib = None
 # how the loaded library was obtained: its path, the sha256 of the compiler,
-# flags and source, the compiler, the flags, and the seconds its load spent
-# in build_library (compiling, or waiting for another process's build)
+# flags and source, the compiler, its version line, the flags, and the
+# seconds its load spent in build_library (compiling, or waiting for another
+# process's build)
 build_info: dict = {}
 
 _COUNTED: dict = {}
@@ -76,8 +77,22 @@ def _compiler() -> list:
     return shlex.split(os.environ.get("CXX") or "g++")
 
 
+@functools.lru_cache(maxsize=None)
+def _compiler_version(cxx: tuple) -> str:
+    """The first line of ``<cxx> --version`` ('' when it prints none or
+    cannot run: the build then raises with the compiler's message)."""
+    try:
+        out = subprocess.run([*cxx, "--version"], capture_output=True, text=True,
+                             timeout=60).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return ""
+    return out.splitlines()[0] if out else ""
+
+
 def _digest(cxx: list) -> str:
+    """sha256 of the compiler (its name and version), the flags and the source."""
     h = hashlib.sha256(" ".join(cxx + CXXFLAGS).encode())
+    h.update(_compiler_version(tuple(cxx)).encode())
     h.update(_SOURCE.read_bytes())
     return h.hexdigest()
 
@@ -85,9 +100,9 @@ def _digest(cxx: list) -> str:
 def build_library() -> Path:
     """Compile ``terrain_runtime.cpp`` into
     ``build/native/libterrain_runtime_<hash>.so`` unless a library built
-    from the same compiler, flags and source is already there. A file lock
-    serialises concurrent first builds (test workers); the library is
-    written under a temporary name and renamed into place. Raises
+    by the same compiler (and version), flags and source is already
+    there. A file lock serialises concurrent first builds (test workers);
+    the library is written under a temporary name and renamed into place. Raises
     RuntimeError with the compiler's output when the build fails."""
     cxx = _compiler()
     out = _BUILD_DIR / f"libterrain_runtime_{_digest(cxx)[:16]}.so"
@@ -122,7 +137,8 @@ def _load() -> ctypes.CDLL:
     path = build_library()
     cxx = _compiler()
     build_info.update(path=str(path), hash=_digest(cxx), cxx=" ".join(cxx),
-                      flags=" ".join(CXXFLAGS), seconds=time.perf_counter() - t0)
+                      version=_compiler_version(tuple(cxx)), flags=" ".join(CXXFLAGS),
+                      seconds=time.perf_counter() - t0)
     try:
         lib = ctypes.CDLL(str(path))
     except OSError as e:

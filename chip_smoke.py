@@ -3269,9 +3269,14 @@ NATIVE_SCENES = {"flythrough": "mesh_fused_planar", "planet": "mesh_fused_spheri
 # the native entry points Terrain.update runs on each scene
 NATIVE_ENTRIES = ("scan_requests", "view_anchors", "NativeResidency.add_existing",
                   "NativeResidency.request", "NativeResidency.drain_loads",
-                  "NativeResidency.release", "NativeResidency.loaded",
-                  "NativeResidency.best_tiles", "sample_bilinear")
-NATIVE_PLANET_ENTRIES = ("taylor_from_world", "project_view_uv")
+                  "NativeResidency.loaded", "NativeResidency.best_tiles", "sample_bilinear")
+# and per run, the entry points each scene and the preprocess host path must
+# have called (the numpy child's runs must have called none). The planet's
+# descent releases no tile (its 60 km tiles stay in the 3 km tree), so only
+# the flythrough must release
+NATIVE_NEEDS = {"flythrough": NATIVE_ENTRIES + ("NativeResidency.release",),
+                "planet": NATIVE_ENTRIES + ("taylor_from_world", "project_view_uv"),
+                "preprocess": ("split_bilinear", "quantize", "downsample")}
 # the host prologue's steps (render/pipeline.py Terrain.update 1-4), then the
 # device stage (step 5, to the end of the frame's work)
 NATIVE_STEPS = ("scan", "residency + IO", "adjust + height + Taylor + pack", "device stage")
@@ -3292,33 +3297,11 @@ def native_build_line(card: str) -> None:
                              "native runtime")
     if not native.available():
         raise AssertionError("the native runtime is not available")
-    cxx = subprocess.run([*native._compiler(), "--version"], capture_output=True, text=True,
-                         timeout=60).stdout.splitlines()[0]
     info = native.build_info
-    print(f"native: uname -m {platform.machine()}; {info['cxx']}: {cxx}; flags {info['flags']}; "
-          f"built in {info['seconds']:.2f} s; source+flags sha256 {info['hash'][:16]}; "
+    print(f"native: uname -m {platform.machine()}; {info['cxx']}: {info['version']}; "
+          f"flags {info['flags']}; "
+          f"built in {info['seconds']:.2f} s; compiler+flags+source sha256 {info['hash'][:16]}; "
           f"{Path(info['path']).relative_to(ROOT)}; {card}")
-
-
-@contextlib.contextmanager
-def loads_in_step():
-    """Each tile load finishes before ``start_loading`` returns, so a frame
-    sees the same resident tiles in every run, whatever its timing."""
-    from concurrent import futures
-
-    from bevy_terrain_tpu_torch.terrain_data.tile_atlas import AtlasAttachment
-
-    start = AtlasAttachment.start_loading
-
-    def start_loading(self, pool, tile):
-        start(self, pool, tile)
-        futures.wait([self.loading[-1][0]])
-
-    AtlasAttachment.start_loading = start_loading
-    try:
-        yield
-    finally:
-        AtlasAttachment.start_loading = start
 
 
 @contextlib.contextmanager
@@ -3399,17 +3382,23 @@ def native_datasets(root: Path) -> None:
           f"{PRE_SOURCE}^2 height source in {time.perf_counter() - t0:.1f} s")
 
 
-def native_scene(scene: str, root: Path) -> dict:
+def native_scene(scene: str, root: Path, check: bool = False) -> dict:
     """One run of ``scene`` through ``Terrain.update`` on the card, tile
     loads in step. Per frame: the sha256 of the sorted requested and
     released keys, the entries, the packed blob and ``raw_mesh`` (its
     ``tile_count`` rows), and the host clock of the prologue's steps and
-    the device stage (ms). Then the device twin of the scan against its
-    host twin on the last frame."""
+    the device stage (ms); the native calls of the run. With ``check``,
+    the mesh kernel's product is held against its plain version on the
+    first frame of the second half that requests tiles and on the last
+    frame. Then the device twin of the scan against its host twin on the
+    last frame."""
     import numpy as np
     import torch
 
-    from bevy_terrain_tpu_torch.ops import tile_tree
+    from bevy_terrain_tpu_torch import native
+    from bevy_terrain_tpu_torch.ops import kernels, tile_tree
+    from bevy_terrain_tpu_torch.terrain_data.tile_atlas import AtlasAttachment
+    from bevy_terrain_tpu_torch.utils.loading import loads_in_step
 
     def keys(tiles):
         return np.array(sorted((c.side, c.lod, c.x, c.y) for c in tiles), np.int64)
@@ -3417,12 +3406,16 @@ def native_scene(scene: str, root: Path) -> dict:
     def sha(a):
         return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
+    kernel = NATIVE_SCENES[scene]
+    plain, held = ((kernels.mesh_fused_planar_reference, compare) if scene == "flythrough"
+                   else (kernels.mesh_fused_spherical_reference, compare_spherical))
+    native.reset_counts()  # the residency machine's add_existing runs in Terrain()
     terrain, views = native_terrain(scene, root)
     tree = terrain.tile_trees["cam"]
-    frames, steps, marks = [], [], {}
+    frames, steps, marks, checked = [], [], {}, []
     reset_counts()
-    with loads_in_step(), prologue_clock(terrain, marks):
-        for view, view_proj in views:
+    with loads_in_step(AtlasAttachment), prologue_clock(terrain, marks):
+        for i, (view, view_proj) in enumerate(views):
             t0 = time.perf_counter()
             out = terrain.update({"cam": view}, {"cam": view_proj})["cam"]
             torch.cuda.synchronize()
@@ -3435,15 +3428,26 @@ def native_scene(scene: str, root: Path) -> dict:
                 "released": sha(keys(tree.released_tiles)), "entries": sha(tree.entries),
                 "blob": sha(terrain._last_blobs["cam"].cpu().numpy()),
                 "raw_mesh": sha(out.raw_mesh[:n].cpu().numpy()), "tiles": n})
-    launches = read_counts()[NATIVE_SCENES[scene]]
+            loading = (not checked and 2 * i >= len(views) and len(tree.requested_tiles) > 0)
+            if check and (loading or i == len(views) - 1):
+                what = (f"native path, {scene} frame {i} ({len(tree.requested_tiles)} tiles "
+                        f"requested, {n} drawn)")
+                held(out.raw_mesh, plain(*out.mesh_inputs), f"{what}: {kernel}")
+                checked.append(i)
+    launches = read_counts()[kernel]
+    calls = {k: v for k, v in native.counts().items() if v}
     if launches < len(views):
-        raise AssertionError(f"native path, {scene}: {NATIVE_SCENES[scene]} launched "
+        raise AssertionError(f"native path, {scene}: {kernel} launched "
                              f"{launches} times in {len(views)} frames")
+    if check and len(checked) != 2:
+        raise AssertionError(f"native path, {scene}: no frame of the second half requested "
+                             f"tiles, so no loading frame was held against {kernel}'s plain "
+                             f"version (checked frames {checked})")
     uniforms, cfg = terrain.frame_inputs("cam")
     xy, req = tile_tree.tile_tree_update(uniforms, cfg)
     xy_host, req_host = tile_tree.tile_tree_update_host(
         terrain.config.model, views[-1][0], uniforms, cfg)
-    return {"frames": frames, "steps": steps, "launches": launches,
+    return {"frames": frames, "steps": steps, "launches": launches, "native_calls": calls,
             "twin_xy_equal": bool(np.array_equal(xy.cpu().numpy(), xy_host)),
             "twin_agree": float(np.mean(req.cpu().numpy() == req_host)),
             "twin_slots": int(req_host.size),
@@ -3454,13 +3458,15 @@ def native_scene(scene: str, root: Path) -> dict:
 def native_preprocess(root: Path, card: str) -> dict:
     """The preprocess host path on the bench geometry (the 8192^2 R16 height
     source over lods 0-4 of 512^2: 341 tiles) and on the interchange
-    fixture: the tiles/s and the sha256 of every file written."""
+    fixture: the tiles/s, the sha256 of every file written and the native
+    calls of the run."""
     import numpy as np
 
-    from bevy_terrain_tpu_torch import PreprocessDataset
+    from bevy_terrain_tpu_torch import PreprocessDataset, native
     from bevy_terrain_tpu_torch.config import AttachmentConfig, TerrainConfig
     from bevy_terrain_tpu_torch.terrain_data import TileAtlas
 
+    native.reset_counts()
     source = np.load(root / "height.npy")
     model = bench_scene()[0]
     att = AttachmentConfig(name="height", texture_size=TEXTURE_SIZE, border_size=BORDER,
@@ -3480,15 +3486,17 @@ def native_preprocess(root: Path, card: str) -> dict:
         _, kit = kit_run("native path, interchange fixture", Path(tmp) / "kit", card,
                          device=False)
     return {"tiles_per_s": tiles / wall, "wall_s": wall,
+            "native_calls": {k: v for k, v in native.counts().items() if v},
             "hashes": {k: hashlib.sha256(v).hexdigest() for k, v in files.items()},
             "kit": {k: hashlib.sha256(v).hexdigest() for k, v in kit.items()}}
 
 
-def native_runs(root: Path, card: str) -> dict:
-    """One run of each scene and of the preprocess host path."""
+def native_runs(root: Path, card: str, check: bool = False) -> dict:
+    """One run of each scene (``check``: with its mesh kernel held against
+    the plain version) and of the preprocess host path."""
     import torch
 
-    out = {scene: native_scene(scene, root) for scene in NATIVE_SCENES}
+    out = {scene: native_scene(scene, root, check) for scene in NATIVE_SCENES}
     torch.cuda.empty_cache()
     out["preprocess"] = native_preprocess(root, card)
     return out
@@ -3503,10 +3511,9 @@ def native_child(root: Path) -> int:
 
     if os.environ.get("BT_DISABLE_NATIVE") != "1" or native.available():
         raise AssertionError("the numpy side must run with BT_DISABLE_NATIVE=1")
-    native.reset_counts()
     card = card_line()
     runs = [native_runs(root, card) for _ in range(2)]
-    calls = {k: v for k, v in native.counts().items() if v}
+    calls = {k: r[k]["native_calls"] for r in runs for k in r if r[k]["native_calls"]}
     if calls:
         raise AssertionError(f"native entry points ran with BT_DISABLE_NATIVE=1: {calls}")
     (root / "numpy.json").write_text(json.dumps(runs))
@@ -3539,9 +3546,7 @@ def native_path() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as tmp:
         root = Path(tmp)
         native_datasets(root)
-        native.reset_counts()
-        first = native_runs(root, card)
-        calls = native.counts()
+        first = native_runs(root, card, check=True)
         t0 = time.perf_counter()
         child = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--native-child", str(root)],
@@ -3595,12 +3600,15 @@ def native_path() -> None:
               f"tile_tree_update_host (last frame, {want['twin_slots']} slots): tile_xy equal, "
               f"request masks agree on {want['twin_agree']:.4%} (limit {TWIN_MIN_AGREE:.0%})")
 
-    need = NATIVE_ENTRIES + NATIVE_PLANET_ENTRIES
-    if any(calls[k] == 0 for k in need):
-        raise AssertionError(f"native path: entry points that never ran: "
-                             f"{[k for k in need if calls[k] == 0]}")
-    print("native path: native calls in run 1: "
-          + ", ".join(f"{k} {v}" for k, v in calls.items() if v))
+    for what, need in NATIVE_NEEDS.items():
+        for i, (side, run) in enumerate(turns, 1):
+            calls = run[what]["native_calls"]
+            missing = [k for k in need if not calls.get(k)] if side == "native" else []
+            if missing:
+                raise AssertionError(f"native path, {what} run {i}: native entry points that "
+                                     f"never ran: {missing}")
+        print(f"native path, {what}: native calls in run 1: "
+              + ", ".join(f"{k} {v}" for k, v in first[what]["native_calls"].items()))
 
     pre = first["preprocess"]
     for i, (side, run) in enumerate(turns[1:], 2):

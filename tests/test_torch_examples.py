@@ -18,7 +18,6 @@
 
 import functools
 import sys
-from concurrent import futures
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +28,7 @@ import examples.preprocess_planar as jpreprocess_planar
 from examples_torch import (
     minimal, planar, preprocess_planar, preprocess_spherical, render_capture, spherical,
 )
+from bevy_terrain_tpu_torch.utils.loading import loads_in_step
 from tests.test_torch_patch_sampling import one_torch_thread  # noqa: F401 (autouse)
 
 # the fused-vs-staged height yardstick (tests/test_fused_mesh.py:95-97)
@@ -54,27 +54,23 @@ def _record(monkeypatch, cls, name, sink):
     monkeypatch.setattr(cls, name, wrapper)
 
 
-def _load_in_step(monkeypatch, attachment_cls):
-    """Each tile load finishes before ``start_loading`` returns, so a frame
-    sees the same resident tiles in both packages whatever their frame
-    times (the approximate height under the camera, and with it the tile
-    count, follows the resident tiles)."""
-    start = attachment_cls.start_loading
-
-    def start_loading(self, pool, tile):
-        start(self, pool, tile)
-        futures.wait([self.loading[-1][0]])
-
-    monkeypatch.setattr(attachment_cls, "start_loading", start_loading)
-
-
-def test_preprocess_planar_and_minimal_match_jax(tmp_path, monkeypatch, capsys):
-    import bevy_terrain_tpu as jbt
+@pytest.fixture
+def jax_and_port_loads_in_step():
+    """Each tile load finishes before ``start_loading`` returns, in both
+    packages, so a frame sees the same resident tiles in both whatever
+    their frame times (the approximate height under the camera, and with
+    it the tile count, follows the resident tiles)."""
     from bevy_terrain_tpu.terrain_data.tile_atlas import AtlasAttachment as JAtlasAttachment
     from bevy_terrain_tpu_torch.terrain_data.tile_atlas import AtlasAttachment
 
-    _load_in_step(monkeypatch, JAtlasAttachment)
-    _load_in_step(monkeypatch, AtlasAttachment)
+    with loads_in_step(JAtlasAttachment, AtlasAttachment):
+        yield
+
+
+def test_preprocess_planar_and_minimal_match_jax(tmp_path, monkeypatch, capsys,
+                                                 jax_and_port_loads_in_step):
+    import bevy_terrain_tpu as jbt
+
     jroot, root = tmp_path / "jax", tmp_path / "port"
     frames, jheights = [], []
     _record(monkeypatch, jbt.Terrain, "update", frames)
@@ -109,10 +105,11 @@ def test_preprocess_planar_and_minimal_match_jax(tmp_path, monkeypatch, capsys):
 
 
 @pytest.fixture
-def port_loads_in_step(monkeypatch):
+def port_loads_in_step():
     from bevy_terrain_tpu_torch.terrain_data.tile_atlas import AtlasAttachment
 
-    _load_in_step(monkeypatch, AtlasAttachment)
+    with loads_in_step(AtlasAttachment):
+        yield
 
 
 def test_planar_example_on_the_cpu(tmp_path, port_loads_in_step):

@@ -32,6 +32,7 @@ from bevy_terrain_tpu import native as jnative
 from bevy_terrain_tpu_torch import native
 from bevy_terrain_tpu_torch.math.coordinate import TileCoordinate
 from bevy_terrain_tpu_torch.terrain_data.tile_atlas import TileAtlasState, pack_keys
+from tests.test_torch_examples import jax_and_port_loads_in_step  # noqa: F401 (fixture)
 from tests.test_torch_patch_sampling import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -800,20 +801,16 @@ SLICE = {
 
 
 @pytest.mark.parametrize("scene", sorted(SLICE))
-def test_terrain_matches_the_jax_terrain_frame_by_frame(scene, tmp_path, monkeypatch):
-    from bevy_terrain_tpu.terrain_data.tile_atlas import AtlasAttachment as JAtlasAttachment
+def test_terrain_matches_the_jax_terrain_frame_by_frame(scene, tmp_path, monkeypatch,
+                                                        jax_and_port_loads_in_step):
     from bevy_terrain_tpu_torch.config import AttachmentConfig
     from bevy_terrain_tpu_torch.math import frustum
-    from bevy_terrain_tpu_torch.terrain_data.tile_atlas import AtlasAttachment
     from bevy_terrain_tpu_torch.utils.synthetic import (
         generate_planar_dataset, generate_spherical_dataset,
     )
-    from tests.test_torch_examples import _load_in_step
     from tests.test_torch_staged_pipeline import _assert_same_frame, _terrains
 
     monkeypatch.delenv("BT_DISABLE_NATIVE", raising=False)
-    _load_in_step(monkeypatch, JAtlasAttachment)
-    _load_in_step(monkeypatch, AtlasAttachment)
     case = SLICE[scene]
     generate = generate_planar_dataset if scene == "flythrough" else generate_spherical_dataset
     generate(case["terrain"]["path"], 3, AttachmentConfig(**case["att"]), root=str(tmp_path))
