@@ -100,13 +100,62 @@
 // material instances ~59 KB of dynamic shared memory (a height and an
 // albedo quad, H, Hs, four albedo half-grids, the shade's heights), three
 // blocks per SM.
+//
+// Ablation (the TPU kernel's `ablate`, a measurement harness only): both
+// kernels take a compile-time mask ABL of named pieces to remove, to
+// attribute their time by timed variants. ABL 0 is the production kernel;
+// every branch below is `if constexpr`, so the production instances compile
+// as before. The ablated instances are built from this file with
+// -DMESH_ABLATION=<group> into a library of their own (ops/kernels.py
+// build_ablation_library), never into the production one. The pieces:
+//
+// * AB_NO_TAYLOR (K2): no Taylor near field, at the unmorphed or the
+//   morphed uv; every vertex takes the far-field distance and position.
+// * AB_REUSE_FAR (K2): the position is the unmorphed one plus the height
+//   along the unmorphed normal (no second far_geom, no morphed Taylor chain).
+// * AB_NO_SMOOTH: no 1-2-1 smoothing pass and no second window read: the
+//   smoothed height is the fine one.
+// * AB_NO_PHASE_A: the quad copies (cp.async) and the tents stay; the
+//   unpack, the means and the half-grid stores go. The half-grids, zeroed
+//   once per block, stay zero (the TPU kernel reads scratch that nothing
+//   wrote; here they are defined as zeros).
+// * AB_ALB_NO_UNPACK: every albedo channel is the raw signed word.
+// * AB_ALB_NO_DOTS: no resample of the albedo: each channel's half-grid
+//   is its mean plus its mean (the TPU kernel's 0 * w + mean, then + mean).
+// * AB_ALB_NO_STORE: the channels' mean-centred resamples are summed and
+//   only the sum is stored, into channel 0's half-grid; the other channels'
+//   half-grids stay zero (the TPU kernel writes one slab of scratch).
+// * AB_ALB_NO_INTERP: each colour is the half-grid point under the vertex
+//   (tap(i, 2), tap(j, 1)), the TPU kernel's slab read, not the window.
+//
+// The first three albedo pieces turn the bf16 fast path off, as in the TPU
+// kernel: their deltas against the full kernel compare the fast path with
+// the exact one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "tile_quad.cuh"
 
 namespace {
+
+// ablation mask bits (ops/kernels.py ABLATE_BITS)
+constexpr int AB_NO_TAYLOR = 1, AB_REUSE_FAR = 2, AB_NO_SMOOTH = 4, AB_NO_PHASE_A = 8,
+              AB_ALB_NO_UNPACK = 16, AB_ALB_NO_DOTS = 32, AB_ALB_NO_STORE = 64,
+              AB_ALB_NO_INTERP = 128;
+// the pieces that turn the albedo's fast path off
+constexpr int AB_ALB_EXACT = AB_ALB_NO_UNPACK | AB_ALB_NO_DOTS | AB_ALB_NO_STORE;
+
+// Keep v computed: an ablated instance removes a piece's use, not the work
+// the TPU variant keeps.
+__device__ __forceinline__ void keep_alive(float v) { asm volatile("" ::"f"(v)); }
+
+// Zeros over n floats of shared memory from the whole block.
+__device__ __forceinline__ void zero_shared(float* p, int n) {
+  for (int e = threadIdx.x; e < n; e += NTHREADS) p[e] = 0.0f;
+}
 
 constexpr int TILES_PER_STEP = 64;     // tiles per high-precision flag
 
@@ -347,8 +396,8 @@ __device__ __forceinline__ float tile_const(int c, const float* tp, const float*
 // and smoothed half-grids H and Hs (33x33, natural order), per-vertex
 // blend, height, world position (and normal). warp: the tile's unmorphed
 // warp terms on a sphere, pxs of column j at warp[j], pys of row i at
-// warp[GV + i]; consts: the tile's TILE_CONSTS.
-template <bool SPHERICAL, bool ELLIPSOIDAL>
+// warp[GV + i]; consts: the tile's TILE_CONSTS; ABL: the ablation mask.
+template <bool SPHERICAL, bool ELLIPSOIDAL, int ABL>
 __device__ __forceinline__ Vertex vertex_stage(int t, int i, int j, const float* tp,
                                                const float* __restrict__ fs,
                                                const int* __restrict__ hp_steps,
@@ -376,21 +425,23 @@ __device__ __forceinline__ Vertex vertex_stage(int t, int i, int j, const float*
     const float dwz = w0.z + fs[29] * n0.z - fs[41];
     const float d2_w0 = dwx * dwx + dwy * dwy + dwz * dwz;
     d2 = d2_w0;
-    if (hp_steps[t / TILES_PER_STEP] == 2) {
-      const int lodi = (int)lodf;
-      anchor.xi = (int)xf;
-      anchor.yi = (int)yf;
-      anchor.down = max(lodi - origin_lod, 0);
-      anchor.up = max(origin_lod - lodi, 0);
-      anchor.is_dn = lodi >= origin_lod;
-      anchor.scale_dn = exp2f(-(float)anchor.down);
-      anchor.scale_up = exp2f((float)anchor.up);
-      const Vec3 r0 = taylor_rel(u, v, anchor, tp, fs);
-      const float dhx = r0.x + fs[29] * n0.x;
-      const float dhy = r0.y + fs[29] * n0.y;
-      const float dhz = r0.z + fs[29] * n0.z;
-      near = d2_w0 < fs[45];
-      if (near) d2 = dhx * dhx + dhy * dhy + dhz * dhz;
+    if constexpr (!(ABL & AB_NO_TAYLOR)) {
+      if (hp_steps[t / TILES_PER_STEP] == 2) {
+        const int lodi = (int)lodf;
+        anchor.xi = (int)xf;
+        anchor.yi = (int)yf;
+        anchor.down = max(lodi - origin_lod, 0);
+        anchor.up = max(origin_lod - lodi, 0);
+        anchor.is_dn = lodi >= origin_lod;
+        anchor.scale_dn = exp2f(-(float)anchor.down);
+        anchor.scale_up = exp2f((float)anchor.up);
+        const Vec3 r0 = taylor_rel(u, v, anchor, tp, fs);
+        const float dhx = r0.x + fs[29] * n0.x;
+        const float dhy = r0.y + fs[29] * n0.y;
+        const float dhz = r0.z + fs[29] * n0.z;
+        near = d2_w0 < fs[45];
+        if (near) d2 = dhx * dhx + dhy * dhy + dhz * dhz;
+      }
     }
   } else {
     // planar view distance^2 (fs 0..14: world_from_local, distance base)
@@ -427,9 +478,10 @@ __device__ __forceinline__ Vertex vertex_stage(int t, int i, int j, const float*
       const int c = tap(j, a);
       const float w = r.wyb[b] * r.wxa[a];
       h_fine = h_fine + w * H[row * K + c];
-      h_smooth = h_smooth + w * Hs[row * K + c];
+      if constexpr (!(ABL & AB_NO_SMOOTH)) h_smooth = h_smooth + w * Hs[row * K + c];
     }
   }
+  if constexpr ((ABL & AB_NO_SMOOTH) != 0) h_smooth = h_fine;
 
   // per-vertex blend crossfade (fs 44 log2(blend_distance), 26 lod cap,
   // 21 blend_range, 25 blend on), height (fs 22 min, 23 range / max_value)
@@ -447,14 +499,19 @@ __device__ __forceinline__ Vertex vertex_stage(int t, int i, int j, const float*
     // relative position (view + rel) replaces it and the unmorphed normal
     // is kept
     Vec3 wm, nm;
-    far_geom<ELLIPSOIDAL>(warp_term(mu, xf, inv_count), warp_term(mv, yf, inv_count), tp,
-                          fs, wm, nm);
-    if (near) {
-      const Vec3 rm = taylor_rel(mu, mv, anchor, tp, fs);
-      wm.x = fs[39] + rm.x;
-      wm.y = fs[40] + rm.y;
-      wm.z = fs[41] + rm.z;
+    if constexpr ((ABL & AB_REUSE_FAR) != 0) {
+      wm = w0;
       nm = n0;
+    } else {
+      far_geom<ELLIPSOIDAL>(warp_term(mu, xf, inv_count), warp_term(mv, yf, inv_count), tp,
+                            fs, wm, nm);
+      if (near) {
+        const Vec3 rm = taylor_rel(mu, mv, anchor, tp, fs);
+        wm.x = fs[39] + rm.x;
+        wm.y = fs[40] + rm.y;
+        wm.z = fs[41] + rm.z;
+        nm = n0;
+      }
     }
     r.px = wm.x + height * nm.x;
     r.py = wm.y + height * nm.y;
@@ -523,8 +580,8 @@ __device__ __forceinline__ void warp_table(int tid, const float* tp, float* warp
 // blocks per SM (K1, 48 registers) or three (K2, 64). The held quad is a
 // float patch, its exact mean taken once; the next tile's quad, when its id
 // differs, is copied raw behind the whole current tile and unpacked at the
-// top of the next.
-template <bool SPHERICAL, bool ELLIPSOIDAL>
+// top of the next. ABL: the ablation mask (0: production).
+template <bool SPHERICAL, bool ELLIPSOIDAL, int ABL>
 __global__ void __launch_bounds__(NTHREADS, SPHERICAL ? 3 : 4)
 mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
                   const int* __restrict__ ids,
@@ -546,6 +603,7 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
   // the dead tiles' zeros go out while the first quad lands
   zero_fill(out + (size_t)run.d0 * OUT_CH * NVERT, out + (size_t)run.d1 * OUT_CH * NVERT);
   if (run.t0 == run.t1) return;
+  if constexpr ((ABL & AB_NO_PHASE_A) != 0) zero_shared(&s.H[0][0], K * K);
   cp_async_wait();
   __syncthreads();
   bool fetched = true;  // s.raw holds quad q: unpack it and take its mean
@@ -554,7 +612,8 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
     const int tid = opaque((int)threadIdx.x);
     const float* fs_t = opaque(fs);
     if (fetched) {
-      mean = block_mean(unpack_patch(s.raw, s.patch), s.warp_sum, &s.mean);
+      if constexpr (!(ABL & AB_NO_PHASE_A))
+        mean = block_mean(unpack_patch(s.raw, s.patch), s.warp_sum, &s.mean);
       fetched = false;
     }
     // s.raw is free: the next tile's quad, if another, lands behind this tile
@@ -574,8 +633,11 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
         const int k = k0 + d;
         if (k >= K) break;
         const AxisTaps y = axis_taps(p0y, dp, k);
-        s.H[k][l] =
-            centred_bilinear(s.patch, mean, {y.i0, x.i0, y.w0, y.w1, x.w0, x.w1}) + mean;
+        if constexpr ((ABL & AB_NO_PHASE_A) != 0)
+          keep_alive(y.w0 + y.w1 + x.w0 + x.w1 + (float)(y.i0 + x.i0));
+        else
+          s.H[k][l] =
+              centred_bilinear(s.patch, mean, {y.i0, x.i0, y.w0, y.w1, x.w0, x.w1}) + mean;
       }
     }
     __syncthreads();
@@ -586,18 +648,20 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
     // constants go to shared memory and, on a sphere, the last 2 GV threads
     // build the tile's warp table ----
     const float* tp = tile_params + (size_t)t * N_PARAMS;
-    if (tid < K * STRIPS) {
-      const int lm = max(l - 1, 0), lp = min(l + 1, K - 1);
-      float x[STRIP + 2];
+    if constexpr (!(ABL & AB_NO_SMOOTH)) {
+      if (tid < K * STRIPS) {
+        const int lm = max(l - 1, 0), lp = min(l + 1, K - 1);
+        float x[STRIP + 2];
 #pragma unroll
-      for (int d = 0; d < STRIP + 2; ++d) {
-        const int r = min(max(k0 - 1 + d, 0), K - 1);
-        x[d] = smooth3(s.H[r][lm], s.H[r][l], s.H[r][lp]);
-      }
+        for (int d = 0; d < STRIP + 2; ++d) {
+          const int r = min(max(k0 - 1 + d, 0), K - 1);
+          x[d] = smooth3(s.H[r][lm], s.H[r][l], s.H[r][lp]);
+        }
 #pragma unroll
-      for (int d = 0; d < STRIP; ++d) {
-        if (k0 + d >= K) break;
-        s.Hs[k0 + d][l] = smooth3(x[d], x[d + 1], x[d + 2]);
+        for (int d = 0; d < STRIP; ++d) {
+          if (k0 + d >= K) break;
+          s.Hs[k0 + d][l] = smooth3(x[d], x[d + 1], x[d + 2]);
+        }
       }
     }
     const int c = tid - (NTHREADS - 2 * GV - N_PARAMS);
@@ -609,7 +673,7 @@ mesh_fused_kernel(const int* __restrict__ blocks, long long n_blocks,
 
     // ---- 3. per vertex ----
     if (tid < NVERT) {
-      const Vertex v = vertex_stage<SPHERICAL, ELLIPSOIDAL>(
+      const Vertex v = vertex_stage<SPHERICAL, ELLIPSOIDAL, ABL>(
           t, tid / GV, tid % GV, tp, fs_t, hp_steps, origin_lod, valid, &s.H[0][0],
           &s.Hs[0][0], s.warp, s.consts);
       write_mesh_rows<SPHERICAL>(out + (size_t)t * OUT_CH * NVERT, tid, v, tp[0]);
@@ -641,7 +705,37 @@ struct MaterialShared {
 // match).
 constexpr int MATERIAL_MIN_BLOCKS = 3;
 
-template <bool SPHERICAL, bool ELLIPSOIDAL, bool SHADE>
+// The albedo channels of one half-grid point with AB_ALB_NO_DOTS and / or
+// AB_ALB_NO_STORE (exact path): per channel the mean-centred resample, or
+// with AB_ALB_NO_DOTS the mean in its place; stored plus the mean per
+// channel, or with AB_ALB_NO_STORE summed over the channels into a[0] alone.
+template <int ABL>
+__device__ __forceinline__ void albedo_ablated(const int* aq, const Taps& tw, int channels,
+                                               int bits, const float* mean, float* a) {
+  Corners w = {};
+  if constexpr (!(ABL & AB_ALB_NO_DOTS)) w = quad_corners(aq, tw);
+  float acc = 0.0f;
+#pragma unroll
+  for (int ch = 0; ch < MAX_CH; ++ch) {
+    if (ch >= channels) break;
+    const float m = mean[ch];
+    float centred = m;
+    if constexpr (!(ABL & AB_ALB_NO_DOTS)) {
+      const float col0 = tw.wy0 * (unpack(w.w00, ch, bits) - m) +
+                         tw.wy1 * (unpack(w.w10, ch, bits) - m);
+      const float col1 = tw.wy0 * (unpack(w.w01, ch, bits) - m) +
+                         tw.wy1 * (unpack(w.w11, ch, bits) - m);
+      centred = col0 * tw.wx0 + col1 * tw.wx1;
+    }
+    if constexpr ((ABL & AB_ALB_NO_STORE) != 0)
+      acc = acc + centred;
+    else
+      a[ch * K * K] = centred + m;
+  }
+  if constexpr ((ABL & AB_ALB_NO_STORE) != 0) a[0] = acc;
+}
+
+template <bool SPHERICAL, bool ELLIPSOIDAL, bool SHADE, int ABL>
 __global__ void __launch_bounds__(NTHREADS, MATERIAL_MIN_BLOCKS)
 mesh_material_kernel(const int* __restrict__ blocks, long long n_blocks,
                      const int* __restrict__ ids,
@@ -669,6 +763,12 @@ mesh_material_kernel(const int* __restrict__ blocks, long long n_blocks,
   // the dead tiles' zeros go out while the first quads land
   zero_fill(out + (size_t)run.d0 * out_per_tile, out + (size_t)run.d1 * out_per_tile);
   if (run.t0 == run.t1) return;
+  if constexpr ((ABL & AB_NO_PHASE_A) != 0) zero_shared(&s.H[0][0], K * K);
+  if constexpr ((ABL & (AB_NO_PHASE_A | AB_ALB_NO_STORE)) != 0)
+    zero_shared(&s.A[0][0][0], MAX_CH * K * K);
+  // the albedo's fast path, and its unpack (bits 0: the raw word)
+  const bool fast = (ABL & AB_ALB_EXACT) ? false : alb.fast;
+  const int alb_bits = (ABL & AB_ALB_NO_UNPACK) ? 0 : alb.bits;
   cp_async_wait();
   __syncthreads();
   bool fetched = true;  // the quads in shared memory are new: take their means
@@ -677,10 +777,12 @@ mesh_material_kernel(const int* __restrict__ blocks, long long n_blocks,
     const float* fs_t = opaque(fs);
     if (fetched) {
       // the height's exact integer mean; the albedo channels' on the exact path
-      long long acc[MAX_SUMS] = {0, 0, 0, 0, 0};
-      quad_sums(s.hq, 1, 0, acc);
-      if (!alb.fast) quad_sums(s.aq, alb.channels, alb.bits, acc + 1);
-      block_means(acc, alb.fast ? 1 : 1 + alb.channels, s.warp_sum, s.mean);
+      if constexpr (!(ABL & AB_NO_PHASE_A)) {
+        long long acc[MAX_SUMS] = {0, 0, 0, 0, 0};
+        quad_sums(s.hq, 1, 0, acc);
+        if (!fast) quad_sums(s.aq, alb.channels, alb_bits, acc + 1);
+        block_means(acc, fast ? 1 : 1 + alb.channels, s.warp_sum, s.mean);
+      }
       fetched = false;
     }
 
@@ -692,9 +794,16 @@ mesh_material_kernel(const int* __restrict__ blocks, long long n_blocks,
     for (int e = tid; e < K * K; e += NTHREADS) {
       const int k = e / K, l = e % K;
       const Taps tw = halfgrid_taps(p0x, p0y, dp, k, l);
-      halfgrid_channels(quad_corners(s.hq, tw), tw, 1, 0, false, s.mean, &s.H[k][l]);
-      halfgrid_channels(quad_corners(s.aq, tw), tw, alb.channels, alb.bits, alb.fast,
-                        s.mean + 1, &s.A[0][k][l]);
+      if constexpr ((ABL & AB_NO_PHASE_A) != 0) {
+        keep_alive(tw.wy0 + tw.wy1 + tw.wx0 + tw.wx1 + (float)(tw.r0 + tw.c0));
+      } else {
+        halfgrid_channels(quad_corners(s.hq, tw), tw, 1, 0, false, s.mean, &s.H[k][l]);
+        if constexpr ((ABL & (AB_ALB_NO_DOTS | AB_ALB_NO_STORE)) != 0)
+          albedo_ablated<ABL>(s.aq, tw, alb.channels, alb_bits, s.mean + 1, &s.A[0][k][l]);
+        else
+          halfgrid_channels(quad_corners(s.aq, tw), tw, alb.channels, alb_bits, fast,
+                            s.mean + 1, &s.A[0][k][l]);
+      }
     }
     __syncthreads();
 
@@ -713,15 +822,17 @@ mesh_material_kernel(const int* __restrict__ blocks, long long n_blocks,
     // ---- 2. smoothed copy Hs = A H A^T (A = 1-2-1 with duplicated
     // boundary rows), each point's three x taps as K1's x-smoothed rows
     // hold them; on a sphere the tile's warp table ----
-    for (int e = tid; e < K * K; e += NTHREADS) {
-      const int k = e / K, l = e % K;
-      const int lm = max(l - 1, 0), lp = min(l + 1, K - 1);
-      float x[3];
-      for (int d = 0; d < 3; ++d) {
-        const int r = min(max(k - 1 + d, 0), K - 1);
-        x[d] = smooth3(s.H[r][lm], s.H[r][l], s.H[r][lp]);
+    if constexpr (!(ABL & AB_NO_SMOOTH)) {
+      for (int e = tid; e < K * K; e += NTHREADS) {
+        const int k = e / K, l = e % K;
+        const int lm = max(l - 1, 0), lp = min(l + 1, K - 1);
+        float x[3];
+        for (int d = 0; d < 3; ++d) {
+          const int r = min(max(k - 1 + d, 0), K - 1);
+          x[d] = smooth3(s.H[r][lm], s.H[r][l], s.H[r][lp]);
+        }
+        s.Hs[k][l] = smooth3(x[0], x[1], x[2]);
       }
-      s.Hs[k][l] = smooth3(x[0], x[1], x[2]);
     }
     const float* tp = tile_params + (size_t)t * N_PARAMS;
     if (SPHERICAL) warp_table(tid, tp, s.warp);
@@ -737,17 +848,22 @@ mesh_material_kernel(const int* __restrict__ blocks, long long n_blocks,
     if (active) {
       const float consts[TILE_CONSTS] = {tile_const(0, tp, fs_t), tile_const(1, tp, fs_t),
                                          tile_const(2, tp, fs_t)};
-      v = vertex_stage<SPHERICAL, ELLIPSOIDAL>(t, i, j, tp, fs_t, hp_steps, origin_lod, valid,
-                                               &s.H[0][0], &s.Hs[0][0], s.warp, consts);
+      v = vertex_stage<SPHERICAL, ELLIPSOIDAL, ABL>(t, i, j, tp, fs_t, hp_steps, origin_lod,
+                                                    valid, &s.H[0][0], &s.Hs[0][0], s.warp,
+                                                    consts);
 #pragma unroll
       for (int ch = 0; ch < MAX_CH; ++ch) {
         if (ch >= alb.channels) break;
         float acc_c = 0.0f;
-        for (int b = 0; b < 3; ++b) {
-          const int r = tap(i, b);
-          for (int a = 0; a < 3; ++a) {
-            const float w = v.wyb[b] * v.wxa[a];
-            acc_c = acc_c + w * s.A[ch][r][tap(j, a)];
+        if constexpr ((ABL & AB_ALB_NO_INTERP) != 0) {
+          acc_c = s.A[ch][tap(i, 2)][tap(j, 1)];
+        } else {
+          for (int b = 0; b < 3; ++b) {
+            const int r = tap(i, b);
+            for (int a = 0; a < 3; ++a) {
+              const float w = v.wyb[b] * v.wxa[a];
+              acc_c = acc_c + w * s.A[ch][r][tap(j, a)];
+            }
           }
         }
         col[ch] = acc_c;
@@ -783,18 +899,21 @@ mesh_material_kernel(const int* __restrict__ blocks, long long n_blocks,
 
 constexpr int MATERIAL_SMEM = (int)sizeof(MaterialShared);
 
+#ifndef MESH_ABLATION
 const KernelInstance INSTANCES[] = {
-    {"mesh_fused_planar", (const void*)mesh_fused_kernel<false, false>, 0},
-    {"mesh_fused_spherical (sphere)", (const void*)mesh_fused_kernel<true, false>, 0},
-    {"mesh_fused_spherical (ellipsoid)", (const void*)mesh_fused_kernel<true, true>, 0},
-    {"mesh_fused_albedo", (const void*)mesh_material_kernel<false, false, false>,
+    {"mesh_fused_planar", (const void*)mesh_fused_kernel<false, false, 0>, 0},
+    {"mesh_fused_spherical (sphere)", (const void*)mesh_fused_kernel<true, false, 0>, 0},
+    {"mesh_fused_spherical (ellipsoid)", (const void*)mesh_fused_kernel<true, true, 0>, 0},
+    {"mesh_fused_albedo", (const void*)mesh_material_kernel<false, false, false, 0>,
      MATERIAL_SMEM},
-    {"mesh_fused_shaded", (const void*)mesh_material_kernel<false, false, true>, MATERIAL_SMEM},
+    {"mesh_fused_shaded", (const void*)mesh_material_kernel<false, false, true, 0>,
+     MATERIAL_SMEM},
     {"mesh_fused_spherical_albedo (sphere)",
-     (const void*)mesh_material_kernel<true, false, false>, MATERIAL_SMEM},
+     (const void*)mesh_material_kernel<true, false, false, 0>, MATERIAL_SMEM},
     {"mesh_fused_spherical_albedo (ellipsoid)",
-     (const void*)mesh_material_kernel<true, true, false>, MATERIAL_SMEM},
+     (const void*)mesh_material_kernel<true, true, false, 0>, MATERIAL_SMEM},
 };
+#endif
 
 // Check the albedo's launch arguments and pack them. Combined: one (N, 64,
 // 128) array, heights in rows 0:32 and the packed albedo in rows 32:64 of
@@ -830,13 +949,13 @@ int launch_runs(void (*kernel)(Params...), int smem, int* resident, int n_tiles,
 }
 
 // K1 / K2 over n_tiles tiles.
-template <bool SPHERICAL, bool ELLIPSOIDAL>
+template <bool SPHERICAL, bool ELLIPSOIDAL, int ABL = 0>
 int launch_mesh(const void* blocks, long long n_blocks, const void* ids, const void* geom,
                 const void* tile_params, const void* fs, const void* hp_steps,
                 const void* tile_count, int n_tiles, int waves, int origin_lod, void* out,
                 cudaStream_t stream) {
   static int resident[64] = {};
-  return launch_runs(mesh_fused_kernel<SPHERICAL, ELLIPSOIDAL>, 0, resident, n_tiles, waves,
+  return launch_runs(mesh_fused_kernel<SPHERICAL, ELLIPSOIDAL, ABL>, 0, resident, n_tiles, waves,
                      stream, (const int*)blocks, n_blocks, (const int*)ids,
                      (const float*)geom, (const float*)tile_params, (const float*)fs,
                      (const int*)hp_steps, (const int*)tile_count, n_tiles, origin_lod,
@@ -844,13 +963,13 @@ int launch_mesh(const void* blocks, long long n_blocks, const void* ids, const v
 }
 
 // One material kernel instance over n_tiles tiles.
-template <bool SPHERICAL, bool ELLIPSOIDAL, bool SHADE>
+template <bool SPHERICAL, bool ELLIPSOIDAL, bool SHADE, int ABL = 0>
 int launch_material(const void* blocks, long long n_blocks, const void* ids, const void* geom,
                     const void* tile_params, const void* fs, const void* hp_steps,
                     const void* tile_count, int n_tiles, int waves, int origin_lod,
                     const AlbedoArgs& alb, void* out, cudaStream_t stream) {
   static int resident[64] = {};
-  return launch_runs(mesh_material_kernel<SPHERICAL, ELLIPSOIDAL, SHADE>, MATERIAL_SMEM,
+  return launch_runs(mesh_material_kernel<SPHERICAL, ELLIPSOIDAL, SHADE, ABL>, MATERIAL_SMEM,
                      resident, n_tiles, waves, stream, (const int*)blocks, n_blocks,
                      (const int*)ids, (const float*)geom, (const float*)tile_params,
                      (const float*)fs, (const int*)hp_steps, (const int*)tile_count, n_tiles,
@@ -859,6 +978,7 @@ int launch_material(const void* blocks, long long n_blocks, const void* ids, con
 
 }  // namespace
 
+#ifndef MESH_ABLATION
 int mesh_fused_instances(const KernelInstance** table) {
   *table = INSTANCES;
   return (int)(sizeof(INSTANCES) / sizeof(INSTANCES[0]));
@@ -934,3 +1054,182 @@ extern "C" int mesh_fused_spherical_albedo_launch(
                                              hp_steps, tile_count, n_tiles, waves,
                                              origin_lod, alb, out, s);
 }
+#endif  // MESH_ABLATION
+
+#ifdef MESH_ABLATION
+// ---- The ablated instances: a library of their own, this file compiled
+// once per group (MESH_ABLATION = 1 .. 6, each in its own nvcc, linked
+// together). Each entry takes the production entry's arguments and the
+// ablation mask before the stream; a mask outside the kernel's list returns
+// cudaErrorInvalidValue (ops/kernels.py ABLATION_MASKS, which raises first).
+namespace {
+
+template <int... M>
+struct Masks {};
+
+// f(std::integral_constant<int, M>{}) for the M of the list equal to mask.
+template <class F>
+int with_mask(Masks<>, int, F&&) {
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int M, int... REST, class F>
+int with_mask(Masks<M, REST...>, int mask, F&& f) {
+  if (mask == M) return f(std::integral_constant<int, M>{});
+  return with_mask(Masks<REST...>{}, mask, f);
+}
+
+// the instantiated masks: each piece a kernel reads, alone, and the two
+// pairs the JAX package's ablation tools time
+using MeshMasks = Masks<AB_NO_SMOOTH, AB_NO_PHASE_A>;
+using SphereMasks = Masks<AB_NO_TAYLOR, AB_REUSE_FAR, AB_NO_SMOOTH, AB_NO_PHASE_A,
+                          AB_REUSE_FAR | AB_NO_TAYLOR>;
+using AlbedoMasks = Masks<AB_NO_SMOOTH, AB_NO_PHASE_A, AB_ALB_NO_UNPACK, AB_ALB_NO_DOTS,
+                          AB_ALB_NO_STORE, AB_ALB_NO_INTERP, AB_ALB_NO_DOTS | AB_ALB_NO_STORE>;
+using SphereAlbedoMasks =
+    Masks<AB_NO_TAYLOR, AB_REUSE_FAR, AB_NO_SMOOTH, AB_NO_PHASE_A, AB_REUSE_FAR | AB_NO_TAYLOR,
+          AB_ALB_NO_UNPACK, AB_ALB_NO_DOTS, AB_ALB_NO_STORE, AB_ALB_NO_INTERP,
+          AB_ALB_NO_DOTS | AB_ALB_NO_STORE>;
+
+}  // namespace
+
+// K2's ellipsoid (group 2), K4 (group 4) and K3s's ellipsoid (group 6),
+// called by the entries of groups 1, 3 and 5.
+int mesh_ellipsoid_ablate(const void* blocks, long long n_blocks, const void* ids,
+                          const void* geom, const void* tile_params, const void* fs,
+                          const void* hp_steps, const void* tile_count, void* out, int n_tiles,
+                          int origin_lod, int waves, int ablate, cudaStream_t stream);
+int mesh_shaded_ablate(const void* blocks, long long n_blocks, const void* ids,
+                       const void* geom, const void* tile_params, const void* fs,
+                       const void* tile_count, const void* albedo, int channels, int bits,
+                       int fast, int combined, const void* shade, void* out, int n_tiles,
+                       int waves, int ablate, cudaStream_t stream);
+int sphere_albedo_ellipsoid_ablate(const void* blocks, long long n_blocks, const void* ids,
+                                   const void* geom, const void* tile_params, const void* fs,
+                                   const void* hp_steps, const void* tile_count,
+                                   const void* albedo, int channels, int bits, int fast,
+                                   int combined, void* out, int n_tiles, int origin_lod,
+                                   int waves, int ablate, cudaStream_t stream);
+
+#if MESH_ABLATION == 1
+extern "C" int mesh_fused_planar_ablate_launch(const void* blocks, long long n_blocks,
+                                               const void* ids, const void* geom,
+                                               const void* tile_params, const void* fs,
+                                               const void* tile_count, void* out, int n_tiles,
+                                               int waves, int ablate, void* stream) {
+  if (n_tiles <= 0) return 0;
+  return with_mask(MeshMasks{}, ablate, [&](auto m) {
+    return launch_mesh<false, false, decltype(m)::value>(blocks, n_blocks, ids, geom,
+                                                         tile_params, fs, nullptr, tile_count,
+                                                         n_tiles, waves, 0, out,
+                                                         (cudaStream_t)stream);
+  });
+}
+
+extern "C" int mesh_fused_spherical_ablate_launch(const void* blocks, long long n_blocks,
+                                                  const void* ids, const void* geom,
+                                                  const void* tile_params, const void* fs,
+                                                  const void* hp_steps, const void* tile_count,
+                                                  void* out, int n_tiles, int origin_lod,
+                                                  int ellipsoidal, int waves, int ablate,
+                                                  void* stream) {
+  if (n_tiles <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ellipsoidal)
+    return mesh_ellipsoid_ablate(blocks, n_blocks, ids, geom, tile_params, fs, hp_steps,
+                                 tile_count, out, n_tiles, origin_lod, waves, ablate, s);
+  return with_mask(SphereMasks{}, ablate, [&](auto m) {
+    return launch_mesh<true, false, decltype(m)::value>(blocks, n_blocks, ids, geom,
+                                                        tile_params, fs, hp_steps, tile_count,
+                                                        n_tiles, waves, origin_lod, out, s);
+  });
+}
+#elif MESH_ABLATION == 2
+int mesh_ellipsoid_ablate(const void* blocks, long long n_blocks, const void* ids,
+                          const void* geom, const void* tile_params, const void* fs,
+                          const void* hp_steps, const void* tile_count, void* out, int n_tiles,
+                          int origin_lod, int waves, int ablate, cudaStream_t stream) {
+  return with_mask(SphereMasks{}, ablate, [&](auto m) {
+    return launch_mesh<true, true, decltype(m)::value>(blocks, n_blocks, ids, geom,
+                                                       tile_params, fs, hp_steps, tile_count,
+                                                       n_tiles, waves, origin_lod, out, stream);
+  });
+}
+#elif MESH_ABLATION == 3
+extern "C" int mesh_fused_material_ablate_launch(const void* blocks, long long n_blocks,
+                                                 const void* ids, const void* geom,
+                                                 const void* tile_params, const void* fs,
+                                                 const void* tile_count, const void* albedo,
+                                                 int channels, int bits, int fast,
+                                                 int combined, const void* shade, void* out,
+                                                 int n_tiles, int waves, int ablate,
+                                                 void* stream) {
+  if (n_tiles <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (shade)
+    return mesh_shaded_ablate(blocks, n_blocks, ids, geom, tile_params, fs, tile_count, albedo,
+                              channels, bits, fast, combined, shade, out, n_tiles, waves,
+                              ablate, s);
+  AlbedoArgs alb;
+  if (!albedo_args(blocks, albedo, channels, bits, fast, combined, nullptr, alb))
+    return (int)cudaErrorInvalidValue;
+  return with_mask(AlbedoMasks{}, ablate, [&](auto m) {
+    return launch_material<false, false, false, decltype(m)::value>(
+        blocks, n_blocks, ids, geom, tile_params, fs, nullptr, tile_count, n_tiles, waves, 0,
+        alb, out, s);
+  });
+}
+#elif MESH_ABLATION == 4
+int mesh_shaded_ablate(const void* blocks, long long n_blocks, const void* ids,
+                       const void* geom, const void* tile_params, const void* fs,
+                       const void* tile_count, const void* albedo, int channels, int bits,
+                       int fast, int combined, const void* shade, void* out, int n_tiles,
+                       int waves, int ablate, cudaStream_t stream) {
+  AlbedoArgs alb;
+  if (!albedo_args(blocks, albedo, channels, bits, fast, combined, shade, alb))
+    return (int)cudaErrorInvalidValue;
+  return with_mask(AlbedoMasks{}, ablate, [&](auto m) {
+    return launch_material<false, false, true, decltype(m)::value>(
+        blocks, n_blocks, ids, geom, tile_params, fs, nullptr, tile_count, n_tiles, waves, 0,
+        alb, out, stream);
+  });
+}
+#elif MESH_ABLATION == 5
+extern "C" int mesh_fused_spherical_albedo_ablate_launch(
+    const void* blocks, long long n_blocks, const void* ids, const void* geom,
+    const void* tile_params, const void* fs, const void* hp_steps, const void* tile_count,
+    const void* albedo, int channels, int bits, int fast, int combined, void* out,
+    int n_tiles, int origin_lod, int ellipsoidal, int waves, int ablate, void* stream) {
+  if (n_tiles <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ellipsoidal)
+    return sphere_albedo_ellipsoid_ablate(blocks, n_blocks, ids, geom, tile_params, fs,
+                                          hp_steps, tile_count, albedo, channels, bits, fast,
+                                          combined, out, n_tiles, origin_lod, waves, ablate, s);
+  AlbedoArgs alb;
+  if (!albedo_args(blocks, albedo, channels, bits, fast, combined, nullptr, alb))
+    return (int)cudaErrorInvalidValue;
+  return with_mask(SphereAlbedoMasks{}, ablate, [&](auto m) {
+    return launch_material<true, false, false, decltype(m)::value>(
+        blocks, n_blocks, ids, geom, tile_params, fs, hp_steps, tile_count, n_tiles, waves,
+        origin_lod, alb, out, s);
+  });
+}
+#elif MESH_ABLATION == 6
+int sphere_albedo_ellipsoid_ablate(const void* blocks, long long n_blocks, const void* ids,
+                                   const void* geom, const void* tile_params, const void* fs,
+                                   const void* hp_steps, const void* tile_count,
+                                   const void* albedo, int channels, int bits, int fast,
+                                   int combined, void* out, int n_tiles, int origin_lod,
+                                   int waves, int ablate, cudaStream_t stream) {
+  AlbedoArgs alb;
+  if (!albedo_args(blocks, albedo, channels, bits, fast, combined, nullptr, alb))
+    return (int)cudaErrorInvalidValue;
+  return with_mask(SphereAlbedoMasks{}, ablate, [&](auto m) {
+    return launch_material<true, true, false, decltype(m)::value>(
+        blocks, n_blocks, ids, geom, tile_params, fs, hp_steps, tile_count, n_tiles, waves,
+        origin_lod, alb, out, stream);
+  });
+}
+#endif
+#endif  // MESH_ABLATION

@@ -46,6 +46,46 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
+# The JAX kernel's ``ablate`` names (a measurement harness: each removes a
+# named piece of the fused mesh kernels, to attribute their time by timed
+# variants; csrc/mesh_fused.cu says what each removes) and their bits in the
+# CUDA kernels' compile-time mask.
+ABLATE_BITS = {"no_taylor": 1, "reuse_far": 2, "no_smooth": 4, "no_phase_a": 8,
+               "alb_no_unpack": 16, "alb_no_dots": 32, "alb_no_store": 64,
+               "alb_no_interp": 128}
+# the names each kernel reads (those the JAX kernel body reads on the variant)
+MESH_ABLATE = frozenset({"no_smooth", "no_phase_a"})
+SPHERE_ABLATE = MESH_ABLATE | {"no_taylor", "reuse_far"}
+ALBEDO_ABLATE = frozenset({"alb_no_unpack", "alb_no_dots", "alb_no_store", "alb_no_interp"})
+# the pieces that turn the albedo's bf16 fast path off, as in the JAX kernel
+ALBEDO_EXACT_ABLATE = frozenset({"alb_no_unpack", "alb_no_dots", "alb_no_store"})
+# the pairs the JAX package's ablation tools time, instantiated beside the
+# single names (no other combination has a CUDA instance)
+ABLATE_PAIRS = (frozenset({"reuse_far", "no_taylor"}), frozenset({"alb_no_dots", "alb_no_store"}))
+
+
+def ablation_masks(names: frozenset) -> frozenset:
+    """The masks with a CUDA instance for a kernel reading ``names``: each
+    name alone and each of :data:`ABLATE_PAIRS` within ``names``."""
+    sets = [frozenset({n}) for n in names] + [p for p in ABLATE_PAIRS if p <= names]
+    return frozenset(sum(ABLATE_BITS[n] for n in s) for s in sets)
+
+
+def ablation_mask(ablate, names: frozenset, kernel: str) -> int:
+    """The mask of the ``ablate`` names for a kernel reading ``names``;
+    raises ValueError on any other name."""
+    ablate = frozenset(ablate)
+    other = ablate - names
+    if other:
+        raise ValueError(f"{kernel} reads no ablate name {sorted(other)} "
+                         f"(it reads {sorted(names)})")
+    return sum(ABLATE_BITS[n] for n in ablate)
+
+
+def ablate_label(ablate) -> str:
+    """A variant's name: its ablate names joined by '+', or 'full'."""
+    return "+".join(sorted(ablate)) or "full"
+
 
 def pack_mesh_scalars(uniforms: FrameUniforms, cfg: StaticTerrainConfig,
                       max_value: float) -> torch.Tensor:
@@ -149,7 +189,8 @@ def _check_args(block_array, ids, geom, tile_count, quad_rows: int, more) -> int
 
 def mesh_fused_planar(block_array: torch.Tensor, ids: torch.Tensor,
                       geom: torch.Tensor, tile_params: torch.Tensor,
-                      fs: torch.Tensor, tile_count: torch.Tensor) -> torch.Tensor:
+                      fs: torch.Tensor, tile_count: torch.Tensor,
+                      ablate: frozenset = frozenset()) -> torch.Tensor:
     """The planar vertex stage of one frame: quad fetch, mean-centred tent
     resample to the 33x33 half-grid, 1-2-1 smoothing for the coarser data
     lod, CDLOD morph, 3x3 window interpolation, per-vertex blend, heights
@@ -163,6 +204,12 @@ def mesh_fused_planar(block_array: torch.Tensor, ids: torch.Tensor,
       fs: (48,) f32 frame scalars (:func:`pack_mesh_scalars`).
       tile_count: int32 tensor of one element on the same device; tiles at
         index >= tile_count come out as zeros.
+      ablate: names of kernel pieces to remove (the JAX kernel's ``ablate``;
+        a measurement harness): ``no_smooth``, ``no_phase_a``
+        (csrc/mesh_fused.cu). Empty: the production kernel. An ablated
+        call on the card launches an instance of the ablation library
+        (:func:`build_ablation_library`), counted in
+        ``mesh_fused_planar.ablated_launches`` by :func:`ablate_label`.
 
     Returns (Fp, 6, 17, 17) f32: per tile, channels [height, pos x, pos y,
     pos z, morphed u, morphed v] on the (row = v, column = u) vertex grid.
@@ -171,20 +218,22 @@ def mesh_fused_planar(block_array: torch.Tensor, ids: torch.Tensor,
     cannot); on a CPU tensor it returns the plain version.
     """
     n = _check_mesh_args(block_array, ids, geom, tile_params, fs, tile_count)
+    mask = ablation_mask(ablate, MESH_ABLATE, "mesh_fused_planar")
     if block_array.device.type == "cpu":
         return mesh_fused_planar_reference(block_array, ids, geom, tile_params, fs,
-                                           tile_count)
+                                           tile_count, ablate)
     out = torch.empty((n, OUT_CH, GV, GV), dtype=torch.float32, device=block_array.device)
     if n == 0:
         return out
     _launch(mesh_fused_planar, block_array.device, "mesh_fused_planar_launch",
             block_array.data_ptr(), block_array.shape[0], ids.data_ptr(), geom.data_ptr(),
             tile_params.data_ptr(), fs.data_ptr(), tile_count.data_ptr(), out.data_ptr(), n,
-            MESH_WAVES)
+            MESH_WAVES, ablate=(ablate, mask, MESH_ABLATE))
     return out
 
 
 mesh_fused_planar.launches = 0
+mesh_fused_planar.ablated_launches = {}
 
 
 def _smooth_matrix(device) -> torch.Tensor:
@@ -230,13 +279,20 @@ def _centred_halfgrid(block_array, ids, geom):
     return torch.einsum("nkc,nlc->nkl", rows, wx), c
 
 
-def _halfgrids(block_array, ids, geom):
+def _halfgrids(block_array, ids, geom, ablate=frozenset()):
     """Phases 1-3 of both mesh kernels, batched over tiles: the mean-centred
     tent resample of each tile's quad to the 33x33 half-grid, H, and its
     1-2-1 smoothed copy, Hs (both (n, 33, 33), natural order), in geom's
-    dtype."""
-    Hc, c = _centred_halfgrid(block_array, ids, geom)
-    H = Hc + c
+    dtype. ``ablate``: with ``no_phase_a`` H is zeros (the CUDA kernel's
+    half-grids, zeroed once, never written); with ``no_smooth`` Hs is None
+    (no smoothing pass)."""
+    if "no_phase_a" in ablate:
+        H = torch.zeros((ids.shape[0], K, K), dtype=geom.dtype, device=block_array.device)
+    else:
+        Hc, c = _centred_halfgrid(block_array, ids, geom)
+        H = Hc + c
+    if "no_smooth" in ablate:
+        return H, None
     A = _smooth_matrix(block_array.device).to(geom.dtype)
     Hs = torch.einsum("nkl,ml->nkm", torch.einsum("ij,njl->nil", A, H), A)
     return H, Hs
@@ -251,7 +307,8 @@ def unpack(words: torch.Tensor, c: int, bits: int) -> torch.Tensor:
     return (words >> (bits * c)) & ((1 << bits) - 1)
 
 
-def _channel_halfgrids(words, geom, channels: int, bits: int, fast: bool):
+def _channel_halfgrids(words, geom, channels: int, bits: int, fast: bool,
+                       ablate=frozenset()):
     """The 33x33 half-grids of ``channels`` packed channels of each tile's
     quad of words (n, 32, 128), resampled with the tile's tents: (n, C, 33,
     33) raw texel values in geom's dtype.
@@ -259,8 +316,19 @@ def _channel_halfgrids(words, geom, channels: int, bits: int, fast: bool):
     Exact (``fast`` False): per channel the mean-centred f32 resample, the
     mean an exact integer sum. Fast (the JAX kernel's bf16 MXU path): tent
     weights rounded to bf16, no centring, the y contraction summed in f32
-    and rounded to bf16, then the x contraction in f32."""
+    and rounded to bf16, then the x contraction in f32.
+
+    ``ablate`` (csrc/mesh_fused.cu; the first three albedo names take the
+    exact path): ``no_phase_a``: zeros;
+    ``alb_no_unpack``: every channel the raw signed word; ``alb_no_dots``:
+    each grid its mean plus its mean; ``alb_no_store``: the channels'
+    mean-centred resamples summed into channel 0, the others zeros."""
     dt = geom.dtype
+    if "no_phase_a" in ablate:
+        return torch.zeros((words.shape[0], channels, K, K), dtype=dt, device=words.device)
+    fast = fast and not ALBEDO_EXACT_ABLATE & frozenset(ablate)
+    if "alb_no_unpack" in ablate:
+        bits = 0
     q = _patch(words)
     wx, wy = _tents(geom)
     if fast:
@@ -275,8 +343,16 @@ def _channel_halfgrids(words, geom, channels: int, bits: int, fast: bool):
         else:
             total = t.sum(dim=(1, 2), dtype=torch.int64).to(torch.float64)
             m = (total / (P * P)).to(dt)[:, None, None]
-            rows = torch.einsum("nkr,nrc->nkc", wy, tf - m)
-            grids.append(torch.einsum("nkc,nlc->nkl", rows, wx) + m)
+            if "alb_no_dots" in ablate:
+                centred = m.expand(-1, K, K)
+            else:
+                rows = torch.einsum("nkr,nrc->nkc", wy, tf - m)
+                centred = torch.einsum("nkc,nlc->nkl", rows, wx)
+            grids.append(centred if "alb_no_store" in ablate else centred + m)
+    if "alb_no_store" in ablate:
+        out = torch.zeros((q.shape[0], channels, K, K), dtype=dt, device=q.device)
+        out[:, 0] = sum(grids[1:], grids[0])
+        return out
     return torch.stack(grids, dim=1)
 
 
@@ -318,8 +394,9 @@ def _window(mu, mv, gi, i, j):
 def _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs, gi, i, j, u, v):
     """The per-vertex stage both kernels share: CDLOD morph toward the even
     grid, 3x3 tent window of the fine and smoothed half-grids at the
-    morphed uv, per-vertex blend, height. Returns (height, mu, mv, interp9),
-    ``interp9`` the window at the morphed uv (:func:`_window`)."""
+    morphed uv, per-vertex blend, height (``Hs`` None: the smoothed height
+    is the fine one). Returns (height, mu, mv, interp9), ``interp9`` the
+    window at the morphed uv (:func:`_window`)."""
     dt = H.dtype
     target_lod = fs[43] - log2_dist
     mr = ((lodf + fs[19] - target_lod) * (1.0 / fs[19])).clamp(0.0, 1.0)
@@ -331,7 +408,7 @@ def _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs, gi, i, j, u, v
     interp9 = _window(mu, mv, gi, i, j)
 
     h_fine = interp9(H)
-    h_smooth = interp9(Hs)
+    h_smooth = h_fine if Hs is None else interp9(Hs)
 
     btarget = torch.minimum(fs[44] - log2_dist, fs[26])
     blod = btarget.clamp(min=0.0).to(torch.int32).to(dt)
@@ -372,9 +449,9 @@ class _PlanarStage(NamedTuple):
                             self.mu * live, self.mv * live], dim=1)
 
 
-def _planar_stage(block_array, ids, geom, tile_params, fs) -> _PlanarStage:
+def _planar_stage(block_array, ids, geom, tile_params, fs, ablate=frozenset()) -> _PlanarStage:
     n = ids.shape[0]
-    H, Hs = _halfgrids(block_array, ids, geom)
+    H, Hs = _halfgrids(block_array, ids, geom, ablate)
     gi, i, j, u, v = _vertex_grid(block_array.device, geom.dtype)
     live, lodf, xf, yf = (tile_params[:, s].view(n, 1, 1) for s in range(4))
     valid = geom[:, 3].view(n, 1, 1)
@@ -400,10 +477,12 @@ def _planar_stage(block_array, ids, geom, tile_params, fs) -> _PlanarStage:
 
 def mesh_fused_planar_reference(block_array: torch.Tensor, ids: torch.Tensor,
                                 geom: torch.Tensor, tile_params: torch.Tensor,
-                                fs: torch.Tensor, tile_count: torch.Tensor) -> torch.Tensor:
+                                fs: torch.Tensor, tile_count: torch.Tensor,
+                                ablate: frozenset = frozenset()) -> torch.Tensor:
     """Plain PyTorch version of :func:`mesh_fused_planar` (same arguments,
     same result), batched over tiles on any device."""
-    stage = _planar_stage(block_array, ids, geom, tile_params, fs)
+    ablation_mask(ablate, MESH_ABLATE, "mesh_fused_planar")
+    stage = _planar_stage(block_array, ids, geom, tile_params, fs, ablate)
     return _dead_to_zero(stage.mesh_rows(), tile_count)
 
 
@@ -446,8 +525,8 @@ def _check_step_args(n: int, hp_steps, device, origin_lod) -> None:
 
 def mesh_fused_spherical(block_array: torch.Tensor, ids: torch.Tensor, geom: torch.Tensor,
                          tile_params: torch.Tensor, fs: torch.Tensor, hp_steps: torch.Tensor,
-                         tile_count: torch.Tensor, origin_lod: int,
-                         ellipsoidal: bool) -> torch.Tensor:
+                         tile_count: torch.Tensor, origin_lod: int, ellipsoidal: bool,
+                         ablate: frozenset = frozenset()) -> torch.Tensor:
     """The spherical vertex stage of one frame: the planar kernel's quad
     fetch, resample, smoothing, morph, window and blend, with cube-sphere
     world positions and unit normals, and on high-precision steps the
@@ -463,6 +542,8 @@ def mesh_fused_spherical(block_array: torch.Tensor, ids: torch.Tensor, geom: tor
       origin_lod: the Taylor origin lod (``fs[28]`` is ``2^-origin_lod``).
       ellipsoidal: normals from the normal matrix (NM columns) instead of
         the sphere's position / radius.
+      ablate: as :func:`mesh_fused_planar`'s, and ``no_taylor``,
+        ``reuse_far``.
 
     Returns (Fp, 9, 17, 17) f32: per tile, channels [height, pos x, pos y,
     pos z, morphed u, morphed v, normal x, normal y, normal z].
@@ -472,47 +553,54 @@ def mesh_fused_spherical(block_array: torch.Tensor, ids: torch.Tensor, geom: tor
     """
     n = _check_spherical_args(block_array, ids, geom, tile_params, fs, hp_steps, tile_count,
                               origin_lod)
+    mask = ablation_mask(ablate, SPHERE_ABLATE, "mesh_fused_spherical")
     if block_array.device.type == "cpu":
         return mesh_fused_spherical_reference(block_array, ids, geom, tile_params, fs,
-                                              hp_steps, tile_count, origin_lod, ellipsoidal)
+                                              hp_steps, tile_count, origin_lod, ellipsoidal,
+                                              ablate)
     out = torch.empty((n, SPH_CH, GV, GV), dtype=torch.float32, device=block_array.device)
     if n == 0:
         return out
     _launch(mesh_fused_spherical, block_array.device, "mesh_fused_spherical_launch",
             block_array.data_ptr(), block_array.shape[0], ids.data_ptr(), geom.data_ptr(),
             tile_params.data_ptr(), fs.data_ptr(), hp_steps.data_ptr(), tile_count.data_ptr(),
-            out.data_ptr(), n, int(origin_lod), int(bool(ellipsoidal)), MESH_WAVES)
+            out.data_ptr(), n, int(origin_lod), int(bool(ellipsoidal)), MESH_WAVES,
+            ablate=(ablate, mask, SPHERE_ABLATE))
     return out
 
 
 mesh_fused_spherical.launches = 0
+mesh_fused_spherical.ablated_launches = {}
 
 
 def mesh_fused_spherical_reference(block_array: torch.Tensor, ids: torch.Tensor,
                                    geom: torch.Tensor, tile_params: torch.Tensor,
                                    fs: torch.Tensor, hp_steps: torch.Tensor,
                                    tile_count: torch.Tensor, origin_lod: int,
-                                   ellipsoidal: bool) -> torch.Tensor:
+                                   ellipsoidal: bool,
+                                   ablate: frozenset = frozenset()) -> torch.Tensor:
     """Plain PyTorch version of :func:`mesh_fused_spherical` (same
     arguments, same result), batched over tiles on any device, in the
     kernel's operation order. It computes in the dtype of ``geom``,
     ``tile_params`` and ``fs``: float32 is the kernel's function; float64
     evaluates the same arithmetic nearly exactly (the tests' referee)."""
+    ablation_mask(ablate, SPHERE_ABLATE, "mesh_fused_spherical")
     rows, _, _, _ = _spherical_stage(block_array, ids, geom, tile_params, fs, hp_steps,
-                                     origin_lod, ellipsoidal)
+                                     origin_lod, ellipsoidal, ablate)
     return _dead_to_zero(rows, tile_count)
 
 
 def _spherical_stage(block_array, ids, geom, tile_params, fs, hp_steps, origin_lod,
-                     ellipsoidal):
+                     ellipsoidal, ablate=frozenset()):
     """The spherical kernel's per-vertex stage, batched over tiles: (the
     nine mesh rows (n, 9, 17, 17) before the dead-tile mask, ``interp9``
     the 3x3 window at the morphed uv (:func:`_window`), ``valid`` and
-    ``live`` (n, 1, 1))."""
+    ``live`` (n, 1, 1)). ``ablate``: ``no_taylor``: no vertex takes the
+    near field; ``reuse_far``: the unmorphed position and normal."""
     n = ids.shape[0]
     dev = block_array.device
     dt, i32 = geom.dtype, torch.int32
-    H, Hs = _halfgrids(block_array, ids, geom)
+    H, Hs = _halfgrids(block_array, ids, geom, ablate)
     gi, i, j, u, v = _vertex_grid(dev, dt)
 
     def col(c):
@@ -588,19 +676,27 @@ def _spherical_stage(block_array, ids, geom, tile_params, fs, hp_steps, origin_l
     dhy = ry0 + fs[29] * ny0
     dhz = rz0 + fs[29] * nz0
     near = (d2_w0 < fs[45]) & hp_on
+    if "no_taylor" in ablate:
+        near = torch.zeros_like(near)
     d2 = torch.where(near, dhx * dhx + dhy * dhy + dhz * dhz, d2_w0)
     log2_dist = 0.5 * torch.log2(d2)
     height, mu, mv, interp9 = _morph_window_height(H, Hs, lodf, log2_dist, valid, live, fs,
                                                    gi, i, j, u, v)
 
-    (wxm, wym, wzm), (nxm, nym, nzm) = far_geom(mu, mv)
-    rxm, rym, rzm = taylor_rel(mu, mv)
-    nx_f = torch.where(near, nx0, nxm)
-    ny_f = torch.where(near, ny0, nym)
-    nz_f = torch.where(near, nz0, nzm)
-    px = torch.where(near, fs[39] + rxm, wxm) + height * nx_f
-    py = torch.where(near, fs[40] + rym, wym) + height * ny_f
-    pz = torch.where(near, fs[41] + rzm, wzm) + height * nz_f
+    if "reuse_far" in ablate:
+        nx_f, ny_f, nz_f = nx0, ny0, nz0
+        px = wx0 + height * nx_f
+        py = wy0 + height * ny_f
+        pz = wz0 + height * nz_f
+    else:
+        (wxm, wym, wzm), (nxm, nym, nzm) = far_geom(mu, mv)
+        rxm, rym, rzm = taylor_rel(mu, mv)
+        nx_f = torch.where(near, nx0, nxm)
+        ny_f = torch.where(near, ny0, nym)
+        nz_f = torch.where(near, nz0, nzm)
+        px = torch.where(near, fs[39] + rxm, wxm) + height * nx_f
+        py = torch.where(near, fs[40] + rym, wym) + height * ny_f
+        pz = torch.where(near, fs[41] + rzm, wzm) + height * nz_f
 
     rows = torch.stack([height, px * live, py * live, pz * live, mu * live, mv * live,
                         nx_f * live, ny_f * live, nz_f * live], dim=1)
@@ -787,15 +883,18 @@ def _check_material_args(block_array, ids, geom, tile_params, fs, tile_count, al
 
 
 def _mesh_material(wrapper, block_array, ids, geom, tile_params, fs, tile_count,
-                   albedo_blocks, channels, bits, fast, combined, shade):
+                   albedo_blocks, channels, bits, fast, combined, shade, ablate):
     """K3 (``shade`` None) and K4: check, then the plain version on the CPU
     or the kernel on the card."""
     n = _check_material_args(block_array, ids, geom, tile_params, fs, tile_count,
                              albedo_blocks, channels, bits, combined, shade)
-    fast = bool(fast) and bits <= 8
+    names = MESH_ABLATE | ALBEDO_ABLATE
+    mask = ablation_mask(ablate, names, wrapper.__name__)
+    fast = bool(fast) and bits <= 8 and not ALBEDO_EXACT_ABLATE & frozenset(ablate)
     if block_array.device.type == "cpu":
         return _mesh_material_reference(block_array, ids, geom, tile_params, fs, tile_count,
-                                        albedo_blocks, channels, bits, fast, combined, shade)
+                                        albedo_blocks, channels, bits, fast, combined, shade,
+                                        ablate)
     out = torch.empty((n, OUT_CH + channels, GV, GV), dtype=torch.float32,
                       device=block_array.device)
     if n == 0:
@@ -805,14 +904,15 @@ def _mesh_material(wrapper, block_array, ids, geom, tile_params, fs, tile_count,
             tile_params.data_ptr(), fs.data_ptr(), tile_count.data_ptr(),
             None if combined else albedo_blocks.data_ptr(), channels, bits, int(fast),
             int(combined), None if shade is None else shade.data_ptr(), out.data_ptr(), n,
-            MATERIAL_WAVES)
+            MATERIAL_WAVES, ablate=(ablate, mask, names))
     return out
 
 
 def mesh_fused_albedo(block_array: torch.Tensor, ids: torch.Tensor, geom: torch.Tensor,
                       tile_params: torch.Tensor, fs: torch.Tensor, tile_count: torch.Tensor,
                       albedo_blocks: torch.Tensor | None, channels: int, bits: int,
-                      fast: bool = True, combined: bool = False) -> torch.Tensor:
+                      fast: bool = True, combined: bool = False,
+                      ablate: frozenset = frozenset()) -> torch.Tensor:
     """The planar vertex stage (:func:`mesh_fused_planar`) with a packed
     albedo fused in (the JAX kernel's ``albedo_channels``): per tile the
     albedo quad of the same quad id, resampled with the height's tents and
@@ -828,43 +928,65 @@ def mesh_fused_albedo(block_array: torch.Tensor, ids: torch.Tensor, geom: torch.
         (channel c in bits [c * bits, (c + 1) * bits)); 3 skips the alpha.
       fast: the bf16 resample for channels of 8 bits (16-bit channels are
         always exact).
+      ablate: as :func:`mesh_fused_planar`'s, and ``alb_no_unpack``,
+        ``alb_no_dots``, ``alb_no_store``, ``alb_no_interp``
+        (csrc/mesh_fused.cu). The first three take the exact path, as in
+        the JAX kernel.
 
     Returns (Fp, 6 + C, 17, 17) f32: the six mesh channels, bit-identical to
     :func:`mesh_fused_planar`'s, then C channels of raw texel values x valid
     x live.
     """
     return _mesh_material(mesh_fused_albedo, block_array, ids, geom, tile_params, fs,
-                          tile_count, albedo_blocks, channels, bits, fast, combined, None)
+                          tile_count, albedo_blocks, channels, bits, fast, combined, None,
+                          ablate)
 
 
 mesh_fused_albedo.launches = 0
+mesh_fused_albedo.ablated_launches = {}
 
 
 def mesh_fused_shaded(block_array: torch.Tensor, ids: torch.Tensor, geom: torch.Tensor,
                       tile_params: torch.Tensor, fs: torch.Tensor, tile_count: torch.Tensor,
                       albedo_blocks: torch.Tensor | None, channels: int, bits: int,
                       shade: torch.Tensor, fast: bool = True,
-                      combined: bool = False) -> torch.Tensor:
+                      combined: bool = False, ablate: frozenset = frozenset()) -> torch.Tensor:
     """:func:`mesh_fused_albedo` with the fragment stage on the albedo
     (the JAX kernel's ``shade``): central-difference normals over the tile's
     heights, Filament GGX + Smith + Schlick + Burley for every light of the
     material buffer ``shade`` (:func:`pack_shade_spec`), emissive and
     ambient. Returns (Fp, 6 + C, 17, 17): the mesh channels, then linear RGBA
-    (C = 4) or RGB (C = 3) x valid x live."""
+    (C = 4) or RGB (C = 3) x valid x live. ``ablate``: as
+    :func:`mesh_fused_albedo`'s."""
     return _mesh_material(mesh_fused_shaded, block_array, ids, geom, tile_params, fs,
-                          tile_count, albedo_blocks, channels, bits, fast, combined, shade)
+                          tile_count, albedo_blocks, channels, bits, fast, combined, shade,
+                          ablate)
 
 
 mesh_fused_shaded.launches = 0
+mesh_fused_shaded.ablated_launches = {}
+
+
+def _albedo_cols(A, interp9, ablate):
+    """The albedo channels at the vertices from their half-grids A (n, C,
+    33, 33): the window at the morphed uv, or with ``alb_no_interp`` the
+    half-grid point (tap(i, 2), tap(j, 1)) under each vertex."""
+    if "alb_no_interp" not in ablate:
+        return [interp9(A[:, c]) for c in range(A.shape[1])]
+    gi = torch.arange(GV, device=A.device)
+    rows, cols = 2 * gi, (2 * gi - 1).clamp(min=0)
+    return [A[:, c][:, rows][:, :, cols] for c in range(A.shape[1])]
 
 
 def _mesh_material_reference(block_array, ids, geom, tile_params, fs, tile_count,
-                             albedo_blocks, channels, bits, fast, combined, shade):
+                             albedo_blocks, channels, bits, fast, combined, shade,
+                             ablate=frozenset()):
+    ablation_mask(ablate, MESH_ABLATE | ALBEDO_ABLATE, "the material kernel")
     heights = block_array[:, :32] if combined else block_array
     words = (block_array[:, 32:] if combined else albedo_blocks)[ids.long()]
-    stage = _planar_stage(heights, ids, geom, tile_params, fs)
-    A = _channel_halfgrids(words, geom, channels, bits, fast and bits <= 8)
-    cols = [stage.interp9(A[:, c]) for c in range(channels)]
+    stage = _planar_stage(heights, ids, geom, tile_params, fs, ablate)
+    A = _channel_halfgrids(words, geom, channels, bits, fast and bits <= 8, ablate)
+    cols = _albedo_cols(A, stage.interp9, ablate)
     if shade is not None:
         cols = pbr_shade_reference(shade, cols, stage.height, stage.px, stage.py, stage.pz,
                                     fs, stage.lodf)
@@ -875,20 +997,24 @@ def _mesh_material_reference(block_array, ids, geom, tile_params, fs, tile_count
 
 def mesh_fused_albedo_reference(block_array, ids, geom, tile_params, fs, tile_count,
                                 albedo_blocks, channels: int, bits: int, fast: bool = True,
-                                combined: bool = False) -> torch.Tensor:
+                                combined: bool = False,
+                                ablate: frozenset = frozenset()) -> torch.Tensor:
     """Plain PyTorch version of :func:`mesh_fused_albedo` (same arguments,
     same result), batched over tiles on any device."""
     return _mesh_material_reference(block_array, ids, geom, tile_params, fs, tile_count,
-                                    albedo_blocks, channels, bits, fast, combined, None)
+                                    albedo_blocks, channels, bits, fast, combined, None,
+                                    ablate)
 
 
 def mesh_fused_shaded_reference(block_array, ids, geom, tile_params, fs, tile_count,
                                 albedo_blocks, channels: int, bits: int, shade,
-                                fast: bool = True, combined: bool = False) -> torch.Tensor:
+                                fast: bool = True, combined: bool = False,
+                                ablate: frozenset = frozenset()) -> torch.Tensor:
     """Plain PyTorch version of :func:`mesh_fused_shaded` (same arguments,
     same result), batched over tiles on any device."""
     return _mesh_material_reference(block_array, ids, geom, tile_params, fs, tile_count,
-                                    albedo_blocks, channels, bits, fast, combined, shade)
+                                    albedo_blocks, channels, bits, fast, combined, shade,
+                                    ablate)
 
 
 def mesh_fused_spherical_albedo(block_array: torch.Tensor, ids: torch.Tensor,
@@ -896,7 +1022,8 @@ def mesh_fused_spherical_albedo(block_array: torch.Tensor, ids: torch.Tensor,
                                 fs: torch.Tensor, hp_steps: torch.Tensor,
                                 tile_count: torch.Tensor, origin_lod: int, ellipsoidal: bool,
                                 albedo_blocks: torch.Tensor | None, channels: int, bits: int,
-                                fast: bool = True, combined: bool = False) -> torch.Tensor:
+                                fast: bool = True, combined: bool = False,
+                                ablate: frozenset = frozenset()) -> torch.Tensor:
     """The spherical vertex stage (:func:`mesh_fused_spherical`) with a
     packed albedo fused in (the JAX kernel's ``spherical=True`` with
     ``albedo_channels``): per tile the albedo quad of the same quad id,
@@ -911,6 +1038,8 @@ def mesh_fused_spherical_albedo(block_array: torch.Tensor, ids: torch.Tensor,
         packed albedo in rows 32:64.
       albedo_blocks, channels, bits, fast, combined: as
         :func:`mesh_fused_albedo`.
+      ablate: :func:`mesh_fused_spherical`'s names and
+        :func:`mesh_fused_albedo`'s.
 
     Returns (Fp, 9 + C, 17, 17) f32: the nine mesh channels, bit-identical
     to :func:`mesh_fused_spherical`'s, then C channels of raw texel values
@@ -922,11 +1051,13 @@ def mesh_fused_spherical_albedo(block_array: torch.Tensor, ids: torch.Tensor,
     n = _check_material_args(block_array, ids, geom, tile_params, fs, tile_count,
                              albedo_blocks, channels, bits, combined, n_params=SPH_PARAMS)
     _check_step_args(n, hp_steps, block_array.device, origin_lod)
-    fast = bool(fast) and bits <= 8
+    names = SPHERE_ABLATE | ALBEDO_ABLATE
+    mask = ablation_mask(ablate, names, "mesh_fused_spherical_albedo")
+    fast = bool(fast) and bits <= 8 and not ALBEDO_EXACT_ABLATE & frozenset(ablate)
     if block_array.device.type == "cpu":
         return mesh_fused_spherical_albedo_reference(
             block_array, ids, geom, tile_params, fs, hp_steps, tile_count, origin_lod,
-            ellipsoidal, albedo_blocks, channels, bits, fast, combined)
+            ellipsoidal, albedo_blocks, channels, bits, fast, combined, ablate)
     out = torch.empty((n, SPH_CH + channels, GV, GV), dtype=torch.float32,
                       device=block_array.device)
     if n == 0:
@@ -937,28 +1068,30 @@ def mesh_fused_spherical_albedo(block_array: torch.Tensor, ids: torch.Tensor,
             fs.data_ptr(), hp_steps.data_ptr(), tile_count.data_ptr(),
             None if combined else albedo_blocks.data_ptr(), channels, bits, int(fast),
             int(combined), out.data_ptr(), n, int(origin_lod), int(bool(ellipsoidal)),
-            MATERIAL_WAVES)
+            MATERIAL_WAVES, ablate=(ablate, mask, names))
     return out
 
 
 mesh_fused_spherical_albedo.launches = 0
+mesh_fused_spherical_albedo.ablated_launches = {}
 
 
 def mesh_fused_spherical_albedo_reference(block_array, ids, geom, tile_params, fs, hp_steps,
                                           tile_count, origin_lod: int, ellipsoidal: bool,
                                           albedo_blocks, channels: int, bits: int,
-                                          fast: bool = True,
-                                          combined: bool = False) -> torch.Tensor:
+                                          fast: bool = True, combined: bool = False,
+                                          ablate: frozenset = frozenset()) -> torch.Tensor:
     """Plain PyTorch version of :func:`mesh_fused_spherical_albedo` (same
     arguments, same result), batched over tiles on any device: the
     spherical plain version's mesh rows, then the albedo half-grids
     (:func:`_channel_halfgrids`) through its window at the morphed uv."""
+    ablation_mask(ablate, SPHERE_ABLATE | ALBEDO_ABLATE, "mesh_fused_spherical_albedo")
     heights = block_array[:, :32] if combined else block_array
     words = (block_array[:, 32:] if combined else albedo_blocks)[ids.long()]
     rows, interp9, valid, live = _spherical_stage(heights, ids, geom, tile_params, fs,
-                                                  hp_steps, origin_lod, ellipsoidal)
-    A = _channel_halfgrids(words, geom, channels, bits, bool(fast) and bits <= 8)
-    cols = torch.stack([interp9(A[:, c]) * valid * live for c in range(channels)], dim=1)
+                                                  hp_steps, origin_lod, ellipsoidal, ablate)
+    A = _channel_halfgrids(words, geom, channels, bits, bool(fast) and bits <= 8, ablate)
+    cols = torch.stack([c * valid * live for c in _albedo_cols(A, interp9, ablate)], dim=1)
     return _dead_to_zero(torch.cat([rows, cols], dim=1), tile_count)
 
 
@@ -1227,6 +1360,10 @@ def fetch_resample_support(geom: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 _LIB = None
+_ABLATION_LIB = None
+# the ablation library's translation units: csrc/mesh_fused.cu once per group
+# of instances (csrc/mesh_fused.cu MESH_ABLATION), each in its own nvcc
+ABLATION_GROUPS = 6
 
 
 def _nvcc() -> str:
@@ -1245,28 +1382,49 @@ def build_library(verbose: bool = False) -> Path:
     library built from the same sources, headers and flags is already there.
     Each source compiles in its own ``nvcc`` process, all started together;
     one more call links them."""
-    sources = sorted(_CSRC.glob("*.cu"))
+    return _build("kernels", [(s, ()) for s in sorted(_CSRC.glob("*.cu"))], verbose)
+
+
+def build_ablation_library(verbose: bool = False) -> Path:
+    """Compile the ablated instances of the fused mesh kernels (the masks of
+    :func:`ablation_masks`; csrc/mesh_fused.cu under ``MESH_ABLATION``) into
+    ``build/kernels/ablation_<hash>.so``, a library of their own: the
+    production library's build and time do not grow. Built at the first
+    ablated call; :data:`ABLATION_GROUPS` nvcc processes, started together."""
+    src = _CSRC / "mesh_fused.cu"
+    return _build("ablation", [(src, (f"-DMESH_ABLATION={g}",))
+                               for g in range(1, ABLATION_GROUPS + 1)], verbose)
+
+
+def _build(prefix: str, units, verbose: bool) -> Path:
+    """Compile ``units`` ((source, extra flags) each, one nvcc each, all
+    started together) and link them into ``build/kernels/<prefix>_<hash>.so``
+    (hash of the flags, the units and every csrc/*.cu* file), unless it is
+    there."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    if prefix != "kernels":  # the production hash stays that of earlier trees
+        h.update(repr([(s.name, extra) for s, extra in units]).encode())
     for s in sorted(_CSRC.glob("*.cu*")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    out = _BUILD_DIR / f"kernels_{h.hexdigest()[:16]}.so"
+    out = _BUILD_DIR / f"{prefix}_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmpdir:
-        objs = [Path(tmpdir) / f"{s.stem}.o" for s in sources]
+        objs = [Path(tmpdir) / f"{s.stem}_{i}.o" for i, (s, _) in enumerate(units)]
         procs = [
             subprocess.Popen(
-                [nvcc, *compile_flags, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o",
-                 str(o), str(s)],
+                [nvcc, *compile_flags, *extra, *(["-Xptxas", "-v"] if verbose else []), "-c",
+                 "-o", str(o), str(s)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for s, o in zip(sources, objs)
+            for (s, extra), o in zip(units, objs)
         ]
         errs = [p.communicate()[1] for p in procs]  # drains both pipes, then waits
-        logs = [(s.name, p.returncode, err) for s, p, err in zip(sources, procs, errs)]
+        logs = [(s.name + "".join(f" {e}" for e in extra), p.returncode, err)
+                for (s, extra), p, err in zip(units, procs, errs)]
         failed = [(name, rc, err) for name, rc, err in logs if rc != 0]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
@@ -1283,15 +1441,62 @@ def build_library(verbose: bool = False) -> Path:
     return out
 
 
-def _launch(wrapper, device, entry: str, *args) -> None:
+def _launch(wrapper, device, entry: str, *args, ablate=None) -> None:
     """Call the library's ``entry`` with ``args`` and the current stream of
-    ``device``; raise if the launch failed, else count it on ``wrapper``."""
-    lib = _library()
+    ``device``; raise if the launch failed, else count it on ``wrapper``.
+
+    ``ablate`` (names, mask, the names the kernel reads) with a mask: the
+    ablation library's instance of that mask instead (``entry`` with
+    ``_ablate_launch`` for ``_launch``, the mask before the stream), counted
+    in ``wrapper.ablated_launches`` under :func:`ablate_label`; raises
+    ValueError for a mask without an instance (:func:`ablation_masks`)."""
+    names, mask, readable = ablate if ablate is not None else ((), 0, frozenset())
+    if mask:
+        if mask not in ablation_masks(readable):
+            raise ValueError(f"{wrapper.__name__}: no CUDA instance for ablate "
+                             f"{sorted(names)} (single names and {[sorted(p) for p in ABLATE_PAIRS]})")
+        lib, entry, args = _ablation_library(), entry.replace("_launch", "_ablate_launch"), \
+            (*args, mask)
+    else:
+        lib = _library()
     with torch.cuda.device(device):
         rc = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{wrapper.__name__} launch failed: cudaError {rc}")
-    wrapper.launches += 1
+    if mask:
+        label = ablate_label(names)
+        wrapper.ablated_launches[label] = wrapper.ablated_launches.get(label, 0) + 1
+    else:
+        wrapper.launches += 1
+
+
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+# the mesh kernels' launch entries and their arguments before the stream
+_MESH_ENTRIES = {
+    "mesh_fused_planar_launch": [_VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP, _VP, _INT,
+                                 _INT],
+    "mesh_fused_spherical_launch": [_VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                    _INT, _INT, _INT, _INT],
+    "mesh_fused_material_launch": [_VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP, _VP, _INT,
+                                   _INT, _INT, _INT, _VP, _VP, _INT, _INT],
+    "mesh_fused_spherical_albedo_launch": [_VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP,
+                                           _VP, _VP, _INT, _INT, _INT, _INT, _VP, _INT, _INT,
+                                           _INT, _INT],
+}
+
+
+def _ablation_library() -> ctypes.CDLL:
+    """The ablation library (:func:`build_ablation_library`), built at first
+    use: each mesh entry as ``*_ablate_launch``, the mask before the stream."""
+    global _ABLATION_LIB
+    if _ABLATION_LIB is None:
+        lib = ctypes.CDLL(str(build_ablation_library()))
+        for entry, args in _MESH_ENTRIES.items():
+            fn = getattr(lib, entry.replace("_launch", "_ablate_launch"))
+            fn.argtypes = [*args, _INT, _VP]
+            fn.restype = _INT
+        _ABLATION_LIB = lib
+    return _ABLATION_LIB
 
 
 def _library() -> ctypes.CDLL:
@@ -1299,26 +1504,9 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build_library()))
         vp = ctypes.c_void_p
-        lib.mesh_fused_planar_launch.argtypes = [
-            vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, vp,
-        ]
-        lib.mesh_fused_planar_launch.restype = ctypes.c_int
-        lib.mesh_fused_spherical_launch.argtypes = [
-            vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, vp,
-        ]
-        lib.mesh_fused_spherical_launch.restype = ctypes.c_int
-        lib.mesh_fused_material_launch.argtypes = [
-            vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, vp, vp, ctypes.c_int, ctypes.c_int, vp,
-        ]
-        lib.mesh_fused_material_launch.restype = ctypes.c_int
-        lib.mesh_fused_spherical_albedo_launch.argtypes = [
-            vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, vp,
-        ]
-        lib.mesh_fused_spherical_albedo_launch.restype = ctypes.c_int
+        for entry, args in _MESH_ENTRIES.items():
+            getattr(lib, entry).argtypes = [*args, _VP]
+            getattr(lib, entry).restype = _INT
         lib.attach_sample_launch.argtypes = [
             vp, ctypes.c_longlong, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, vp,
             ctypes.c_int, ctypes.c_int, vp,

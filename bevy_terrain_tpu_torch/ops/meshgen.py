@@ -382,12 +382,15 @@ def generate_mesh_fused(tiles: RefinementOutput, block_array: torch.Tensor,
                         uniforms: FrameUniforms, cfg: StaticTerrainConfig, plan,
                         max_value: float, albedo_blocks=None, albedo_channels: int = 0,
                         albedo_bits: int = 0, shade_spec=None, albedo_fast: bool = True,
-                        albedo_combined: bool = False):
+                        albedo_combined: bool = False, ablate: frozenset = frozenset()):
     """The whole mesh stage in one kernel launch.
 
     Planar, or spherical with the Taylor high-precision path; grid_size 16,
     per-vertex blend (the kernel's crossfade). The albedo arguments are
-    :func:`fused_kernel_args`'s. Returns (raw, sorted_tiles): ``raw`` is
+    :func:`fused_kernel_args`'s. ``ablate`` (the JAX function's; a
+    measurement harness) names kernel pieces to remove: those the frame's
+    kernel reads (ops/kernels.py MESH_ABLATE, SPHERE_ABLATE, ALBEDO_ABLATE),
+    any other raises ValueError. Returns (raw, sorted_tiles): ``raw`` is
     (Fp, 6 + C or 9 + C, 17, 17) f32 (see the module docstring); its rows pair
     with ``sorted_tiles``, the tile list reordered by atlas quad id (a tile
     list is a set, so any deterministic order is valid).
@@ -395,7 +398,8 @@ def generate_mesh_fused(tiles: RefinementOutput, block_array: torch.Tensor,
     tiles, _, args = fused_kernel_args(
         tiles, block_array, uniforms, cfg, plan, max_value, albedo_blocks, albedo_channels,
         albedo_bits, shade_spec, albedo_fast, albedo_combined)
-    return mesh_kernel(cfg, albedo_channels, shade_spec is not None)(*args), tiles
+    kernel = mesh_kernel(cfg, albedo_channels, shade_spec is not None)
+    return kernel(*args, ablate=frozenset(ablate)), tiles
 
 
 def fused_to_grid(raw: torch.Tensor, tiles: RefinementOutput,

@@ -235,14 +235,11 @@ def _sort_pairs(key, znear_key, T: int, nkeys: int):
     24 key bits or 31 id bits, a lexicographic stable sort of the three."""
     kbits = max(int(np.ceil(np.log2(nkeys + 1))), 1)
     tbits = max(int(np.ceil(np.log2(max(T, 2)))), 1)
+    if kbits > 24 or tbits > 31:
+        return _sort_pairs_stable(key, znear_key, T)
     tri = torch.arange(T, dtype=torch.int64, device=key.device)[:, None].expand(T, 4).reshape(-1)
     key = key.reshape(-1).to(torch.int64)
     znear_key = znear_key.reshape(-1)
-    if kbits > 24 or tbits > 31:
-        # the pairs are in triangle order: stable sorts by depth, then bin
-        perm = torch.sort(znear_key, stable=True).indices
-        perm = perm[torch.sort(key[perm], stable=True).indices]
-        return key[perm], tri[perm]
     dhi = 32 - kbits  # depth bits carried in the high word
     dlo = max(32 - tbits, 0)  # further depth bits in the low word
     # bitcast to uint32 ^ 0x80000000: the order-preserving unsigned value
@@ -254,6 +251,34 @@ def _sort_pairs(key, znear_key, T: int, nkeys: int):
     s_key = ((packed >> 32) + 2**31) >> dhi
     s_tri = packed & ((1 << tbits) - 1)
     return s_key, s_tri
+
+
+def _sort_pairs_stable(key, znear_key, T: int):
+    """:func:`_sort_pairs` by two stable sorts (the pairs are in triangle
+    order): by depth priority, then by bin key."""
+    tri = torch.arange(T, dtype=torch.int64, device=key.device)[:, None].expand(T, 4).reshape(-1)
+    key = key.reshape(-1).to(torch.int64)
+    perm = torch.sort(znear_key.reshape(-1), stable=True).indices
+    perm = perm[torch.sort(key[perm], stable=True).indices]
+    return key[perm], tri[perm]
+
+
+class _Pairs(NamedTuple):
+    """The products of :func:`_bin_pairs`: each triangle's screen data and
+    its (T, 4) bin pairs, which :func:`_sort_pairs` orders and
+    :func:`_bin_table` files."""
+
+    sx: torch.Tensor  # (V,) f32 snapped screen x per vertex
+    sy: torch.Tensor  # (V,) f32 snapped screen y
+    w: torch.Tensor  # (V,) f32 clip w
+    tri_vidx: torch.Tensor  # (T, 3) i64
+    coefs: torch.Tensor  # (T, 3, 4) f32 rows a, b, c of planes e0, e1, e2, z
+    top_left: torch.Tensor  # (T, 3) bool fill-rule flags of the three edges
+    key: torch.Tensor  # (T, 4) i32 flat bin key per pair, nkeys = none
+    znear_key: torch.Tensor  # (T, 4) i32 near-first depth key
+    nkeys: int
+    near_culled: torch.Tensor
+    grid: _BinGrid
 
 
 class _Binned(NamedTuple):
@@ -275,7 +300,18 @@ class _Binned(NamedTuple):
 def _bin(positions, tile_mask, view_proj, width: int, height: int, bin_px: int, bin_cap: int,
          chunk: int, cull_backfaces: bool, near_eps: float) -> _Binned:
     """Setup and binning: projection, culling, the per-triangle plane
-    coefficients, and the candidate table from the sort."""
+    coefficients (:func:`_bin_pairs`), the sort of the bin pairs
+    (:func:`_sort_pairs`) and the candidate table (:func:`_bin_table`)."""
+    p = _bin_pairs(positions, tile_mask, view_proj, width, height, bin_px, bin_cap,
+                   cull_backfaces, near_eps)
+    s_key, s_tri = _sort_pairs(p.key, p.znear_key, p.tri_vidx.shape[0], p.nkeys)
+    return _bin_table(p, s_key, s_tri, chunk)
+
+
+def _bin_pairs(positions, tile_mask, view_proj, width: int, height: int, bin_px: int,
+               bin_cap: int, cull_backfaces: bool, near_eps: float) -> _Pairs:
+    """Projection, culling, the per-triangle plane coefficients and each
+    triangle's pyramid level and (up to 4) bin pairs."""
     dev = positions.device
     F, R, C = positions.shape[0], positions.shape[1], positions.shape[2]
     tri_vidx = _triangle_table(F, R, C, dev)  # (T, 3) i64
@@ -334,7 +370,43 @@ def _bin(positions, tile_mask, view_proj, width: int, height: int, bin_px: int, 
     # ascending near-first key at any depth scale
     zmax_tri = vz.amax(-1).clamp(min=0.0)
     znear_key = -zmax_tri.view(torch.int32)
-    s_key, s_tri = _sort_pairs(key, znear_key[:, None].expand(T, 4), T, nkeys)
+
+    # per-triangle plane coefficients, normalized by sign(area) so that
+    # inside = all E >= 0 regardless of winding ---
+    x0, x1, x2 = vx.unbind(-1)
+    y0, y1, y2 = vy.unbind(-1)
+    z0, z1, z2 = vz.unbind(-1)
+    a0, b0, c0 = edge_coef(x1, y1, x2, y2)
+    a1, b1, c1 = edge_coef(x2, y2, x0, y0)
+    a2, b2, c2 = edge_coef(x0, y0, x1, y1)
+    ar = a0 * x0 + b0 * y0 + c0  # = 2*area
+    s = torch.where(ar < 0, -1.0, 1.0)
+    inv_ar = s / torch.clamp(ar.abs(), min=1e-20)
+    # depth is screen-affine: z(x,y) = sum_i bary_i(x,y) * z_i
+    za = (a0 * z0 + a1 * z1 + a2 * z2) * inv_ar
+    zb = (b0 * z0 + b1 * z1 + b2 * z2) * inv_ar
+    zc = (c0 * z0 + c1 * z1 + c2 * z2) * inv_ar
+    # (T, 3 coefficients, 4 planes): rows a, b, c; planes e0, e1, e2, z
+    coefs = torch.stack([
+        torch.stack([a0 * s, a1 * s, a2 * s, za], -1),
+        torch.stack([b0 * s, b1 * s, b2 * s, zb], -1),
+        torch.stack([c0 * s, c1 * s, c2 * s, zc], -1),
+    ], dim=1)
+    # fill rule on the sign-normalized edge (a, b): E == 0 counts when
+    # (b < 0) or (b == 0 and a > 0); the two triangles on a shared edge see
+    # opposite signs, so exactly one takes the boundary pixels
+    top_left = (coefs[:, 1, :3] < 0) | ((coefs[:, 1, :3] == 0) & (coefs[:, 0, :3] > 0))
+    return _Pairs(sx, sy, w, tri_vidx, coefs, top_left, key, znear_key[:, None].expand(T, 4),
+                  nkeys, near_culled, g)
+
+
+def _bin_table(p: _Pairs, s_key, s_tri, chunk: int) -> _Binned:
+    """The candidate table from the sorted pairs: each pair's rank in its
+    (level, bin), the per-level tables filled by one scatter (the pairs
+    past a level's cap dropped and counted) and gathered onto the level-0
+    bins, in chunks of ``chunk``."""
+    g, nkeys, dev = p.grid, p.nkeys, s_key.device
+    NB = g.nbx * g.nby
 
     # rank within (level, bin): i - first index of this key's segment. The
     # keys are sorted and few (one per bin of the pyramid), so each key's
@@ -373,34 +445,8 @@ def _bin(positions, tile_mask, view_proj, width: int, height: int, bin_px: int, 
     tables.append(torch.full((NB, n_chunks * chunk - total_cap), -1, dtype=torch.int64,
                              device=dev))
     table = torch.cat(tables, dim=1)  # (NB, n_chunks * chunk)
-
-    # per-triangle plane coefficients, normalized by sign(area) so that
-    # inside = all E >= 0 regardless of winding ---
-    x0, x1, x2 = vx.unbind(-1)
-    y0, y1, y2 = vy.unbind(-1)
-    z0, z1, z2 = vz.unbind(-1)
-    a0, b0, c0 = edge_coef(x1, y1, x2, y2)
-    a1, b1, c1 = edge_coef(x2, y2, x0, y0)
-    a2, b2, c2 = edge_coef(x0, y0, x1, y1)
-    ar = a0 * x0 + b0 * y0 + c0  # = 2*area
-    s = torch.where(ar < 0, -1.0, 1.0)
-    inv_ar = s / torch.clamp(ar.abs(), min=1e-20)
-    # depth is screen-affine: z(x,y) = sum_i bary_i(x,y) * z_i
-    za = (a0 * z0 + a1 * z1 + a2 * z2) * inv_ar
-    zb = (b0 * z0 + b1 * z1 + b2 * z2) * inv_ar
-    zc = (c0 * z0 + c1 * z1 + c2 * z2) * inv_ar
-    # (T, 3 coefficients, 4 planes): rows a, b, c; planes e0, e1, e2, z
-    coefs = torch.stack([
-        torch.stack([a0 * s, a1 * s, a2 * s, za], -1),
-        torch.stack([b0 * s, b1 * s, b2 * s, zb], -1),
-        torch.stack([c0 * s, c1 * s, c2 * s, zc], -1),
-    ], dim=1)
-    # fill rule on the sign-normalized edge (a, b): E == 0 counts when
-    # (b < 0) or (b == 0 and a > 0); the two triangles on a shared edge see
-    # opposite signs, so exactly one takes the boundary pixels
-    top_left = (coefs[:, 1, :3] < 0) | ((coefs[:, 1, :3] == 0) & (coefs[:, 0, :3] > 0))
-
-    return _Binned(sx, sy, w, tri_vidx, coefs, top_left, table, near_culled, bin_overflow, g)
+    return _Binned(p.sx, p.sy, p.w, p.tri_vidx, p.coefs, p.top_left, table, p.near_culled,
+                   bin_overflow, g)
 
 
 def _scan(b: _Binned, bin_px: int, chunk: int):

@@ -99,7 +99,9 @@
    frame (K4 in the frame) at 1920x1080 under the bench camera with
    tools/raster_bench.py's knobs, through ``Terrain.render_image`` per-pixel
    textured PBR (no kernel launch), with ``pixel_texturing=False`` and a
-   debug view (one packed sampler launch each, ``sample_attachment_grid``);
+   debug view (one packed sampler launch each, ``sample_attachment_grid``),
+   then its binning over bin caps 512 to 8192 up to the first that drops
+   nothing (tools_torch/raster_ablation.py) and the scan at that cap;
    the spherical main path's planet (K2 in the frame) at 1024^2 with the
    first bin cap that drops nothing, the disc without holes. Each render is
    checked, timed (CUDA events; the profiler's device time, op count and
@@ -157,12 +159,33 @@
    twins multi_view_bench, fetch_kernel_sweep, census_frame, earth_census
    and preprocess_compute_bench at the JAX defaults, launches counted
    (``MV_TOOLS``), one ``entry:`` line each; ``multi_view:`` lines.
+14. Ablation path (``ablation_path``), last: builds the ablation library
+   (``kernels.build_ablation_library``: the mesh kernels' ablated instances,
+   ``csrc/mesh_fused.cu`` under ``MESH_ABLATION``, six ``nvcc`` processes),
+   prints each instance's registers, shared memory and spills (``ptxas
+   -v``) and its instructions and cp.async copies (``cuobjdump -sass``;
+   each must still copy its quads); then each variant of
+   tools_torch/earth_kernel_ablation.py through K2 on its Earth frame
+   (streamed, 1512 tiles) and of tools_torch/material_kernel_ablation.py
+   through K3 and K4 on the bench frame (with K1's ``no_smooth`` and
+   ``no_phase_a``, also run on K1), each against its plain version with the
+   same ``ablate``, timed L2 warm and flushed, with its delta against the
+   production kernel and the card's name and power limit; and the two
+   tools' own rows (``generate_mesh_fused`` per variant). Then
+   ``study_tools_path``: raster_ablation's cap sweep and stages on the
+   bench frame, rust_interchange's check (committed hashes reproduced),
+   make_goldens into a temporary directory held to tests/goldens/, and
+   morph_gating_analysis's counts. Each ablated instance launched is a row
+   of the kernels line (``wrapper[variant]``, its launches counted in the
+   path, its bound the full kernel's on the same inputs).
 
 Every kernel call of phases 2-5 prints the sha256 of its inputs and of its
 output (``digest:`` lines): two trees built in one call are compared by
 them, bit for bit. ``python3 chip_smoke.py --kernel-phases`` runs phases
 1-5 only and prints their results without the result line; a copy of this
 script placed in an older tree runs that tree's kernels the same way.
+``python3 chip_smoke.py --ablation`` runs phase 1 and the ablation path
+only (no result line).
 
 Exits non-zero (and prints no result line) when there is no CUDA card or
 any check fails. The last line of stdout is the JSON result.
@@ -2935,9 +2958,11 @@ def multi_view_path() -> None:
 # the planet at 1024^2 with 16 px bins and the first cap that drops nothing
 RASTER_SIZE = (1920, 1080)
 RASTER_KNOBS = dict(bin_px=32, bin_cap=512, chunk=16)
+# bin-cap sweep at 1920x1080 (tools_torch/raster_ablation.py): up to the first
+# cap that drops no candidate, or the drops at the last
+RASTER_CAP_SWEEP = (512, 1024, 2048, 4096, 8192)
 PLANET_RASTER_SIZE = 1024
 PLANET_BIN_CAPS = (256, 512, 1024, 2048)
-MATERIAL_BIN_CAPS = (1024, 2048, 4096)
 # the CPU comparison renders at 1/RASTER_CPU_DIV of the width and height
 # with bins of 1/RASTER_CPU_DIV the side: the same camera, the same
 # triangles per bin (the material frame at half size takes ~10 s a render
@@ -3141,15 +3166,33 @@ def material_raster_path(terrain, view, view_proj, card) -> None:
     }
     out = raster_path(terrain, view, view_proj, view_proj, "material frame", *RASTER_SIZE,
                       RASTER_KNOBS, modes, ("mesh_fused_shaded",), card)
-    # what the prescribed cap drops: the same frame at larger caps
-    from bevy_terrain_tpu_torch.render import raster
+    # what the prescribed cap drops: the same frame's binning at larger caps
+    # (tools_torch/raster_ablation.py), up to the first that drops nothing,
+    # and the scan there
+    from types import SimpleNamespace
 
-    pos = raster.add_skirts(out.mesh.positions)
-    for cap in MATERIAL_BIN_CAPS:
-        r = raster.rasterize_grid(pos, out.mesh.tile_mask, view_proj, *RASTER_SIZE,
-                                  **dict(RASTER_KNOBS, bin_cap=cap))
-        print(f"raster: material frame at bin_cap {cap}: bin_overflow {int(r.bin_overflow)}, "
-              f"coverage {float(r.covered.float().mean()):.4f}")
+    import torch
+
+    from bevy_terrain_tpu_torch.render import raster
+    from tools_torch import raster_ablation
+
+    skirted = SimpleNamespace(positions=raster.add_skirts(out.mesh.positions),
+                              tile_mask=out.mesh.tile_mask)
+    knobs = {k: v for k, v in RASTER_KNOBS.items() if k != "bin_cap"}
+    for cap in RASTER_CAP_SWEEP:
+        drops = raster_ablation.dropped(skirted, view_proj, *RASTER_SIZE, bin_cap=cap, **knobs)
+        print(f"raster: material frame at bin_cap {cap}: bin_overflow {drops}")
+        if drops == 0:
+            break
+    vp = torch.as_tensor(view_proj, dtype=torch.float32, device="cuda")
+    b = raster._bin(skirted.positions, skirted.tile_mask, vp, *RASTER_SIZE, knobs["bin_px"],
+                    cap, knobs["chunk"], False, 1e-4)
+    scan_ms = cuda_ms(lambda: raster._scan(b, knobs["bin_px"], knobs["chunk"]), n=3, warmup=1)
+    verdict = (f"bin_cap {cap} is the first that drops nothing" if drops == 0
+               else f"{drops} candidates still dropped at bin_cap {cap}")
+    print(f"raster: material frame at {RASTER_SIZE[0]}x{RASTER_SIZE[1]}: {verdict}; the scan "
+          f"there {scan_ms:.2f} ms ({b.table.shape[1]} candidate slots of {b.table.shape[0]} "
+          f"bins; CUDA events, median of 3); {card}")
     print(f"raster: material frame: the raster path took {time.perf_counter() - t0:.1f} s")
 
 
@@ -3197,34 +3240,54 @@ def profile_stage(device_stage, what: str) -> None:
 
 
 # ptxas names of the kernel instances: mesh_fused_kernel<SPHERICAL,
-# ELLIPSOIDAL>, mesh_material_kernel<SPHERICAL, ELLIPSOIDAL, SHADE>, the
-# sampler and the half-grid kernels
+# ELLIPSOIDAL, ABL>, mesh_material_kernel<SPHERICAL, ELLIPSOIDAL, SHADE, ABL>
+# (the trees before the ablation mask lack its Li..E), the sampler and the
+# half-grid kernels
 INSTANCES = {
-    "mesh_fused_kernelILb0ELb0EE": "mesh_fused_planar",
-    "mesh_fused_kernelILb1ELb0EE": "mesh_fused_spherical (sphere)",
-    "mesh_fused_kernelILb1ELb1EE": "mesh_fused_spherical (ellipsoid)",
-    "mesh_material_kernelILb0ELb0ELb0EE": "mesh_fused_albedo",
-    "mesh_material_kernelILb0ELb0ELb1EE": "mesh_fused_shaded",
-    "mesh_material_kernelILb1ELb0ELb0EE": "mesh_fused_spherical_albedo (sphere)",
-    "mesh_material_kernelILb1ELb1ELb0EE": "mesh_fused_spherical_albedo (ellipsoid)",
-    "attach_sample_kernel": "attach_sample_fused[_packed]",
-    "fetch_resample_cached_kernel": "fetch_resample_cached",
-    "fetch_resample_kernel": "fetch_resample",
+    r"mesh_fused_kernelILb0ELb0E(Li0E)?E": "mesh_fused_planar",
+    r"mesh_fused_kernelILb1ELb0E(Li0E)?E": "mesh_fused_spherical (sphere)",
+    r"mesh_fused_kernelILb1ELb1E(Li0E)?E": "mesh_fused_spherical (ellipsoid)",
+    r"mesh_material_kernelILb0ELb0ELb0E(Li0E)?E": "mesh_fused_albedo",
+    r"mesh_material_kernelILb0ELb0ELb1E(Li0E)?E": "mesh_fused_shaded",
+    r"mesh_material_kernelILb1ELb0ELb0E(Li0E)?E": "mesh_fused_spherical_albedo (sphere)",
+    r"mesh_material_kernelILb1ELb1ELb0E(Li0E)?E": "mesh_fused_spherical_albedo (ellipsoid)",
+    r"attach_sample_kernel": "attach_sample_fused[_packed]",
+    r"fetch_resample_cached_kernel": "fetch_resample_cached",
+    r"fetch_resample_kernel": "fetch_resample",
 }
+# the ablated instances (the ablation library): the production name's
+# template head, then the mask
+ABLATED_INSTANCES = {
+    r"mesh_fused_kernelILb0ELb0ELi(\d+)EE": "mesh_fused_planar",
+    r"mesh_fused_kernelILb1ELb0ELi(\d+)EE": "mesh_fused_spherical (sphere)",
+    r"mesh_fused_kernelILb1ELb1ELi(\d+)EE": "mesh_fused_spherical (ellipsoid)",
+    r"mesh_material_kernelILb0ELb0ELb0ELi(\d+)EE": "mesh_fused_albedo",
+    r"mesh_material_kernelILb0ELb0ELb1ELi(\d+)EE": "mesh_fused_shaded",
+    r"mesh_material_kernelILb1ELb0ELb0ELi(\d+)EE": "mesh_fused_spherical_albedo (sphere)",
+    r"mesh_material_kernelILb1ELb1ELb0ELi(\d+)EE": "mesh_fused_spherical_albedo (ellipsoid)",
+}
+
+
+def ptxas_entries(log: str):
+    """(entry text, registers, shared memory bytes, spill store bytes) of
+    each entry function in a build's ``ptxas -v`` report."""
+    for entry in re.split(r"Compiling entry function", log)[1:]:
+        regs = re.search(r"Used (\d+) registers", entry)
+        smem = re.search(r"(\d+) bytes smem", entry)
+        spill = re.search(r"(\d+) bytes spill stores", entry)
+        if regs:
+            yield (entry.split("\n", 1)[0], int(regs.group(1)), int(smem.group(1)) if smem else 0,
+                   int(spill.group(1)) if spill else 0)
 
 
 def print_resources(log: str) -> None:
     """Registers, spills and static shared memory per kernel instance, from
     the build's ``ptxas -v`` report."""
-    for entry in re.split(r"Compiling entry function", log)[1:]:
-        name = next((v for k, v in INSTANCES.items() if k in entry), None)
-        regs = re.search(r"Used (\d+) registers", entry)
-        smem = re.search(r"(\d+) bytes smem", entry)
-        spill = re.search(r"(\d+) bytes spill stores", entry)
-        if name and regs:
-            print(f"resources: {name}: {regs.group(1)} registers, "
-                  f"{smem.group(1) if smem else 0} bytes shared memory, "
-                  f"{spill.group(1) if spill else 0} bytes spill stores")
+    for head, regs, smem, spill in ptxas_entries(log):
+        name = next((v for k, v in INSTANCES.items() if re.search(k, head)), None)
+        if name:
+            print(f"resources: {name}: {regs} registers, {smem} bytes shared memory, "
+                  f"{spill} bytes spill stores")
 
 
 # blocks of 320 threads per SM that the run-of-tiles kernels' designs rest on
@@ -3628,6 +3691,270 @@ def native_path() -> None:
     print(f"native path: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- ablation path -------------------------------------------------------------
+
+# the ablated instances the path launches (the JAX ablation tools' variants:
+# tools_torch/earth_kernel_ablation.py, tools_torch/material_kernel_ablation.py)
+# and K1's two, each against its plain version with the same ``ablate``
+K1_ABLATIONS = (("full", frozenset()), ("no_smooth", frozenset({"no_smooth"})),
+                ("no_phase_a", frozenset({"no_phase_a"})))
+
+
+def ablated_counts() -> dict:
+    """{wrapper[variant]: launches} of the ablated instances."""
+    from bevy_terrain_tpu_torch.ops import kernels
+
+    return {f"{name}[{label}]": n for name, *_ in KERNELS
+            for label, n in getattr(getattr(kernels, name), "ablated_launches", {}).items()}
+
+
+def reset_ablated_counts() -> None:
+    from bevy_terrain_tpu_torch.ops import kernels
+
+    for name, *_ in KERNELS:
+        getattr(kernels, name).ablated_launches = {}
+
+
+def ablation_rows(what: str, wrapper, plain, args, variants, check, nbound: dict,
+                  results: dict, card: str) -> dict:
+    """Each variant of ``variants`` ((name, ablate) pairs, the first the
+    production kernel) through ``wrapper(*args, ablate=...)``: held against
+    ``plain(*args, ablate=...)`` by ``check(got, want, label) -> err``, then
+    its device time back to back (L2 warm), with the L2 flushed before each
+    launch, and the plain version's. Prints the rows and the deltas against
+    the first with the card's name and power limit; an ablated variant's
+    row goes into ``results`` as ``wrapper[variant]`` (its bound
+    ``nbound``: the full kernel's bytes and operations on these inputs)."""
+    import torch
+
+    from bevy_terrain_tpu_torch.ops import kernels
+
+    rows = {}
+    for name, abl in variants:
+        label = f"{wrapper.__name__}[{name}] ({what})"
+        got = wrapper(*args, ablate=abl)
+        torch.cuda.synchronize()
+        want = plain(*args, ablate=abl)
+        err = check(got, want, label)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: non-finite output")
+        warm = device_ms(lambda abl=abl: wrapper(*args, ablate=abl))
+        flushed = cold_ms(lambda abl=abl: wrapper(*args, ablate=abl))
+        plain_ms = device_ms(lambda abl=abl: plain(*args, ablate=abl), n=3)
+        rows[name] = (warm, flushed)
+        print(f"ablation: {label}: {warm:.4f} ms (device, L2 warm), {flushed:.4f} ms "
+              f"(L2 flushed); plain PyTorch version {plain_ms:.4f} ms")
+        if abl:
+            results[f"{wrapper.__name__}[{kernels.ablate_label(abl)}]"] = dict(
+                max_abs_err=err, ms=warm, plain_ms=plain_ms, **nbound, library_ms=None)
+        del got, want
+    full_warm, full_flushed = rows[variants[0][0]]
+    for name, _ in variants[1:]:
+        warm, flushed = rows[name]
+        print(f"ablation: {wrapper.__name__} ({what}) {name}: delta against "
+              f"{variants[0][0]} {full_warm - warm:+.4f} ms warm, {full_flushed - flushed:+.4f} "
+              f"ms flushed ({(full_warm - warm) / full_warm:+.1%} warm); {card}")
+    return rows
+
+
+def material_check(mesh_rows, shaded: bool, variants):
+    """A check of a material variant of ``variants`` ((name, ablate)
+    pairs): its mesh rows bit-equal to ``mesh_rows[name]`` (K1's output with
+    the same mesh piece removed), its colours within the plain version's
+    tolerance of full scale (255, 1 shaded, the largest magnitude with
+    ``alb_no_unpack``'s raw words) on the path the variant takes (exact or
+    bf16 fast)."""
+    import torch
+
+    from bevy_terrain_tpu_torch.ops import kernels
+
+    def check(got, want, label):
+        name = label.split("[", 1)[1].split("]", 1)[0]
+        if not torch.equal(got[:, :kernels.OUT_CH], mesh_rows[name]):
+            raise AssertionError(f"{label}: the mesh rows differ from mesh_fused_planar's")
+        cols, wcols = got[:, kernels.OUT_CH:], want[:, kernels.OUT_CH:]
+        exact = bool(dict(variants)[name] & kernels.ALBEDO_EXACT_ABLATE)
+        scale = 1.0 if shaded else 255.0
+        if "alb_no_unpack" in name:
+            scale = max(scale, float(wcols.abs().max()))
+        tol = (TOL_SHADED_EXACT if shaded else TOL_ALB_EXACT) if exact else TOL_ALB_FAST
+        err = float((cols - wcols).abs().max()) / scale
+        print(f"ablation: {label}: max |kernel - plain| {err:.3e} of full scale {scale:.6g} "
+              f"(tol {tol:.1e}; {'exact' if exact else 'fast'} path)")
+        if not err <= tol:
+            raise AssertionError(f"{label}: kernel disagrees with the plain version")
+        return err
+
+    return check
+
+
+def ablation_path(card: str) -> dict:
+    """The kernels' ablated instances (``ablate``; the ablation library,
+    built here) against their plain versions and timed, per variant, with
+    the deltas against the production kernel: K2 on the Earth frame of
+    tools_torch/earth_kernel_ablation.py (streamed and settled), K1, K3 and
+    K4 on the bench frame of tools_torch/material_kernel_ablation.py (random
+    packed Rgba8 albedo, default_rng(7)); then the two tools' own timings
+    (``generate_mesh_fused`` per variant, ``utils/timing.device_time_ms``).
+    Returns {wrapper[variant]: row} for the kernels line."""
+    import torch
+
+    from bevy_terrain_tpu_torch.ops import kernels, meshgen
+    from tools_torch import earth_kernel_ablation, material_kernel_ablation
+
+    t_path = t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        lib = kernels.build_ablation_library(verbose=True)
+    print(f"ablation: build {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s "
+          f"({kernels.ABLATION_GROUPS} nvcc processes)")
+    ablation_resources(log.getvalue(), lib)
+    results: dict = {}
+
+    # (a) K2 on the Earth frame
+    t0 = time.perf_counter()
+    inputs = earth_kernel_ablation.frame("cuda")
+    tiles, blocks, u, cfg, plan, max_value = inputs
+    tiles, batch, args = meshgen.fused_kernel_args(tiles, blocks, u, cfg, plan, max_value)
+    n = int(tiles.tile_count)
+    live_hp = int(((args[5] == 2).repeat_interleave(kernels.TILES_PER_STEP)
+                   & (torch.arange(args[1].shape[0], device="cuda") < n)).sum())
+    print(f"ablation: Earth frame streamed and settled in {time.perf_counter() - t0:.1f} s: "
+          f"{n} tiles (capacity {cfg.tile_capacity}), {int(batch.n_unique)} unique quads, "
+          f"{live_hp} tiles on high-precision steps")
+    if n <= 100 or int(tiles.overflow):
+        raise AssertionError("ablation: the Earth frame is small or overflows")
+    nbound = mesh_bound(args, int(batch.n_unique), kernels.SPH_CH, n, live_hp, "sphere")
+    ablation_rows("Earth frame", kernels.mesh_fused_spherical,
+                  kernels.mesh_fused_spherical_reference, args,
+                  earth_kernel_ablation.VARIANTS, compare_spherical, nbound, results, card)
+    earth_kernel_ablation.run_variants(inputs, on_card=True)
+    del inputs, blocks, args, batch
+
+    # (b) K1, K3 and K4 on the bench frame
+    inputs = material_kernel_ablation.scene("cuda")
+    tiles, blocks, u, cfg, plan, albedo = inputs
+    tiles, batch, base = meshgen.fused_kernel_args(tiles, blocks, u, cfg, plan, 65535.0)
+    n, n_unique, Fp = int(tiles.tile_count), int(batch.n_unique), base[1].shape[0]
+    print(f"ablation: bench frame {n} tiles, {n_unique} unique quads")
+    nbound = mesh_bound(base, n_unique, kernels.OUT_CH, n, 0, "planar")
+    ablation_rows("bench frame", kernels.mesh_fused_planar, kernels.mesh_fused_planar_reference,
+                  base, K1_ABLATIONS, compare, nbound, results, card)
+    # the material kernels' variants: the tool's, and K1's two mesh pieces
+    # (their mesh rows are K1's with the same piece removed)
+    variants = material_kernel_ablation.VARIANTS + list(K1_ABLATIONS[1:])
+    mesh_rows = {name: kernels.mesh_fused_planar(*base, ablate=abl & kernels.MESH_ABLATE)
+                 for name, abl in variants}
+    spec = material_kernel_ablation.shade_material()
+    shade = kernels.pack_shade_spec(spec, "cuda")
+    light_ops = sum(OPS_SHADE_LIGHT[light[0]] for light in spec[5])
+    for shaded in (False, True):
+        wrapper = kernels.mesh_fused_shaded if shaded else kernels.mesh_fused_albedo
+        plain = (kernels.mesh_fused_shaded_reference if shaded
+                 else kernels.mesh_fused_albedo_reference)
+        args = (*base, albedo, 4, 8, *((shade,) if shaded else ()), True, False)
+        # the fast path's count (the full kernel's bound on these inputs)
+        nbytes = (2 * n_unique * QUAD_BYTES + tensor_bytes(*base[1:6])
+                  + (tensor_bytes(shade) if shaded else 0)
+                  + Fp * (kernels.OUT_CH + 4) * GV2 * 4)
+        ops = (n * (OPS_TILE + GV2 * OPS_VERTEX["planar"])
+               + n * 4 * (OPS_ALB_HALF + GV2 * OPS_ALB_VERTEX)
+               + (n * GV2 * (OPS_SHADE_VERTEX + light_ops) if shaded else 0))
+        ablation_rows("bench frame", wrapper, plain, args, variants,
+                      material_check(mesh_rows, shaded, variants), bound(nbytes, ops), results, card)
+        material_kernel_ablation.run_variants(inputs, on_card=True, shade=shaded)
+    del inputs, blocks, albedo, base, mesh_rows
+    torch.cuda.empty_cache()
+    print(f"ablation path: {time.perf_counter() - t_path:.1f} s in all; {card}")
+    return results
+
+
+def study_tools_path(card: str) -> None:
+    """The study tools on the card: (c) tools_torch/raster_ablation.py on the
+    bench frame's mesh (random heights) at 1920x1080: the candidates each
+    cap of :data:`RASTER_CAP_SWEEP` drops, up to the first that drops none,
+    and the stages timed at the JAX tool's knobs (the material frame's
+    sweep and its scan time are in material_raster_path); (d) tools_torch/rust_interchange.py --check (the
+    committed hashes of tools/interchange_expected.json it reproduced, and
+    those it could not make); (e) tools_torch/make_goldens.py into a
+    temporary directory, held to tests/goldens/; (f)
+    tools_torch/morph_gating_analysis.py's counts."""
+    import torch
+
+    from tools_torch import make_goldens, morph_gating_analysis, raster_ablation, rust_interchange
+
+    t_path = t0 = time.perf_counter()
+    mesh, vp32, n = raster_ablation.scene_mesh("cuda")
+    width, height = RASTER_SIZE
+    knobs = {k: v for k, v in RASTER_KNOBS.items() if k != "bin_cap"}
+    for cap in RASTER_CAP_SWEEP:
+        drops = raster_ablation.dropped(mesh, vp32, width, height, bin_cap=cap, **knobs)
+        print(f"raster ablation: bench frame ({n} tiles, random heights) at {width}x{height}, "
+              f"bin_cap {cap}: {drops} candidates dropped")
+        if drops == 0:
+            break
+    row = raster_ablation.stages(mesh, vp32, width, height, **RASTER_KNOBS)
+    print(f"raster ablation: bench frame, stages at {RASTER_KNOBS}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in row["ms"].items()) + f" ms (device); {card} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del mesh
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    kit = rust_interchange.check("cuda")
+    print(f"interchange: {kit['reproduced']} of {kit['expected']} committed hashes reproduced "
+          f"on the card; not made: {kit['not_made'] or 'none'} ({time.perf_counter() - t0:.1f} s)")
+    if kit["reproduced"] + len(kit["not_made"]) != kit["expected"]:
+        raise AssertionError("interchange: a committed hash was neither reproduced nor named")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        make_goldens.write(Path(tmp), "cuda")
+        goldens = make_goldens.compare(Path(tmp))
+    print(f"goldens: {len(goldens)} of tests/goldens/ reproduced on the card: "
+          f"{json.dumps(goldens)} ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    gating = morph_gating_analysis.main([])
+    print(f"morph gating: {json.dumps(gating)} ({time.perf_counter() - t0:.1f} s)")
+    print(f"study tools path: {time.perf_counter() - t_path:.1f} s in all; {card}")
+
+
+def ablation_resources(log: str, lib: Path) -> None:
+    """Registers, shared memory and spills of each ablated instance (its
+    ``ptxas -v`` report), and from ``cuobjdump -sass`` of the library its
+    instructions and its cp.async copies (LDGSTS): every instance, the
+    ``no_phase_a`` ones too, must still copy its quads."""
+    from bevy_terrain_tpu_torch.ops import kernels
+
+    names = {bit: name for name, bit in kernels.ABLATE_BITS.items()}
+
+    def label(mask: int) -> str:
+        return "+".join(names[b] for b in sorted(names) if mask & b)
+
+    for head, regs, smem, spill in ptxas_entries(log):
+        for pattern, name in ABLATED_INSTANCES.items():
+            m = re.search(pattern, head)
+            if m:
+                print(f"resources: {name}[{label(int(m.group(1)))}]: {regs} registers, "
+                      f"{smem} bytes shared memory, {spill} bytes spill stores")
+    cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    for fn in re.split(r"\n\s+Function : ", sass)[1:]:
+        head = fn.split("\n", 1)[0]
+        for pattern, name in ABLATED_INSTANCES.items():
+            m = re.search(pattern, head)
+            if not m:
+                continue
+            instr = len(re.findall(r"/\*[0-9a-f]{4,}\*/", fn))
+            copies = len(re.findall(r"\bLDGSTS\b", fn))
+            print(f"sass: {name}[{label(int(m.group(1)))}]: {instr} instructions, {copies} "
+                  f"LDGSTS (cp.async)")
+            if copies == 0:
+                raise AssertionError(f"{name}[{label(int(m.group(1)))}]: no cp.async left")
+
+
 def main(argv) -> int:
     import torch
 
@@ -3659,6 +3986,12 @@ def main(argv) -> int:
         native_build_line(card)
 
     results: dict = {}
+    if "--ablation" in argv:
+        reset_ablated_counts()
+        rows = ablation_path(card)
+        print(json.dumps({"ablation": rows, "launches": ablated_counts()}))
+        study_tools_path(card)
+        return 0
     kernel_phase(results)
     sphere_kernel_phase(results)
     material_kernel_phase(results)
@@ -3676,11 +4009,24 @@ def main(argv) -> int:
     preprocess_path_phase()
     entry_points_path()
     multi_view_path()
+    reset_counts()
+    reset_ablated_counts()
+    ablated = ablation_path(card)
+    ablated_launches = ablated_counts()
+    missing = sorted(set(ablated) - {k for k, v in ablated_launches.items() if v})
+    if missing:
+        raise AssertionError(f"ablation path: instances never launched: {missing}")
+    study_tools_path(card)
 
+    replaces = {k: rep for k, _, _, rep in KERNELS}
     print(json.dumps({"kernels": [
         {"name": k, "route": route, "source": src, "replaces": rep,
          "launches": counts[k], **results[k]}
         for k, route, src, rep in KERNELS
+    ] + [
+        {"name": k, "route": "cuda", "source": "bevy_terrain_tpu_torch/csrc/mesh_fused.cu",
+         "replaces": replaces[k.split("[", 1)[0]], "launches": ablated_launches[k], **row}
+        for k, row in ablated.items()
     ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -302,6 +302,101 @@ def test_attach_kernel_matches_plain_version(channels, bits):
     assert not got[int(tiles.tile_count):].any()
 
 
+# -- ablated instances (the ablation library) vs their plain versions ---------
+
+# (kernel, the ablate names it reads); planar kernels on _scene(256), spherical
+# ones on _sphere_scene at 3 km (the Taylor near field runs)
+_ABLATION_KERNELS = {
+    "planar": kernels.MESH_ABLATE, "sphere": kernels.SPHERE_ABLATE,
+    "ellipsoid": kernels.SPHERE_ABLATE,
+    "albedo": kernels.MESH_ABLATE | kernels.ALBEDO_ABLATE,
+    "shaded": kernels.MESH_ABLATE | kernels.ALBEDO_ABLATE,
+    "sphere_albedo": kernels.SPHERE_ABLATE | kernels.ALBEDO_ABLATE,
+    "ellipsoid_albedo": kernels.SPHERE_ABLATE | kernels.ALBEDO_ABLATE,
+}
+ABLATION_CASES = [
+    (kind, frozenset(n for n, bit in kernels.ABLATE_BITS.items() if mask & bit))
+    for kind, names in _ABLATION_KERNELS.items()
+    for mask in sorted(kernels.ablation_masks(names))
+]
+
+
+def _ablation_call(kind, dev):
+    """(wrapper, plain version, kernel arguments, mesh rows) of ``kind``."""
+    spherical = kind.startswith(("sphere", "ellipsoid"))
+    if spherical:
+        blob, blocks, cfg, plan = _sphere_scene(kind.split("_")[0], 3_000.0)
+        u = unpack_frame_uniforms(torch.from_numpy(blob).to(dev), 6, cfg.lod_count, 8)
+        _, _, args = meshgen.fused_kernel_args(refinement.refine_tiles(u, cfg),
+                                               torch.from_numpy(blocks).to(dev), u, cfg, plan,
+                                               65535.0)
+    else:
+        blob, blocks, cfg, plan = _scene(256)
+        _, _, args = _stage(blob, blocks, cfg, plan, dev)
+    albedo = torch.from_numpy(_packed(blocks.shape, 4, 8, 7)).to(dev)
+    if kind in ("planar", "sphere", "ellipsoid"):
+        wrapper = kernels.mesh_fused_spherical if spherical else kernels.mesh_fused_planar
+        plain = (kernels.mesh_fused_spherical_reference if spherical
+                 else kernels.mesh_fused_planar_reference)
+        return wrapper, plain, args, 9 if spherical else 6
+    if spherical:
+        return (kernels.mesh_fused_spherical_albedo, kernels.mesh_fused_spherical_albedo_reference,
+                (*args, albedo, 4, 8, True, False), 9)
+    if kind == "shaded":
+        shade = kernels.pack_shade_spec(_material_spec(), dev)
+        return (kernels.mesh_fused_shaded, kernels.mesh_fused_shaded_reference,
+                (*args, albedo, 4, 8, shade, True, False), 6)
+    return kernels.mesh_fused_albedo, kernels.mesh_fused_albedo_reference, \
+        (*args, albedo, 4, 8, True, False), 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,ablate", ABLATION_CASES,
+                         ids=[f"{k}-{kernels.ablate_label(a)}" for k, a in ABLATION_CASES])
+def test_ablated_kernel_matches_plain_version(kind, ablate):
+    """Every ablated CUDA instance against its plain version with the same
+    ``ablate``: mesh rows at the unablated kernels' tolerances, colours of
+    full scale (the largest magnitude with ``alb_no_unpack``'s raw words)
+    on the path the variant takes; counted as an ablated launch."""
+    dev = _card()
+    wrapper, plain, kargs, base = _ablation_call(kind, dev)
+    label = kernels.ablate_label(ablate)
+    before = wrapper.ablated_launches.get(label, 0)
+    got = wrapper(*kargs, ablate=ablate)
+    torch.cuda.synchronize()
+    assert wrapper.ablated_launches[label] == before + 1
+    want = plain(*kargs, ablate=ablate)
+    err = (got - want).abs()
+    if base == 9:
+        for name, sl in (("heights", slice(0, 1)), ("positions", slice(1, 4)),
+                         ("uvs", slice(4, 6)), ("normals", slice(6, 9))):
+            assert float(err[:, sl].max()) <= SPH_TOL[name], name
+    else:
+        assert float(err[:, :4].max()) <= TOL_POS
+        assert float(err[:, 4:6].max()) <= TOL_UV
+    if got.shape[1] > base:
+        shaded = wrapper is kernels.mesh_fused_shaded
+        exact = bool(ablate & kernels.ALBEDO_EXACT_ABLATE)
+        scale = 1.0 if shaded else 255.0
+        if "alb_no_unpack" in ablate:
+            scale = max(scale, float(want[:, base:].abs().max()))
+        tol = (1e-4 if shaded else TOL_EXACT) if exact else TOL_FAST
+        assert float(err[:, base:].max()) / scale <= tol
+    n = int(kargs[6] if base == 9 else kargs[5])
+    assert torch.isfinite(got).all() and not got[n:].any()
+
+
+@pytest.mark.cuda
+def test_ablation_without_an_instance_raises():
+    """A combination of names that no CUDA instance covers raises on the
+    card; the plain version takes it."""
+    dev = _card()
+    _, _, args = _stage(*_scene(64), dev)
+    with pytest.raises(ValueError):
+        kernels.mesh_fused_planar(*args, ablate={"no_smooth", "no_phase_a"})
+    kernels.mesh_fused_planar_reference(*args, ablate={"no_smooth", "no_phase_a"})
+
+
 # -- half-grid kernels (K6 fetch_resample_cached, K7 fetch_resample) vs their
 # plain versions, in raw texel units on values up to 65535: f32 sums on both
 # sides, differing in summation order and, for K6, in the patch mean (an exact

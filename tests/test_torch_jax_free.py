@@ -76,7 +76,7 @@ def test_every_port_module_imports_without_jax():
     # every module of the example and tool twins
     n_port, n_twins = map(int, out.stdout.split()[-2:])
     assert n_port == len(SOURCES) - 2
-    assert n_twins == len(TWIN_SOURCES) - len(TWINS) and n_twins >= 6 + 1 + 6 + 5
+    assert n_twins == len(TWIN_SOURCES) - len(TWINS) and n_twins >= 6 + 1 + 6 + 5 + 6
 
 
 @pytest.mark.parametrize("what", ["port", "chip_smoke", "twins"])
@@ -98,7 +98,9 @@ def test_no_source_imports_jax_or_the_jax_package(what):
                 "scenes", "refine_bench", "earth_frame_bench", "flythrough_bench",
                 "material_frame_bench", "raster_bench", "multi_view_bench",
                 "fetch_kernel_sweep", "census_frame", "earth_census",
-                "preprocess_compute_bench")],
+                "preprocess_compute_bench", "earth_kernel_ablation",
+                "material_kernel_ablation", "raster_ablation", "morph_gating_analysis",
+                "rust_interchange", "make_goldens")],
     }[what]
     for module in expected:
         assert module in names
