@@ -365,7 +365,8 @@ class Terrain:
         event.record()
         ad["pending"] = (host, event)
 
-    def _spike_suspected(self, view_id, pos, n_requested: int) -> bool:
+    def _spike_suspected(self, view_id, pos, n_requested: int,
+                         approximate_height: float) -> bool:
         """Host-side tile-count-spike heuristic for the overflow guard.
 
         The refined tile count is a function of the camera relative to the
@@ -374,11 +375,9 @@ class Terrain:
         subdivision radii are O(height)) or when the request scan bursts
         (new area streaming in). Both signals are free on the host, so the
         guard's device sync is paid only on suspect frames."""
-        tree = self.tile_trees[view_id]
         pos = np.asarray(pos, np.float64).reshape(3)
-        surf = np.asarray(
-            self.config.model.surface_position(pos, float(tree.approximate_height)),
-            np.float64)
+        surf = np.asarray(self.config.model.surface_position(pos, approximate_height),
+                          np.float64)
         h = float(np.linalg.norm(pos - surf))
         prev = self._last_view_pos.get(view_id)
         self._last_view_pos[view_id] = (pos, h)
@@ -390,14 +389,16 @@ class Terrain:
         cap = self._adaptive[view_id]["capacity"]
         return n_requested > max(16, cap // 16)
 
-    def _overflow_guard(self, view_id, pos, n_requested: int, cfg, out, dispatch):
+    def _overflow_guard(self, view_id, pos, n_requested: int, approximate_height: float,
+                        cfg, out, dispatch):
         """Same-frame adaptive-capacity overflow guard: when a tile-count
         spike is suspected, read the frame's overflow counter (a sync) and
         dispatch the SAME frame again at the next capacity rung until clean
         (the packed uniforms are on the device already). Returns (the config
         the frame ended on, its output)."""
         ad = self._adaptive.get(view_id)
-        if ad is None or not self._spike_suspected(view_id, pos, n_requested):
+        if ad is None or not self._spike_suspected(view_id, pos, n_requested,
+                                                   approximate_height):
             return cfg, out
         ladder = ad["ladder"]
         while cfg.tile_capacity < ladder[-1]:
@@ -556,6 +557,16 @@ class Terrain:
         matrices (math/frustum.py helpers), needed for views whose static
         config enables ``culling``.
         """
+        blobs, req_counts, heights = self._host_stage(view_positions, view_projections)
+        return self._device_views(view_positions, self._blobs_to_device(blobs), req_counts,
+                                  heights)
+
+    def _host_stage(self, view_positions: dict, view_projections: dict | None = None):
+        """Steps 1-4 of a frame on the host: the request scans, residency and
+        IO, then per view the entries, the height probe, the approximation
+        and the packed uniforms. Returns (the blobs in view order, each
+        view's request count, each view's approximate height), what the
+        device stage's guards read."""
         view_projections = view_projections or {}
         # 1. request scans (TileTree::compute_requests, plugin.rs:47)
         released, requested = [], []
@@ -569,15 +580,16 @@ class Terrain:
 
         # 2. atlas residency + IO (TileAtlas::update, plugin.rs:49)
         self.atlas.update(released, requested)
-        self.atlas.flush_uploads()
+        self._flush_uploads()
 
         # 3.-4. per view: adjust entries, height probe, approximation, the
         # packed uniforms (plugin.rs:50-55)
-        blobs = []
+        blobs, heights = [], {}
         for view_id, pos in view_positions.items():
             tree = self.tile_trees[view_id]
             tree.adjust_to_tile_atlas(self.atlas)
             tree.update_approximate_height(self.atlas)
+            heights[view_id] = float(tree.approximate_height)
             approx = TerrainModelApproximation.compute(
                 self.config.model, pos, tree.origin_lod, tree.approximate_height
             )
@@ -587,11 +599,19 @@ class Terrain:
                 self.view_configs[view_id],
                 view_proj=view_projections.get(view_id),
             ))
+        return blobs, req_counts, heights
 
-        # 5. per view: the device stage (render schedule)
+    def _flush_uploads(self) -> None:
+        """Step 2's uploads of the newly loaded tiles into the device stores."""
+        self.atlas.flush_uploads()
+
+    def _device_views(self, view_positions: dict, blobs_dev: list, req_counts: dict,
+                      heights: dict) -> dict[object, TerrainFrameOutput]:
+        """Step 5 (render schedule): per view, its device stage on its blob,
+        with the adaptive-capacity rung, the overflow guard (which reads the
+        view's request count and approximate height) and freeze."""
         outputs = {}
-        for (view_id, pos), blob_dev in zip(view_positions.items(),
-                                            self._blobs_to_device(blobs)):
+        for (view_id, pos), blob_dev in zip(view_positions.items(), blobs_dev):
             self._last_blobs[view_id] = blob_dev
             freezing = self.debug is not None and self.debug.freeze
             frozen = self._frozen_tiles.get(view_id) if freezing and self.use_grid_mesh else None
@@ -602,8 +622,8 @@ class Terrain:
 
             out = dispatch(cfg)
             if frozen is None:
-                cfg, out = self._overflow_guard(view_id, pos, req_counts[view_id], cfg, out,
-                                                dispatch)
+                cfg, out = self._overflow_guard(view_id, pos, req_counts[view_id],
+                                                heights[view_id], cfg, out, dispatch)
                 if freezing and self.use_grid_mesh:
                     self._frozen_tiles[view_id] = out.tiles
             self._read_count_async(view_id, out.tiles)
@@ -615,6 +635,11 @@ class Terrain:
     def _blobs_to_device(self, blobs: list) -> list:
         """The views' packed uniforms on the device: ONE copy per view."""
         return [interop.blob_to_device(b, self.device) for b in blobs]
+
+    def height_blocks(self) -> torch.Tensor:
+        """The height attachment's (N, 32, 128) block store that the device
+        stage reads."""
+        return self.atlas.attachments[0].block_array
 
     def _device_stage(self, blob_dev: torch.Tensor, cfg: StaticTerrainConfig,
                       frozen=None) -> TerrainFrameOutput:
@@ -637,7 +662,7 @@ class Terrain:
                           albedo_channels=fused.channels, albedo_bits=fused.bits,
                           shade_spec=fused.shade)
         tiles, product, args, uniforms = self.frame_step(
-            height.block_array, blob_dev, cfg, height.patch_plan,
+            self.height_blocks(), blob_dev, cfg, height.patch_plan,
             height.config.format.max_value, tiles=frozen, **albedo,
         )
         # the fused step hands over the kernel's raw tensor (its grid view

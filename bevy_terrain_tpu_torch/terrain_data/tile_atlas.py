@@ -68,6 +68,24 @@ def pack_keys(side, lod, x, y) -> np.ndarray:
     )
 
 
+def apply_block_uploads(store: torch.Tensor, slots: torch.Tensor, words: torch.Tensor,
+                        per_slot: int, first: int | None = None) -> None:
+    """Write uploaded quads (:meth:`AtlasAttachment.take_block_uploads`,
+    ``slots`` and ``words`` as tensors on ``store``'s device) into a block
+    store: the whole (N, 32, 128) array (``first=None``), or the shard of
+    it that holds global blocks [first, first + store.shape[0]), which
+    keeps only the quads it owns. One ``index_copy_``."""
+    if slots.numel() == 0:
+        return
+    block_idx = (slots[:, None] * per_slot
+                 + torch.arange(per_slot, device=slots.device)[None, :]).reshape(-1)
+    if first is not None:
+        local = block_idx - first
+        keep = (local >= 0) & (local < store.shape[0])
+        block_idx, words = local[keep], words[keep]
+    store.index_copy_(0, block_idx, words)
+
+
 @dataclasses.dataclass
 class _TileState:
     """Residency record (reference tile_atlas.rs:272-280)."""
@@ -200,6 +218,16 @@ class AtlasAttachment:
                 slab, vals = slab.view(torch.int16), vals.view(np.int16)
             slab.index_copy_(0, slots, torch.from_numpy(vals).to(self.device))
 
+    def _staged_quads(self) -> tuple[np.ndarray, np.ndarray]:
+        """The staged tiles' slots, (k,) int64, and their block quads in slot
+        order, (k * total_blocks_per_slot, 32, 128) int32."""
+        slots = np.array([i for i, _ in self._staged], np.int64)
+        quads = blocks_from_tile_packed if self.block_packed else blocks_from_tile
+        words = np.stack(
+            [quads(mips, self.patch_plan) for _, mips in self._staged]
+        ).reshape(-1, 32, 128).astype(np.int32)
+        return slots, words
+
     def flush_uploads(self) -> int:
         """Copy the staged tiles into the device slabs and block array: per
         mip, and for the block quads, one host-to-device copy and one
@@ -209,22 +237,32 @@ class AtlasAttachment:
         if not self._staged:
             return 0
         self.upload_slabs(self._staged)
-        indices = np.array([i for i, _ in self._staged], np.int64)
         if self.block_array is not None:
+            slots, words = self._staged_quads()
             per_slot = self.patch_plan.total_blocks_per_slot
-            block_idx = (indices[:, None] * per_slot + np.arange(per_slot)[None, :]).reshape(-1)
-            quads = blocks_from_tile_packed if self.block_packed else blocks_from_tile
-            block_vals = np.stack(
-                [quads(mips, self.patch_plan) for _, mips in self._staged]
-            ).reshape(-1, 32, 128).astype(np.int32)
+            block_idx = (slots[:, None] * per_slot + np.arange(per_slot)[None, :]).reshape(-1)
             self.block_array.index_copy_(
                 0,
                 torch.from_numpy(block_idx).to(self.device),
-                torch.from_numpy(block_vals).to(self.device),
+                torch.from_numpy(words).to(self.device),
             )
         n = len(self._staged)
         self._staged.clear()
         return n
+
+    def take_block_uploads(self) -> tuple[np.ndarray, np.ndarray]:
+        """The frame's staged uploads of the block quads, for a store that
+        lives elsewhere (the ranks of parallel/multi_view.py): (slots (k,)
+        int64, quads (k * total_blocks_per_slot, 32, 128) int32), see
+        :func:`apply_block_uploads`. Empties the staging; writes neither the
+        slabs nor this attachment's own block array."""
+        if self.block_array is None:
+            raise ValueError(f"attachment {self.name!r} has no block store to upload")
+        if not self._staged:
+            return np.zeros(0, np.int64), np.zeros((0, 32, 128), np.int32)
+        out = self._staged_quads()
+        self._staged.clear()
+        return out
 
     def write_direct(self, atlas_index: int, mip0: np.ndarray) -> None:
         """Host-side write of a full tile (preprocessing path) + stage upload."""

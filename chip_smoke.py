@@ -153,7 +153,16 @@
    in turns with that ``Terrain``, device kernel time and kernels a frame;
    the block store in 4 shards (the staged path with the sharded fetch: no
    kernel launch, each view within 2e-2 m of the replicated frame per
-   tile); two views (60 km, 20 km) over the synthetic planet (K2 once per
+   tile); one rank of an NCCL group (``multi_card_path(1)``, spawned by
+   ``parallel.launch``) over the same dataset at the production shape (a
+   1024-slot atlas, capacity 4096), replicated (K1 once a frame) and
+   sharded (the all-gather + reduce-scatter exchange, no kernel), its view
+   sha256-equal to the one-process ``MultiViewTerrain``, its walls, device
+   time and step audit printed (``multi_card:`` lines), then the group dry
+   run with the production-shape audit; the rank's launches over its whole
+   run are the kernels line's ``multi_card_launches`` (its ``launches``
+   stay the main path's own); two views (60 km, 20 km) over the
+   synthetic planet (K2 once per
    view, bit-equal); ``multi_view_frame_step`` with 4 distinct spherical
    cameras (no kernel); then ``entry.dryrun_multichip(4)`` and the tool
    twins multi_view_bench, fetch_kernel_sweep, census_frame, earth_census
@@ -185,7 +194,12 @@ them, bit for bit. ``python3 chip_smoke.py --kernel-phases`` runs phases
 1-5 only and prints their results without the result line; a copy of this
 script placed in an older tree runs that tree's kernels the same way.
 ``python3 chip_smoke.py --ablation`` runs phase 1 and the ablation path
-only (no result line).
+only (no result line). ``python3 chip_smoke.py --multi-card N`` runs phase 1
+and the multi-card path on N cards (one rank each; raises with fewer
+visible): the planar views replicated and sharded and the group dry run,
+then, with N >= 2, the planet's two views on two cards, every view held to
+the one-process class on card 0; a ``multi_card`` JSON line (the ranks'
+launches, each rank's over its whole run), then the result line.
 
 Exits non-zero (and prints no result line) when there is no CUDA card or
 any check fails. The last line of stdout is the JSON result.
@@ -2761,14 +2775,17 @@ def mv_per_key(got, want, what: str) -> dict:
     return worst
 
 
-def multi_view_path() -> None:
+def multi_view_path() -> dict:
     """parallel/ on the card: MultiViewTerrain over the planar main path's
     dataset (replicated: K1 once per view per frame, each view bit-equal to
     a Terrain with the same views over the same atlas, walls and device
     time; sharded: no mesh kernel, within the fused-vs-staged yardstick),
-    over the synthetic planet (K2 once per view, bit-equal), the spherical
-    multi_view_frame_step (no kernel), then ``dryrun_multichip(4)`` and the
-    slice's tool twins with their kernels counted."""
+    then one rank of an NCCL group over that dataset
+    (``multi_card_path(1)``), over the synthetic planet (K2 once per view,
+    bit-equal), the spherical multi_view_frame_step (no kernel), then
+    ``dryrun_multichip(4)`` and the slice's tool twins with their kernels
+    counted. Returns the NCCL rank's launches by kernel over its whole run
+    (``multi_card_path``)."""
     import importlib
 
     import numpy as np
@@ -2889,6 +2906,9 @@ def multi_view_path() -> None:
                   + f" (tol {TOL_MV_STAGED:.0e})")
         del mvt, smvt, outs, souts
 
+        # one rank in an NCCL group over the same dataset (multi_card_path)
+        rank_launches = multi_card_path(1, root=tmp)
+
     # 3. the planet: two views, the spherical mesh kernel once per view
     smodel = sphere_model("sphere")
     ppos = {}
@@ -2951,7 +2971,293 @@ def multi_view_path() -> None:
         if module.endswith("census_frame") and counts["fetch_resample_cached"] < 2:
             raise AssertionError(f"{what}: K6 did not run in the profiled frames")
     print(f"multi_view path: {time.perf_counter() - t_all:.1f} s in all; {card}")
+    return rank_launches
 
+
+
+# the multi-card path (parallel/launch.py: one process per card, NCCL): the
+# planar multi-view scene of multi_view_path at the production shape (the
+# 1024-slot atlas of 512^2 R16 tiles, 86 016 blocks, capacity 4096), one
+# view per rank, replicated (K1 on each card) and sharded (the all-gather +
+# reduce-scatter exchange, no kernel); with two ranks or more the planet's
+# two views on two cards (K2 on each)
+MC_PLANET_RANKS = 2
+MC_TIMED = 10
+
+
+def mc_planar_scene(root, views):
+    """(TerrainConfig, TerrainViewConfig, positions) of the planar scene."""
+    import numpy as np
+
+    from bevy_terrain_tpu_torch.config import AttachmentConfig, TerrainConfig, TerrainViewConfig
+
+    model, vc, _, _ = bench_scene()
+    att = AttachmentConfig(name="height", texture_size=TEXTURE_SIZE, border_size=BORDER,
+                           mip_level_count=4)
+    config = TerrainConfig(lod_count=LOD_COUNT, model=model, atlas_size=1024, path="smoke",
+                           attachments=(att,), assets_root=root)
+    return (config, TerrainViewConfig(tile_capacity=vc.tile_capacity),
+            {v: np.array(MV_VIEWS[v]) for v in views})
+
+
+def mc_planet_scene(root, views):
+    """(TerrainConfig, TerrainViewConfig, positions) of the planet's views."""
+    import numpy as np
+
+    from bevy_terrain_tpu_torch.config import AttachmentConfig, TerrainConfig, TerrainViewConfig
+
+    model = sphere_model("sphere")
+    att = AttachmentConfig(name="height", texture_size=TEXTURE_SIZE, border_size=BORDER,
+                           mip_level_count=4)
+    config = TerrainConfig(lod_count=SPH_LODS, model=model, atlas_size=SPH_ATLAS,
+                           path="smoke_sphere", attachments=(att,), assets_root=root)
+    positions = {}
+    for v in views:
+        d, alt = MV_PLANET[v]
+        positions[v] = model.surface_position(np.array(d) / np.linalg.norm(d) * RADIUS, alt)
+    return config, TerrainViewConfig(**MV_PLANET_VIEW), positions
+
+
+def mc_stream(mvt, positions):
+    """Update until no tile is queued or loading (``MultiViewTerrain.
+    streaming``: in a group, rank 0's answer), loads in step. Returns (the
+    last frame, frames, launches by kernel, host broadcast bytes in all)."""
+    from bevy_terrain_tpu_torch.parallel.launch import launch_counts
+    from bevy_terrain_tpu_torch.terrain_data.tile_atlas import AtlasAttachment
+    from bevy_terrain_tpu_torch.utils.loading import loads_in_step
+
+    before, sent = launch_counts(), 0
+    with loads_in_step(AtlasAttachment):
+        for frames in range(1, 301):
+            out = mvt.update(positions)
+            sent += sum(s["bytes"] for s in mvt.host_stats.values())
+            if not mvt.streaming():
+                break
+    after = launch_counts()
+    return out, frames, {k: after[k] - before[k] for k in after if after[k] != before[k]}, sent
+
+
+def mc_kernel_ms(mvt, positions, frames: int = 5):
+    """Device time a frame of ``mvt.update`` (ms): every record on the card
+    in one profiler trace of ``frames`` updates, and the NCCL kernels' part."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bevy_terrain_tpu_torch.utils.timing import _device_records
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            mvt.update(positions)
+        torch.cuda.synchronize()
+        for _ in range(16):  # the trace's last records can come back late
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    recs = [(d, name) for _, d, name in _device_records(prof) if "spin_kernel" not in name]
+    return (sum(d for d, _ in recs) / 1e3 / frames,
+            sum(d for d, name in recs if name.startswith("nccl")) / 1e3 / frames)
+
+
+def mc_measure(mvt, positions, streamed, spherical_model=None) -> dict:
+    """One rank's numbers for its view after ``mc_stream``: sha256 of the
+    frame, tiles, MC_TIMED update walls, device time a frame, the step's
+    audit with its NCCL kernels, the host broadcasts of a steady frame."""
+    import torch
+
+    out, frames, launches, sent = streamed
+    v = mvt.view_ids[mvt.rank]
+    frame = out[v]
+    n = frame.tile_count
+    if n <= 0 or int(frame.tiles.overflow):
+        raise AssertionError(f"multi_card: {v}: {n} tiles, overflow {int(frame.tiles.overflow)}")
+    if spherical_model is not None:
+        check_sphere_mesh(frame.mesh, n, spherical_model, f"multi_card: {v}")
+    elif not all(bool(torch.isfinite(getattr(frame.mesh, f)[:n]).all())
+                 for f in ("heights", "positions", "uvs")):
+        raise AssertionError(f"multi_card: {v}: non-finite mesh")
+    sha = frame_sha(frame.tiles, frame.mesh)
+    walls = []
+    for _ in range(MC_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mvt.update(positions)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    kernel_ms, nccl_ms = mc_kernel_ms(mvt, positions)
+    audit = mvt.audit_step()
+    return {"view": v, "device": str(mvt.device), "frames": frames, "launches": launches,
+            "stream_bytes": sent, "sha": sha, "tiles": n, "walls": walls,
+            "kernel_ms": kernel_ms, "nccl_ms": nccl_ms, "audit": audit,
+            "nccl": mvt.nccl_kernels, "host": mvt.host_stats,
+            "store": tuple(mvt.terrain.store.shape), "fused": mvt.cfg.pallas_sampling}
+
+
+def mc_planar_rank(rank, group, device, root, views) -> dict:
+    """A rank of the planar multi-card phase: both atlas modes, then the
+    group dry run (the production-shape audit included)."""
+    import torch
+
+    from bevy_terrain_tpu_torch.entry import dryrun_multichip
+    from bevy_terrain_tpu_torch.parallel import MultiViewTerrain
+
+    config, view_config, positions = mc_planar_scene(root, views)
+    out = {}
+    for mode in ("replicated", "sharded"):
+        mvt = MultiViewTerrain(config, views, view_config=view_config, queue_capacity=1024,
+                               shard_atlas=mode == "sharded", group=group)
+        out[mode] = mc_measure(mvt, positions, mc_stream(mvt, positions))
+        del mvt
+        torch.cuda.empty_cache()
+    out["dryrun"] = dryrun_multichip(len(views), device=device, group=group)
+    return out
+
+
+def mc_planet_rank(rank, group, device, root, views) -> dict:
+    """A rank of the planet's multi-card phase (replicated: K2 on each card)."""
+    from bevy_terrain_tpu_torch.parallel import MultiViewTerrain
+
+    config, view_config, positions = mc_planet_scene(root, views)
+    mvt = MultiViewTerrain(config, views, view_config=view_config, group=group)
+    return {"replicated": mc_measure(mvt, positions, mc_stream(mvt, positions),
+                                     config.model)}
+
+
+def mc_check(what: str, ranks: list, refs: dict, need: str | None, capacity: int,
+             card: str) -> None:
+    """Hold each rank's view to the one-process class on card 0 (sha256),
+    its launches (``need`` once a frame, nothing else), its audit (the
+    sharded exchange: one all-gather of the views' ids and one
+    reduce-scatter of a capacity of f32 quads; replicated: none) and, on
+    two cards or more, the NCCL kernels in the same counts; print the rank's
+    line."""
+    import statistics
+
+    from bevy_terrain_tpu_torch.parallel.collective_audit import format_stats, ici_bytes
+
+    n = len(ranks)
+    for rank, r in enumerate(ranks):
+        audit = r["audit"]
+        host = r["host"].get("collective-broadcast", {"count": 0, "bytes": 0})
+        walls = r["walls"]
+        print(f"multi_card: {what} rank {rank} ({r['device']}) {r['view']}: {r['tiles']} tiles, "
+              f"{r['frames']} frames streamed, launches {r['launches']}, sha256 "
+              f"{r['sha'][:16]} (one-process {refs[r['view']][:16]}); store {r['store']} int32; "
+              f"update "
+              f"{statistics.median(walls) * 1e3:.3f} ms median wall over {len(walls)} frames "
+              f"({min(walls) * 1e3:.3f}-{max(walls) * 1e3:.3f}); device time "
+              f"{r['kernel_ms']:.4f} ms a frame (NCCL kernels {r['nccl_ms']:.4f} ms); step "
+              f"audit: {format_stats(audit, n)} (link bytes a rank {ici_bytes(audit, n)}); "
+              f"NCCL kernels in the step {r['nccl']}; host broadcasts a steady frame "
+              f"{host['count']} x, {host['bytes']} bytes; {r['stream_bytes']} bytes over the "
+              f"stream; {card}")
+        want = refs[r["view"]]
+        if r["sha"] != want:
+            raise AssertionError(f"multi_card: {what} rank {rank} {r['view']}: sha256 {r['sha']} "
+                                 f"is not the one-process class's {want}")
+        expect = {need: r["frames"]} if need else {}
+        if r["launches"] != expect:
+            raise AssertionError(f"multi_card: {what} rank {rank}: launches {r['launches']}, "
+                                 f"want {expect}")
+        if r["fused"] != ("replicated" in what):
+            raise AssertionError(f"multi_card: {what} rank {rank}: fused mesh kernel {r['fused']}")
+        if "sharded" in what:
+            if audit != {"all-gather": {"count": 1, "bytes": n * capacity * 4},
+                         "reduce-scatter": {"count": 1, "bytes": capacity * QUAD_BYTES}}:
+                raise AssertionError(f"multi_card: {what} rank {rank}: audit {audit}")
+        elif audit:
+            raise AssertionError(f"multi_card: {what} rank {rank}: the replicated step "
+                                 f"exchanged {format_stats(audit)}")
+        if n > 1 and r["nccl"] != {op: v["count"] for op, v in audit.items()}:
+            raise AssertionError(f"multi_card: {what} rank {rank}: NCCL kernels {r['nccl']} "
+                                 f"against the audit {audit}")
+
+
+def mc_reference(config, view_config, positions, **kw) -> dict:
+    """{view: sha256} of the one-process MultiViewTerrain on card 0 over
+    the same views, streamed the same way."""
+    import torch
+
+    from bevy_terrain_tpu_torch.parallel import MultiViewTerrain
+
+    mvt = MultiViewTerrain(config, list(positions), view_config=view_config, **kw)
+    out = mc_stream(mvt, positions)[0]
+    shas = {v: frame_sha(out[v].tiles, out[v].mesh) for v in positions}
+    del mvt, out
+    torch.cuda.empty_cache()
+    return shas
+
+
+def multi_card_path(n_ranks: int, root: str | None = None) -> dict:
+    """parallel/ over one process per card: ``n_ranks`` ranks
+    (``parallel.launch``, NCCL) step the planar scene's first ``n_ranks``
+    views at the production shape, replicated and sharded, then the group
+    dry run; with two ranks or more, the planet's two views on two ranks.
+    Every view sha256-equal to the one-process class on card 0. ``root``
+    holds the planar dataset already (multi_view_path's), else it is
+    written. Returns the ranks' launches by kernel, each rank's counted
+    over its whole run (``launch`` sets them to 0 just before the rank's
+    function and reads them just after), summed over the ranks."""
+    import torch
+
+    from bevy_terrain_tpu_torch.parallel import launch
+    from bevy_terrain_tpu_torch.utils.synthetic import (
+        generate_planar_dataset, generate_spherical_dataset,
+    )
+
+    if torch.cuda.device_count() < n_ranks:
+        raise RuntimeError(f"--multi-card {n_ranks}: {torch.cuda.device_count()} cards visible")
+    t_all = time.perf_counter()
+    card = card_line()
+    totals: dict = {}
+
+    def add(launched):
+        for r in launched:
+            for k, v in r["launches"].items():
+                if v:
+                    totals[k] = totals.get(k, 0) + v
+
+    with contextlib.ExitStack() as stack:
+        if root is None:
+            root = stack.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_mc_"))
+            generate_planar_dataset("smoke", LOD_COUNT, mc_planar_scene(root, [])[0]
+                                    .attachments[0], root=root)
+        views = list(MV_VIEWS)[:n_ranks]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launched = launch(mc_planar_rank, n_ranks, root, views)
+        ranks = [r["result"] for r in launched]
+        print(f"multi_card: planar, {n_ranks} rank(s) on {n_ranks} card(s): the launch took "
+              f"{time.perf_counter() - t0:.1f} s")
+        config, view_config, positions = mc_planar_scene(root, views)
+        for mode in ("replicated", "sharded"):
+            refs = mc_reference(config, view_config, positions, queue_capacity=1024,
+                                shard_atlas=mode == "sharded")
+            mc_check(f"planar {mode}", [r[mode] for r in ranks], refs,
+                     "mesh_fused_planar" if mode == "replicated" else None,
+                     view_config.tile_capacity, card)
+        add(launched)
+        dry = ranks[0]["dryrun"]["audits"]
+        print(f"multi_card: dryrun_multichip({n_ranks}) on the group: production shape "
+              f"({dry['production_blocks']} blocks, capacity 4096): {dry['production']}; "
+              f"tiny sharded {dry['sharded']}; replicated {dry['replicated']}; {card}")
+
+    if n_ranks >= MC_PLANET_RANKS:
+        views = list(MV_PLANET)[:MC_PLANET_RANKS]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mc_sphere_") as proot:
+            config, view_config, positions = mc_planet_scene(proot, views)
+            generate_spherical_dataset("smoke_sphere", SPH_DATA_LODS, config.attachments[0],
+                                       root=proot)
+            t0 = time.perf_counter()
+            launched = launch(mc_planet_rank, MC_PLANET_RANKS, proot, views)
+            ranks = [r["result"] for r in launched]
+            print(f"multi_card: planet, {MC_PLANET_RANKS} ranks: the launch took "
+                  f"{time.perf_counter() - t0:.1f} s")
+            refs = mc_reference(config, view_config, positions)
+            mc_check("planet replicated", [r["replicated"] for r in ranks], refs,
+                     "mesh_fused_spherical", view_config.tile_capacity, card)
+            add(launched)
+    print(f"multi_card path: {n_ranks} rank(s), {time.perf_counter() - t_all:.1f} s in all, "
+          f"the ranks' launches over their whole runs {totals}; {card}")
+    return totals
 
 # the rasterizer (render/raster.py: torch ops, no csrc kernel) on the
 # material frame at 1920x1080 with tools/raster_bench.py:95's knobs, and on
@@ -3966,6 +4272,9 @@ def main(argv) -> int:
 
     if argv[:1] == ["--native-child"]:
         return native_child(Path(argv[1]))
+    n_cards = int(argv[argv.index("--multi-card") + 1]) if "--multi-card" in argv else 0
+    if torch.cuda.device_count() < n_cards:
+        raise RuntimeError(f"--multi-card {n_cards}: {torch.cuda.device_count()} cards visible")
     name = torch.cuda.get_device_name(0)
     card = card_line()
     print(f"device: {name} ({torch.cuda.device_count()} visible); nvidia-smi: {card}; "
@@ -3986,6 +4295,13 @@ def main(argv) -> int:
         native_build_line(card)
 
     results: dict = {}
+    if n_cards:
+        launches = multi_card_path(n_cards)
+        print(json.dumps({"multi_card": {"ranks": n_cards, "launches": launches}}))
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        return 0
     if "--ablation" in argv:
         reset_ablated_counts()
         rows = ablation_path(card)
@@ -4008,7 +4324,9 @@ def main(argv) -> int:
     vertex_main_path_phase()
     preprocess_path_phase()
     entry_points_path()
-    multi_view_path()
+    # the NCCL rank's launches over its run: a field of their own (the
+    # rank is another process and another run than the main path's)
+    rank_counts = multi_view_path()
     reset_counts()
     reset_ablated_counts()
     ablated = ablation_path(card)
@@ -4021,7 +4339,7 @@ def main(argv) -> int:
     replaces = {k: rep for k, _, _, rep in KERNELS}
     print(json.dumps({"kernels": [
         {"name": k, "route": route, "source": src, "replaces": rep,
-         "launches": counts[k], **results[k]}
+         "launches": counts[k], **results[k], "multi_card_launches": rank_counts.get(k, 0)}
         for k, route, src, rep in KERNELS
     ] + [
         {"name": k, "route": "cuda", "source": "bevy_terrain_tpu_torch/csrc/mesh_fused.cu",

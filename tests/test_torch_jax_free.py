@@ -25,6 +25,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "bevy_terrain_tpu_torch"
 TWINS = [ROOT / "examples_torch", ROOT / "tools_torch"]
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the module that the spawned ranks of tests/test_torch_multi_card.py import
+RANK_HELPERS = [ROOT / "tests" / "torch_multi_card_cases.py"]
 TWIN_SOURCES = sorted(f for d in TWINS for f in d.glob("*.py"))
 
 
@@ -79,9 +81,10 @@ def test_every_port_module_imports_without_jax():
     assert n_twins == len(TWIN_SOURCES) - len(TWINS) and n_twins >= 6 + 1 + 6 + 5 + 6
 
 
-@pytest.mark.parametrize("what", ["port", "chip_smoke", "twins"])
+@pytest.mark.parametrize("what", ["port", "chip_smoke", "twins", "rank_helpers"])
 def test_no_source_imports_jax_or_the_jax_package(what):
-    files = {"port": SOURCES[:-1], "chip_smoke": SOURCES[-1:], "twins": TWIN_SOURCES}[what]
+    files = {"port": SOURCES[:-1], "chip_smoke": SOURCES[-1:], "twins": TWIN_SOURCES,
+             "rank_helpers": RANK_HELPERS}[what]
     assert files and all(f.exists() for f in files)
     names = {f.relative_to(ROOT).as_posix() for f in files}
     expected = {
@@ -89,9 +92,10 @@ def test_no_source_imports_jax_or_the_jax_package(what):
             "formats/tiff.py", "utils/transfer.py", "ops/preprocess.py",
             "ops/preprocess_device.py", "preprocess/preprocessor.py", "preprocess/__init__.py",
             "models/__init__.py", "utils/timing.py", "entry.py", "parallel/__init__.py",
-            "parallel/multi_view.py", "parallel/sharded_atlas.py", "native/__init__.py",
-            "ops/tile_tree.py")],
+            "parallel/multi_view.py", "parallel/sharded_atlas.py", "parallel/launch.py",
+            "parallel/collective_audit.py", "native/__init__.py", "ops/tile_tree.py")],
         "chip_smoke": ["chip_smoke.py"],
+        "rank_helpers": ["tests/torch_multi_card_cases.py"],
         "twins": [f"examples_torch/{m}.py" for m in (
             "preprocess_planar", "minimal", "planar", "spherical", "preprocess_spherical",
             "render_capture")] + [f"tools_torch/{m}.py" for m in (

@@ -331,14 +331,19 @@ def test_multi_view_frame_step_matches_jax():
 
 
 def test_two_distinct_devices_raise(scene):
+    """Distinct cards need one process each (parallel/launch.py): without a
+    group they raise ValueError, pointing to the launcher; one device slot
+    per view; ``interpret=True`` (the plain versions) on a CUDA device."""
     _, config = scene
     devices = [torch.device("cuda", 0), torch.device("cuda", 1)]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="launch"):
         MultiViewTerrain(config, ["a", "b"], devices=devices)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="launch"):
         multi_view_frame_step(devices, None, None, None)
     with pytest.raises(ValueError):  # one device slot per view
         MultiViewTerrain(config, ["a", "b"], devices=["cpu"])
+    with pytest.raises(ValueError, match="interpret"):
+        MultiViewTerrain(config, ["a", "b"], devices=[devices[0]] * 2, interpret=True)
 
 
 def test_runs_on_the_card_by_default(scene):

@@ -139,13 +139,18 @@ def test_raster_bench_prints_its_rows(capsys, small_scene):
     assert 0.0 < got["coverage"] <= 1.0 and got["timing"] == "CPU wall"
 
 
-def test_multi_view_bench_prints_its_rows(capsys, small_scene):
+def test_multi_view_bench_prints_its_rows(capsys, small_scene, monkeypatch):
+    # the structure check's ranks and report run in tests/test_torch_multi_card.py's
+    # spawn (test_multi_view_bench_structure_check_on_the_group); here, its wiring
+    found = {"replicated-atlas": {}}
+    monkeypatch.setattr(multi_view_bench, "structure_check", lambda: found)
     got = multi_view_bench.main(["--cpu"])
     out = capsys.readouterr().out
     print(out)
     for row in ("single view:", "two views, one card, shared atlas:", "per-view ratio",
                 "MultiViewTerrain (staged grid path): ok"):
         assert row in out, row
+    assert got["structure"] is found
     assert got["timing"] == "CPU wall" and got["single_us"] > 0 and got["double_us"] > 0
     # capacity 512: the bench camera and the second one both fill it
     assert got["single_tiles"] == 512 and got["double_tiles"] == [512, 512]

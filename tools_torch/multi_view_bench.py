@@ -10,10 +10,13 @@ Twin of tools/multi_view_bench.py on the port. Three measurements:
 3. ``MultiViewTerrain`` on the card, streamed over a synthetic dataset: it
    must select the fused mesh kernel (``cfg.pallas_sampling``).
 
-The JAX tool's ``--cpu`` scans the compiled multi-view step's HLO text for
-collectives; the port compiles no HLO and steps its views on one device,
-so that scan has no counterpart. Here ``--cpu`` runs the three on the CPU
-(the kernel's plain version), its rows host wall, named so.
+With ``--cpu`` the three run on the CPU (the kernel's plain version), their
+rows host wall, named so; then the JAX tool's ``--cpu`` structure check:
+the multi-view step of a 4-rank gloo group (parallel/launch.py, one view
+per rank, the JAX check's scene and first 4 of its views), one frame per
+atlas mode, its collectives read from a profiler trace
+(``MultiViewTerrain.audit_step``) where the JAX tool scans the compiled
+HLO: the sharded-atlas step must show its fetch, the replicated one none.
 """
 
 from __future__ import annotations
@@ -27,6 +30,78 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+STRUCTURE_RANKS = 4
+
+
+def structure_config(root: str):
+    """The JAX tool's ``--cpu`` scene: a 3-lod 512^2 planar dataset under
+    ``root``, 8000 m, a 128-slot atlas."""
+    from bevy_terrain_tpu_torch.config import AttachmentConfig, TerrainConfig
+    from bevy_terrain_tpu_torch.math import TerrainModel
+
+    att = AttachmentConfig(name="height", texture_size=512, border_size=2, mip_level_count=4)
+    return TerrainConfig(
+        lod_count=3, model=TerrainModel.planar(np.zeros(3), 8000.0, 0.0, 250.0),
+        atlas_size=128, path="terrains/mvs", attachments=(att,), assets_root=root)
+
+
+def structure_rank(rank, group, device, root: str) -> dict:
+    """One rank of the structure check: per atlas mode, one frame of the
+    group ``MultiViewTerrain``, then the audit of its step."""
+    from bevy_terrain_tpu_torch.config import TerrainViewConfig
+    from bevy_terrain_tpu_torch.parallel import MultiViewTerrain
+
+    rng = np.random.default_rng(3)
+    positions = {f"v{i}": np.array([rng.uniform(-300, 300), rng.uniform(80, 400),
+                                    rng.uniform(-300, 300)]) for i in range(8)}
+    positions = dict(list(positions.items())[:STRUCTURE_RANKS])
+    found = {}
+    for shard_atlas in (False, True):
+        mvt = MultiViewTerrain(
+            structure_config(root), list(positions), devices=[device] * STRUCTURE_RANKS,
+            view_config=TerrainViewConfig(tile_capacity=512, morph_distance=2.0,
+                                          blend_distance=1.0),
+            queue_capacity=1024, shard_atlas=shard_atlas, group=group)
+        mvt.update(positions)
+        found["sharded-atlas" if shard_atlas else "replicated-atlas"] = mvt.audit_step()
+    return found
+
+
+def structure_check() -> dict:
+    """The JAX tool's ``--cpu`` check on a 4-rank gloo group: {atlas mode:
+    the step's collectives} of rank 0, every rank's the same."""
+    from bevy_terrain_tpu_torch.parallel import launch
+    from bevy_terrain_tpu_torch.utils.synthetic import generate_planar_dataset
+
+    with tempfile.TemporaryDirectory(prefix="mv_struct_") as root:
+        generate_planar_dataset("terrains/mvs", 3, structure_config(root).attachments[0],
+                                root=root)
+        ranks = [r["result"] for r in launch(structure_rank, STRUCTURE_RANKS, root,
+                                             device="cpu")]
+    return report_structure(ranks)
+
+
+def report_structure(ranks: list) -> dict:
+    """Hold the ranks' ``structure_rank`` results to the JAX tool's check
+    and print its lines; returns rank 0's."""
+    from bevy_terrain_tpu_torch.parallel.collective_audit import format_stats
+
+    if any(r != ranks[0] for r in ranks):
+        raise AssertionError(f"the ranks audit different steps: {ranks}")
+    found = ranks[0]
+    if not found["sharded-atlas"]:
+        raise AssertionError("sharded-atlas step lost its collective fetch")
+    print(f"sharded-atlas: collectives {sorted(found['sharded-atlas'])} (expected: the "
+          f"all-gather + reduce-scatter fetch): "
+          f"{format_stats(found['sharded-atlas'], STRUCTURE_RANKS)}")
+    if found["replicated-atlas"]:
+        raise AssertionError("replicated-atlas step has collectives: "
+                             f"{format_stats(found['replicated-atlas'])}")
+    print("replicated-atlas: NO cross-device collectives -> per-device cost is "
+          "mesh-size-independent (each rank runs the single-view program)")
+    return found
 
 
 def main(argv=None) -> dict:
@@ -88,9 +163,13 @@ def main(argv=None) -> dict:
         mv_tiles = mvt.update(positions)["cam"].tile_count
     path = "fused mesh kernel" if on_card else "staged grid path"
     print(f"MultiViewTerrain ({path}): ok, {mv_tiles} tiles")
-    return {"timing": what, "single_us": t1 * 1e3, "single_tiles": c1, "double_us": t2 * 1e3,
-            "double_tiles": [int(ca), int(cb)], "per_view_ratio": ratio,
-            "multi_view_tiles": mv_tiles, "multi_view_fused": on_card}
+    result = {"timing": what, "single_us": t1 * 1e3, "single_tiles": c1,
+              "double_us": t2 * 1e3, "double_tiles": [int(ca), int(cb)],
+              "per_view_ratio": ratio, "multi_view_tiles": mv_tiles,
+              "multi_view_fused": on_card}
+    if args.cpu:
+        result["structure"] = structure_check()
+    return result
 
 
 if __name__ == "__main__":
