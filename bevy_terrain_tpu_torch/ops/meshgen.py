@@ -126,8 +126,9 @@ def generate_mesh_grid(tiles: RefinementOutput, block_array: torch.Tensor,
     Taylor high-precision path): the JAX package's generate_mesh_grid.
 
     The half-grid heights come from :func:`kernels.fetch_resample_cached`
-    at grid size 16 (one launch per frame), else from the staged functions
-    (patch_sampling.fetch_patches, halfgrid_resample). ``fetch_fn(block_array,
+    with ``cfg.pallas_sampling`` at grid size 16 (one launch per frame), else
+    from the staged functions (patch_sampling.fetch_patches,
+    halfgrid_resample), the JAX package's XLA branch. ``fetch_fn(block_array,
     ids) -> (F, 64, 64) f32`` replaces ``fetch_patches`` and takes the staged
     functions at every grid size: the hook of the sharded-atlas fetch
     (parallel/sharded_atlas.py), where ``block_array`` is the shards and the
@@ -153,7 +154,7 @@ def generate_mesh_grid(tiles: RefinementOutput, block_array: torch.Tensor,
     t_xy = tiles.tile_xy[:F]
 
     per_vertex = cfg.blend and cfg.blend_per_vertex
-    if G == 16 and fetch_fn is None:
+    if cfg.pallas_sampling and G == 16 and fetch_fn is None:
         count = tiles.tile_count.reshape(1).to(torch.int32)
         h_mix = kernels.fetch_resample_cached(block_array, batch.ids, batch.geom, count)[:F]
         h_mix = h_mix / max_value

@@ -536,19 +536,20 @@ def sample_attachment_vertices(
 
     The tiles keep the frame's order. When the attachment's plan is the
     height attachment's (``plan_matches_frame``, the common case) its quad
-    ids are sorted in the same order, and at grid size 16 the fused sampler
-    kernels run: one :func:`kernels.attach_sample_fused` launch per channel
-    array, or one :func:`kernels.attach_sample_fused_packed` launch for
+    ids are sorted in the same order, and with ``cfg.pallas_sampling`` at
+    grid size 16 the fused sampler kernels run: one
+    :func:`kernels.attach_sample_fused` launch per channel array, or one
+    :func:`kernels.attach_sample_fused_packed` launch for
     ``packed_channels`` channels of ``packed_bits`` bits in one array.
-    Another plan (e.g. a border-1 albedo beside a border-2 height) or
-    another grid size takes the staged sampler per channel:
+    Another plan (e.g. a border-1 albedo beside a border-2 height), another
+    grid size or the switch off takes the staged sampler per channel:
     :func:`fetch_patches`, :func:`halfgrid_resample`,
     :func:`vertex_values_from_halfgrid`.
     """
     F = cfg.tile_capacity
     _, batch = plan_patch_batch(tiles, uniforms, cfg, plan, block_arrays[0].shape[0],
                                 assume_sorted=True)
-    if not (plan_matches_frame and cfg.grid_size == 16):
+    if not (cfg.pallas_sampling and plan_matches_frame and cfg.grid_size == 16):
         ids = batch.ids[:F, None]
         p0, dp, valid = batch.geom[:F, 0:2], batch.geom[:F, 2], batch.geom[:F, 3]
 

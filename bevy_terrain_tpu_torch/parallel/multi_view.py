@@ -168,8 +168,9 @@ def _stack(frames: list) -> dict:
 class _ViewsTerrain(Terrain):
     """The Terrain that steps a MultiViewTerrain's views: their blobs go to
     the device in one (V, L) copy a frame, and a view's mesh is the fused
-    kernel only where ``pallas_sampling`` selects it, else
-    ``meshgen.generate_mesh_grid`` over the block store or its shards.
+    kernel only where :meth:`Terrain.use_fused` (which reads
+    ``pallas_sampling``) holds, else ``meshgen.generate_mesh_grid`` over the
+    block store or its shards.
 
     In a process group its atlas is a shape-only shell on the meta device:
     rank 0 drives its residency and IO (the host flow), and the frame's
@@ -228,7 +229,7 @@ class _ViewsTerrain(Terrain):
 
     def _device_stage(self, blob_dev: torch.Tensor, cfg: StaticTerrainConfig,
                       frozen=None) -> TerrainFrameOutput:
-        if cfg.pallas_sampling and self.use_fused(cfg):
+        if self.use_fused(cfg):
             return super()._device_stage(blob_dev, cfg, frozen)
         height = self.atlas.attachments[0]
         u = unpack_frame_uniforms(blob_dev, cfg.side_count, cfg.lod_count, cfg.tree_size)
@@ -271,9 +272,10 @@ class MultiViewTerrain:
     :meth:`gather_frames` brings every view's to rank 0.
 
     ``pallas_sampling`` (a static override; default on the card, without
-    ``shard_atlas``, at grid size 16) selects the fused mesh kernel where
-    ``Terrain.use_fused`` holds; otherwise the step is
-    ``meshgen.generate_mesh_grid``. ``interpret=True`` (the JAX class runs
+    ``shard_atlas``, at grid size 16) picks the path by the rule of every
+    ``Terrain``, :meth:`Terrain.use_fused`: the fused mesh kernel where it
+    holds, otherwise ``meshgen.generate_mesh_grid`` (with K6 only for the
+    switch on and the store read whole). ``interpret=True`` (the JAX class runs
     its kernel under the Pallas interpreter) asks for the plain versions,
     which run on the CPU: on a CUDA device it raises.
     """

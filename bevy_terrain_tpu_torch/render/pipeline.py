@@ -6,16 +6,23 @@ Torch twin of the JAX package's ``render/pipeline.py``:
    best-tile entries, approximate height, Taylor approximation, and ONE
    packed int32 uniform blob;
 2. the device stage, eager torch on the atlas's device: unpack the blob,
-   refine the tile list, then the mesh by one of three paths:
+   refine the tile list, then the mesh by one of three paths. The view's
+   ``pallas_sampling`` switch (the JAX package's name) picks the hand
+   kernels. By default it is on where the terrain runs on the card and the
+   grid size is 16, and off on the CPU, as the JAX package's is off away
+   from the TPU; ``add_view(..., pallas_sampling=False)`` runs the frame on
+   the card in torch ops alone:
 
-   * fused (grid size 16; planar without the Taylor high-precision path,
-     or spherical with it): plan the patch fetches and run the fused mesh
-     kernel (``ops/kernels.mesh_fused_planar`` for planar terrains,
-     ``ops/kernels.mesh_fused_spherical`` for spheres and ellipsoids);
-   * staged (any other view configuration: a sphere without the Taylor
-     path, a planar terrain with it, another grid size):
-     ``ops/meshgen.generate_mesh_grid``, whose half-grid comes from
-     ``ops/kernels.fetch_resample_cached`` at grid size 16;
+   * fused (``pallas_sampling``, grid size 16; planar without the Taylor
+     high-precision path, or spherical with it): plan the patch fetches and
+     run the fused mesh kernel (``ops/kernels.mesh_fused_planar`` for
+     planar terrains, ``ops/kernels.mesh_fused_spherical`` for spheres and
+     ellipsoids);
+   * staged (any other view configuration: the switch off, a sphere
+     without the Taylor path, a planar terrain with it, another grid
+     size): ``ops/meshgen.generate_mesh_grid``, whose half-grid comes from
+     ``ops/kernels.fetch_resample_cached`` with the switch on at grid size
+     16, else from torch ops;
    * per vertex (a height attachment too small for the patch plan):
      ``ops/meshgen.generate_mesh``, bilinear gathers from the height slab,
      no hand-written kernel;
@@ -30,10 +37,10 @@ Torch twin of the JAX package's ``render/pipeline.py``:
    central difference; ``shade`` takes the spherical kernel's unit
    normals), is staged: the
    named attachments sampled at the mesh's morphed uvs (an attachment with
-   the height attachment's patch plan, at grid size 16, through
-   ``ops/kernels.attach_sample_fused[_packed]``; one with another plan, or
-   at another grid size, through the staged sampler of
-   ``ops/patch_sampling``), then ``render/material.shade``.
+   the height attachment's patch plan, at grid size 16 with the switch on,
+   through ``ops/kernels.attach_sample_fused[_packed]``; one with another
+   plan, at another grid size or with the switch off, through the staged
+   sampler of ``ops/patch_sampling``), then ``render/material.shade``.
 
 The device stage reads no device value on the host except the refinement
 spill loop's queue count, so PyTorch's asynchronous launches let the next
@@ -220,6 +227,8 @@ class Terrain:
             origin_lod=view_config.origin_lod,
             attachment_count=len(self.config.attachments),
             **{
+                "pallas_sampling": self.device.type == "cuda"
+                and view_config.grid_size == 16,
                 "high_precision": model.is_spherical,
                 "ellipsoidal": model.kind == "ellipsoidal",
                 **static_overrides,
@@ -473,9 +482,11 @@ class Terrain:
     @staticmethod
     def use_fused(cfg: StaticTerrainConfig) -> bool:
         """The single-kernel fused mesh path covers planar and
-        spherical-with-Taylor frames at grid size 16 (its blend is always
-        per vertex); every other view configuration takes the staged path."""
-        return cfg.grid_size == 16 and cfg.spherical == cfg.high_precision
+        spherical-with-Taylor frames at grid size 16 with ``pallas_sampling``
+        on (its blend is always per vertex); every other view configuration
+        takes the staged path. The JAX package's ``Terrain._use_fused``."""
+        return (cfg.pallas_sampling and cfg.grid_size == 16
+                and cfg.spherical == cfg.high_precision)
 
     @staticmethod
     def frame_step(block_array: torch.Tensor, uniform_blob: torch.Tensor,

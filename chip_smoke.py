@@ -85,7 +85,16 @@
    go through its kernels (launch counts, set to 0 just before each path
    and read just after), the output must be finite, in range and match the
    plain version; a torch.profiler pass breaks each device stage's time
-   down by kernel.
+   down by kernel. The planar dataset, height-only and with its lit
+   albedo, is also streamed on the kernel-free path (``add_view(...,
+   pallas_sampling=False)`` on the card, the per-vertex blend of the fused
+   kernel: the JAX package's XLA path, in torch ops): no kernel may launch,
+   the frame is held per tile to the default one within the fused-vs-staged
+   yardsticks (the lit colours within 2/255), and ``Terrain._device_stage``
+   is timed in turns with the default's (CUDA-event spans and profiler
+   kernel time; ``pallas_sampling:`` lines with the card's name and power
+   limit); its launches, all 0, are the kernels line's
+   ``pallas_sampling_off_launches`` (its ``launches`` stay the main paths').
 8. Query path, on the streamed planar terrain and on the planet with its
    albedo: ``Terrain.query_heights`` / ``query_attachment`` on 65 536
    seeded world points, the card against the same ops on the CPU and
@@ -221,7 +230,7 @@ import time
 from pathlib import Path
 
 from bevy_terrain_tpu_torch.utils.timing import (
-    cold_ms, cuda_ms, device_breakdown, device_events, device_ms,
+    cold_ms, cuda_ms, device_breakdown, device_events, device_ms, device_time_ms,
 )
 from tools_torch.fetch_kernel_sweep import sweep_inputs  # K7's inputs, as its tool builds them
 from tools_torch.scenes import (  # the bench.py frame, as the frame tools build it
@@ -1234,7 +1243,87 @@ def stage_timing(terrain, what: str, n: int, hmin: float, hmax: float, walls) ->
     profile_stage(device_stage, what)
 
 
-def main_path_phase() -> int:
+def rows_by_key(out):
+    """(rows of the live tiles ordered by (side, lod, x, y), the sorted
+    keys): two frames' tile lists compared as sets, row by row."""
+    import torch
+
+    t, live = out.tiles, out.tile_count
+    key = ((t.tile_side[:live].long() << 50) | (t.tile_lod[:live].long() << 40)
+           | (t.tile_xy[:live, 0].long() << 20) | t.tile_xy[:live, 1].long())
+    return torch.argsort(key), key.sort().values
+
+
+def kernel_free_path(config, default, default_out, view, view_proj, what: str,
+                     off_counts: dict, shading=None) -> None:
+    """The kernel-free path on the card: the dataset and camera of
+    ``default`` (a terrain streamed on its default path, the hand kernels)
+    through ``add_view(..., pallas_sampling=False)`` on ``"cuda"``, the JAX
+    package's XLA path in torch ops, with the fused kernel's blend (per
+    vertex) so that both frames compute one function. No kernel may launch
+    in any frame; the frame is held to the default one per tile within the
+    fused-vs-staged yardsticks (and the lit colours within the fast
+    albedo's); the device stage (``Terrain._device_stage``: mesh and
+    material) is timed in turns with the default's, as CUDA-event spans and
+    as profiler kernel time. Adds the path's launches to ``off_counts``."""
+    import torch
+
+    from bevy_terrain_tpu_torch import Terrain
+
+    kwhat = f"{what}, pallas_sampling=False"
+    dcfg = default._static_cfgs["cam"]
+    terrain = Terrain(config, device="cuda")
+    terrain.add_view("cam", default.view_configs["cam"], queue_capacity=dcfg.queue_capacity,
+                     culling=dcfg.culling, blend_per_vertex=True, pallas_sampling=False)
+    if shading:
+        terrain.set_shading(**shading)
+    out, frames, walls = stream(terrain, view, view_proj, None, kwhat, timed=10)
+    launched = read_counts()
+    for k, v in launched.items():
+        off_counts[k] = off_counts.get(k, 0) + v
+    cfg = terrain._static_cfgs["cam"]
+    if cfg.pallas_sampling or terrain.use_fused(cfg) or out.raw_mesh is not None:
+        raise AssertionError(f"{kwhat}: the frame took the fused path")
+    n = out.tile_count
+    (rows, keys), (drows, dkeys) = rows_by_key(out), rows_by_key(default_out)
+    if n <= 0 or out.overflow != 0 or not torch.equal(keys, dkeys):
+        raise AssertionError(f"{kwhat}: {n} tiles, overflow {out.overflow}, or another tile "
+                             f"set than the default frame's {default_out.tile_count}")
+    gaps = {f: float((getattr(out.mesh, f)[:n][rows]
+                      - getattr(default_out.mesh, f)[:n][drows]).abs().max())
+            for f in ("heights", "positions", "uvs")}
+    hold(max(gaps["heights"], gaps["positions"]), TOL_STAGED_POS, f"{kwhat}: the mesh")
+    hold(gaps["uvs"], TOL_STAGED_UV, f"{kwhat}: the uvs")
+    if shading:
+        colors = out.colors[:n][rows]
+        if not bool(torch.isfinite(out.colors).all()):
+            raise AssertionError(f"{kwhat}: non-finite colours")
+        gaps["colours"] = float((colors - default_out.colors[:n][drows]).abs().max())
+        hold(gaps["colours"], TOL_ALB_FAST, f"{kwhat}: the lit colours")
+
+    def stage(t):
+        blob, c = t._last_blobs["cam"], t._static_cfgs["cam"]
+        return lambda: t._device_stage(blob, c)
+
+    on, off = stage(default), stage(terrain)
+    turns = [cuda_ms(f, n=10) for f in (on, off, off, on)]
+    kernel_ms = {"default": device_time_ms(on, label=what),
+                 "off": device_time_ms(off, label=kwhat)}
+    print(f"pallas_sampling: {what}: off: {n} tiles, {sum(launched.values())} kernel "
+          f"launches in {frames} frames; device stage span in turns, default / off / off / "
+          f"default: " + " / ".join(f"{t:.4f}" for t in turns) + " ms (CUDA events); "
+          f"device kernel time default {kernel_ms['default']:.4f} ms, off "
+          f"{kernel_ms['off']:.4f} ms (profiler); update wall median off "
+          f"{statistics.median(walls) * 1e3:.3f} ms; max |off - default| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in gaps.items()) + f"; {card_line()}")
+    profile_stage(off, kwhat)
+
+
+def main_path_phase(off_counts: dict) -> int:
+    """The bench scene over a synthetic 8k^2 planar dataset through
+    ``Terrain(config, device="cuda")``: K1 every frame; then the kernel-free
+    path on the same dataset (:func:`kernel_free_path`, its launches added
+    to ``off_counts``). Returns K1's launches on the main path."""
     import torch
 
     from bevy_terrain_tpu_torch import Terrain
@@ -1272,6 +1361,7 @@ def main_path_phase() -> int:
         compare(out.raw_mesh, kernels.mesh_fused_planar_reference(*out.mesh_inputs),
                 "main path last frame")
         stage_timing(terrain, "main path", n, hmin, hmax, walls)
+        kernel_free_path(config, terrain, out, view, view_proj, "main path", off_counts)
         query_path(terrain, "planar")
         adaptive_capacity_path(terrain, view)
         return launches
@@ -1725,15 +1815,17 @@ def sphere_material_main_path_phase() -> dict:
         return {name: k3s_counts[name]}
 
 
-def material_main_path_phase() -> dict:
+def material_main_path_phase(off_counts: dict) -> dict:
     """The 8k^2 synthetic dataset with an Rgba8 albedo of the height's plan
     (512^2, border 2, 4 mips) beside the height, through ``Terrain(config)``
-    (the card by default): lit in the mesh kernel, opaque, the staged unlit
-    albedo, and one attachment grid; then the frame's mesh with the albedo
-    sampled in the kernel through ``meshgen.generate_mesh_fused``, as the
-    reference package's tools/material_frame_bench.py measures it. Each
-    sub-path is driven with the launch counts set to 0 just before it and
-    read just after. Returns the launches of each kernel in its sub-path."""
+    (the card by default): lit in the mesh kernel, the same lit frame on the
+    kernel-free path (:func:`kernel_free_path`, its launches added to
+    ``off_counts``), opaque, the staged unlit albedo, and one attachment
+    grid; then the frame's mesh with the albedo sampled in the kernel
+    through ``meshgen.generate_mesh_fused``, as the reference package's
+    tools/material_frame_bench.py measures it. Each sub-path is driven with
+    the launch counts set to 0 just before it and read just after. Returns
+    the launches of each kernel in its sub-path."""
     import torch
 
     from bevy_terrain_tpu_torch import Terrain
@@ -1785,6 +1877,9 @@ def material_main_path_phase() -> dict:
                 f"{what} last frame mesh")
         h = out.mesh.heights[:n]
         stage_timing(terrain, what, n, float(h.min()), float(h.max()), walls)
+        kernel_free_path(config, terrain, out, view, view_proj, what, off_counts,
+                         shading=dict(material=smoke_material(material),
+                                      sample_attachments=(1,)))
         material_raster_path(terrain, view, view_proj, card_line())
 
         def frames(label, kernel_name, check, count=5, **shading):
@@ -1879,14 +1974,7 @@ def material_main_path_phase() -> dict:
         mask1 = out1.mesh.tile_mask
         own = float((c1[mask1] - grid1[mask1]).abs().max())
 
-        def by_key(o):
-            """(rows of the live tiles ordered by (lod, x, y), the sorted keys)."""
-            t, live = o.tiles, o.tile_count
-            key = ((t.tile_lod[:live].long() << 40) | (t.tile_xy[:live, 0].long() << 20)
-                   | t.tile_xy[:live, 1].long())
-            return torch.argsort(key), key.sort().values
-
-        (rows1, keys1), (rows2, keys2) = by_key(out1), by_key(out)
+        (rows1, keys1), (rows2, keys2) = rows_by_key(out1), rows_by_key(out)
         if not torch.equal(keys1, keys2):
             raise AssertionError(f"{fwhat}: the tile set differs from the material path's")
         # both albedos hold the same analytic colour field on texel grids
@@ -4316,10 +4404,13 @@ def main(argv) -> int:
         print(json.dumps({"kernel_phases": results}))
         return 0
     native_path()
-    counts = {"mesh_fused_planar": main_path_phase(),
+    # the kernel-free frames' launches (pallas_sampling=False): a field of
+    # their own, beside the main paths' counts
+    off_counts: dict = {}
+    counts = {"mesh_fused_planar": main_path_phase(off_counts),
               **sphere_main_path_phase(),
               **sphere_material_main_path_phase(),
-              **material_main_path_phase(),
+              **material_main_path_phase(off_counts),
               "fetch_resample": sweep_path()}
     vertex_main_path_phase()
     preprocess_path_phase()
@@ -4339,7 +4430,8 @@ def main(argv) -> int:
     replaces = {k: rep for k, _, _, rep in KERNELS}
     print(json.dumps({"kernels": [
         {"name": k, "route": route, "source": src, "replaces": rep,
-         "launches": counts[k], **results[k], "multi_card_launches": rank_counts.get(k, 0)}
+         "launches": counts[k], **results[k], "multi_card_launches": rank_counts.get(k, 0),
+         "pallas_sampling_off_launches": off_counts.get(k, 0)}
         for k, route, src, rep in KERNELS
     ] + [
         {"name": k, "route": "cuda", "source": "bevy_terrain_tpu_torch/csrc/mesh_fused.cu",

@@ -8,12 +8,17 @@ sample it at the same random vertex uvs. The port's plain versions of
 kernels run in interpret mode within 1e-5 of full scale (texel / max value;
 the reference's own sampler yardstick is 2e-3, test_fused_mesh.py:257), and
 ``sample_attachment_vertices`` must match the JAX package's (its XLA
-fallback on the CPU) within 1e-5.
+fallback on the CPU, ``pallas_sampling`` off) within 1e-5, through the
+sampler kernels' plain versions (the port's ``pallas_sampling`` on) and
+through the staged sampler (off, the CPU's default).
 
 The CUDA kernel itself is compared with the plain version on the card by
 tests/test_torch_cuda.py (skipped without a card) and by chip_smoke.py.
 """
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -75,17 +80,25 @@ def frame():
     """The frame's sorted tiles and its attachment plan in both packages,
     random uvs, and the blocks of each format. Per-vertex blend, as in the
     fused frame: the plan's tile-center blend column (geom[:, 4], a log2
-    that XLA's CPU backend rounds differently) is then zero."""
+    that XLA's CPU backend rounds differently) is then zero. The port's
+    config has ``pallas_sampling`` on (the sampler kernels), the JAX
+    package's off (its XLA sampler)."""
     blob, blocks, cfg, jcfg, plan, jplan = small_frame(blend_per_vertex=True)
+    cfg = dataclasses.replace(cfg, pallas_sampling=True)
     u = unpack_frame_uniforms(torch.from_numpy(blob), 1, LODS, 8)
     ju = junpack(jnp.asarray(blob), 1, LODS, 8)
     tiles, _ = ps.plan_patch_batch(refinement.refine_tiles(u, cfg), u, cfg, plan,
                                    blocks.shape[0])
-    jtiles, _ = jps.plan_patch_batch(jrefinement.refine_tiles(ju, jcfg), ju, jcfg, jplan,
-                                     blocks.shape[0], T)
     _, batch = ps.plan_patch_batch(tiles, u, cfg, plan, blocks.shape[0], assume_sorted=True)
-    _, jbatch = jps.plan_patch_batch(jtiles, ju, jcfg, jplan, blocks.shape[0], T,
-                                     assume_sorted=True)
+
+    @jax.jit  # the JAX functions compiled once, as the JAX pipeline runs them
+    def jplan_frame(ju):
+        jtiles, _ = jps.plan_patch_batch(jrefinement.refine_tiles(ju, jcfg), ju, jcfg, jplan,
+                                         blocks.shape[0], T)
+        return jtiles, jps.plan_patch_batch(jtiles, ju, jcfg, jplan, blocks.shape[0], T,
+                                            assume_sorted=True)[1]
+
+    jtiles, jbatch = jplan_frame(ju)
     # morphed-like uvs: each vertex moved by up to one grid cell toward the
     # lower even vertex, inside its 3x3 window (vertex 0 moves up)
     rng = np.random.default_rng(4)
@@ -172,19 +185,40 @@ def test_packed_is_per_channel(frame, fmt):
                                    atol=TOL * (1 << bits), err_msg=f"{fmt} channel {c}")
 
 
+@pytest.fixture(scope="module")
+def jax_vertex_samples(frame):
+    """fmt -> the JAX package's ``sample_attachment_vertices`` (its XLA
+    sampler) on ``fmt``'s blocks, computed on first use."""
+    cache = {}
+
+    def get(fmt):
+        if fmt not in cache:
+            channels, bits, full = FORMATS[fmt]
+            assert not frame["jcfg"].pallas_sampling
+            cache[fmt] = np.asarray(jax.jit(lambda blocks, uv: jps.sample_attachment_vertices(
+                [blocks], frame["jtiles"], uv, frame["ju"], frame["jcfg"], frame["jplan"], full,
+                packed_channels=channels if bits else 0, packed_bits=bits))(
+                    jnp.asarray(frame["data"][fmt]), jnp.asarray(frame["uv"])))
+        return cache[fmt]
+
+    return get
+
+
+@pytest.mark.parametrize("path", ["kernel", "staged"])
 @pytest.mark.parametrize("fmt", ["raw", "rgba8"])
-def test_sample_attachment_vertices_matches_jax(frame, fmt):
-    """The vertex sampler (kernel path) against the JAX package's on the
-    CPU (its XLA fallback sampler), at the same uvs, in [0, 1]."""
+def test_sample_attachment_vertices_matches_jax(frame, jax_vertex_samples, fmt, path):
+    """The vertex sampler against the JAX package's on the CPU (its XLA
+    fallback sampler), at the same uvs, in [0, 1]: through the sampler
+    kernels' plain versions (``pallas_sampling`` on) and through the staged
+    sampler (off)."""
     channels, bits, full = FORMATS[fmt]
     blocks = frame["data"][fmt]
     kw = dict(packed_channels=channels if bits else 0, packed_bits=bits)
+    cfg = dataclasses.replace(frame["cfg"], pallas_sampling=path == "kernel")
     got = ps.sample_attachment_vertices(
         [torch.from_numpy(blocks)], frame["tiles"], torch.from_numpy(frame["uv"]), frame["u"],
-        frame["cfg"], frame["plan"], full, **kw)
-    want = np.asarray(jps.sample_attachment_vertices(
-        [jnp.asarray(blocks)], frame["jtiles"], jnp.asarray(frame["uv"]), frame["ju"],
-        frame["jcfg"], frame["jplan"], full, **kw))
+        cfg, frame["plan"], full, **kw)
+    want = jax_vertex_samples(fmt)
     n = int(frame["tiles"].tile_count)
     assert got.shape == want.shape == (frame["cfg"].tile_capacity, GV, GV, channels)
     np.testing.assert_allclose(got[:n].numpy(), want[:n], rtol=0, atol=TOL)
@@ -195,7 +229,7 @@ def test_mismatched_plan_takes_the_staged_sampler(frame):
     (``plan_matches_frame=False``) takes the staged sampler
     (fetch_patches, halfgrid_resample, the 3x3 window). On the same plan
     that is the sampler kernels' function: equal within :data:`TOL` of full
-    scale, raw and packed."""
+    scale, raw and packed (the frame's ``pallas_sampling`` is on)."""
     tiles, n = frame["tiles"], int(frame["tiles"].tile_count)
     uv = torch.from_numpy(frame["uv"])
     for key, kw in (("raw", dict(max_value=65535.0)),

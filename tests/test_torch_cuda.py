@@ -442,11 +442,12 @@ def test_halfgrid_kernels_match_plain_versions(ratio):
 
 @pytest.mark.cuda
 def test_staged_mesh_launches_the_halfgrid_kernel():
-    """generate_mesh_grid on the card: K6 once, no mesh kernel, and the mesh
-    within the fused-vs-staged yardsticks of the fused kernel's."""
+    """generate_mesh_grid on the card with ``pallas_sampling``: K6 once, no
+    mesh kernel, and the mesh within the fused-vs-staged yardsticks of the
+    fused kernel's."""
     dev = _card()
     blob, blocks, cfg, plan = _scene(256)
-    cfg = dataclasses.replace(cfg, blend_per_vertex=True)
+    cfg = dataclasses.replace(cfg, blend_per_vertex=True, pallas_sampling=True)
     u = unpack_frame_uniforms(torch.from_numpy(blob).to(dev), 1, LODS, 8)
     refined = refinement.refine_tiles(u, cfg)
     quads = torch.from_numpy(blocks).to(dev)

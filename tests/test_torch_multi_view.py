@@ -6,8 +6,9 @@ The scene of tests/test_multi_view.py: a 3-lod synthetic planar dataset
 of its 8 seeded views. The JAX ``MultiViewTerrain`` runs on 4 virtual CPU
 devices, one view each; the port's on the CPU. Both take the staged grid
 path there (the JAX one ``fetch_patches_xla`` + ``halfgrid_resample``, or
-its sharded fetch; the port K6's plain version, or the staged functions
-behind its sharded fetch). Tolerances:
+its sharded fetch; the port ``fetch_patches`` + ``halfgrid_resample``, or
+its sharded fetch), ``pallas_sampling`` being off on the CPU in both.
+Tolerances:
 
 * tile sets exact; heights and positions per tile key within 1e-3 m and
   uvs within 1e-6, the tolerances of tests/test_torch_staged_mesh.py for
@@ -185,7 +186,7 @@ def test_fused_views_equal_the_single_view_terrain(scene):
     ref = Terrain(config, device="cpu")
     ref.atlas = mvt.atlas
     for v in positions:
-        ref.add_view(v, _view_config(), queue_capacity=1024)
+        ref.add_view(v, _view_config(), queue_capacity=1024, pallas_sampling=True)
     _stream(ref, positions)
     outs, ref_outs = mvt.update(positions), ref.update(positions)
     for v in positions:

@@ -3,9 +3,12 @@ the CPU against the JAX package's, on the same files.
 
 A planar 1000 m terrain (3 lods of 512^2 R16 height tiles, capacity 128,
 ``morph_distance`` 2 so that the tile count follows the camera's height: 4
-tiles from 800 m, 64 from 150 m; ``blend_per_vertex`` so that the JAX
-package's staged mesh blends as the port's fused kernel does) is streamed
-by both packages. The cases of tests/test_pipeline.py:429-503
+tiles from 800 m, 64 from 150 m; ``blend_per_vertex``, the fused kernel's
+blend) is streamed by both packages, each on its default path on the CPU:
+the staged mesh (``pallas_sampling`` off). Meshes agree per tile within
+:data:`SAME_PATH_M`; freeze also runs on a port view with the switch on
+(the fused kernel's plain version) against the same JAX frames within the
+fused-vs-staged 1e-3 m. The cases of tests/test_pipeline.py:429-503
 and tests/test_material.py:507-575, each held to the JAX ``Terrain`` as
 well as to its own claim:
 
@@ -26,6 +29,7 @@ well as to its own claim:
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,14 +57,38 @@ VIEW_KW = dict(queue_capacity=512, blend_per_vertex=True)
 HIGH = np.array([0.0, 800.0, 0.0])
 LOW = np.array([0.0, 150.0, 0.0])
 VIEW = np.array([-120.0, 150.0, 160.0])
+# the port's staged mesh against the JAX package's, per tile: measured at
+# most 6.5e-5 m over these cases (a few f32 ulps of the 100 m range; 6.1e-5
+# m after the structural tune_view, which the fused-vs-staged paths put
+# 1.56 m apart); the bound keeps a margin of 3, a fifth of the reference's
+# 1e-3 m (tests/test_goldens.py:136-138)
+SAME_PATH_M = 2e-4
+# the fused kernel's mesh against the JAX package's staged one
+# (test_torch_pipeline.py's bound; measured 6.3e-5 m)
+FUSED_VS_STAGED_M = 1e-3
 
 
 @pytest.fixture(scope="module")
-def terrains(tmp_path_factory):
+def root(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_features")
     generate_planar_dataset(TERRAIN["path"], 3, AttachmentConfig(**ATT), root=str(root))
+    return root
+
+
+def _both(root, **port_kw):
     return _terrains(root, ("planar", (np.zeros(3), 1000.0, 0.0, 100.0)), [ATT], TERRAIN,
-                     VIEW_CONFIG, VIEW_KW)
+                     VIEW_CONFIG, VIEW_KW, port_kw)
+
+
+@pytest.fixture(scope="module")
+def terrains(root):
+    return _both(root)
+
+
+@pytest.fixture(scope="module")
+def fused_port(root):
+    """A port Terrain with ``pallas_sampling=True``: the fused kernel."""
+    return _both(root, pallas_sampling=True)[0]
 
 
 def _tile_set(out):
@@ -77,12 +105,13 @@ def _keyed(out, field):
                                                 np.asarray(out.tiles.tile_xy[:n])))}
 
 
-def _assert_same_mesh(out, jout, tol=1e-3):
-    """Per tile key: heights and positions within ``tol`` m (the fused mesh
-    against the JAX package's staged one, test_torch_pipeline.py's bound)."""
+def _assert_same_mesh(out, jout, tol=SAME_PATH_M):
+    """Per tile key: heights and positions within ``tol`` m."""
     assert _tile_set(out) == _tile_set(jout)
     for field in ("heights", "positions"):
         got, want = _keyed(out, field), _keyed(jout, field)
+        print(f"max |port - JAX| {field} "
+              f"{max(float(np.abs(got[k] - want[k]).max()) for k in got):.3e} (tol {tol})")
         for key in got:
             np.testing.assert_allclose(got[key], want[key], rtol=0, atol=tol,
                                        err_msg=f"{field} {key}")
@@ -158,12 +187,16 @@ def test_teleport_spike_no_dropped_geometry(terrains):
     _assert_same_mesh(out, jout)
 
 
-def test_freeze_pins_tile_list(terrains):
+@pytest.mark.parametrize("path", ["default", "fused"])
+def test_freeze_pins_tile_list(request, terrains, path):
     """Frozen, the tile SET stays pinned under a moved camera while the
-    mesh morphs from the new camera; unfrozen, refinement resumes."""
+    mesh morphs from the new camera; unfrozen, refinement resumes. The
+    frozen frame takes the view's path: the staged mesh by default, the
+    fused kernel on the pinned list with the switch on."""
+    port = terrains[0] if path == "default" else request.getfixturevalue("fused_port")
     moved = VIEW + np.array([300.0, 900.0, 200.0])
     outs = []
-    for t, debug in zip(terrains, (DebugTerrain, JDebugTerrain)):
+    for t, debug in zip((port, terrains[1]), (DebugTerrain, JDebugTerrain)):
         _stream(t, VIEW)
         t.set_debug(debug(freeze=True))
         out1 = t.update({"cam": VIEW})["cam"]
@@ -177,11 +210,10 @@ def test_freeze_pins_tile_list(terrains):
         t.set_debug(None)
         outs.append((out1, out2, out3))
     for out, jout in zip(*outs):
-        _assert_same_mesh(out, jout)
-    port = terrains[0]
+        _assert_same_mesh(out, jout, SAME_PATH_M if path == "default" else FUSED_VS_STAGED_M)
     assert port.debug is None and not port._frozen_tiles
-    # the frozen frame is the fused kernel on the pinned list
-    assert outs[0][1].raw_mesh.shape[1:] == (6, 17, 17)
+    frozen = outs[0][1].raw_mesh
+    assert (frozen is None) if path == "default" else frozen.shape[1:] == (6, 17, 17)
 
 
 def test_set_debug_respecializes(terrains):
@@ -256,14 +288,16 @@ def test_tune_view_distances_and_grid_size(terrains):
         outs.append((coarse, fine, small, back))
     port = terrains[0]
     assert port.view_configs["cam"].grid_size == 16
-    assert port._static_cfgs["cam"].queue_capacity == 512
-    assert outs[0][2].raw_mesh is None and outs[0][3].raw_mesh is not None
-    # the rebuilt view keeps its specialization flags but not
-    # ``blend_per_vertex`` (in both packages): back at grid size 16 the
-    # port's fused kernel blends per vertex and the JAX package's staged
-    # mesh at the tile centre, 1.56 m apart at most on this terrain (held to 2 m)
-    for (out, jout), tol in zip(zip(*outs), (1e-3, 1e-3, 1e-3, 2.0)):
-        _assert_same_mesh(out, jout, tol)
+    cfg = port._static_cfgs["cam"]
+    assert cfg.queue_capacity == 512
+    # the rebuilt view keeps its specialization flags but neither
+    # ``blend_per_vertex`` nor ``pallas_sampling`` (in both packages): back
+    # at grid size 16 it takes the default path, on the CPU the staged
+    # mesh blending at the tile centre in both packages
+    assert not cfg.blend_per_vertex and not cfg.pallas_sampling
+    assert outs[0][2].raw_mesh is None and outs[0][3].raw_mesh is None
+    for out, jout in zip(*outs):
+        _assert_same_mesh(out, jout)
 
 
 def test_debug_cameras_are_the_jax_packages():
@@ -303,7 +337,7 @@ def test_gradient_sampler_matches_jax(packed):
     mesh = meshgen.fused_to_grid(raw, tiles, cfg)
     jmesh, jtiles, jcfg = _jax_mesh(mesh), _jax_tiles(tiles), _jax_cfg(cfg)
     span = ps.grad_tile_span(mesh, u, cfg)
-    jspan = np.asarray(jps.grad_tile_span(jmesh, ju, jcfg))
+    jspan = np.asarray(jax.jit(lambda jmesh, ju: jps.grad_tile_span(jmesh, ju, jcfg))(jmesh, ju))
     n = int(tiles.tile_count)
     np.testing.assert_allclose(span.numpy()[:n], jspan[:n], rtol=0, atol=1e-6)
     # anisotropy above 1 somewhere: spans longer than one half-grid step
@@ -317,9 +351,9 @@ def test_gradient_sampler_matches_jax(packed):
     got = ps.sample_attachment_vertices_grad(
         [torch.from_numpy(a) for a in arrays], tiles, mesh.uvs, mesh, u, cfg, plan, full,
         taps=4, **kw).numpy()
-    want = np.asarray(jps.sample_attachment_vertices_grad(
-        [jnp.asarray(a) for a in arrays], jtiles, jmesh.uvs, jmesh, ju, jcfg, jplan, full,
-        taps=4, **kw))
+    want = np.asarray(jax.jit(lambda arrays, jtiles, jmesh, ju: jps.sample_attachment_vertices_grad(
+        arrays, jtiles, jmesh.uvs, jmesh, ju, jcfg, jplan, full, taps=4, **kw))(
+            [jnp.asarray(a) for a in arrays], jtiles, jmesh, ju))
     assert got.shape == want.shape == (cfg.tile_capacity, 17, 17, 4 if packed else 1)
     err = float(np.abs(got[:n] - want[:n]).max())
     print(f"gradient sampler ({'packed' if packed else 'planar'}): max |port - JAX| {err:.3e}")
@@ -346,9 +380,9 @@ def test_gradient_sampler_takes_plan_matches_frame(plan_matches_frame):
     args = ([torch.from_numpy(blocks)], tiles, mesh.uvs, mesh, u, cfg, plan, 65535.0)
     got = ps.sample_attachment_vertices_grad(*args, taps=2,
                                              plan_matches_frame=plan_matches_frame).numpy()
-    want = np.asarray(jps.sample_attachment_vertices_grad(
-        [jnp.asarray(blocks)], jtiles, jmesh.uvs, jmesh, ju, jcfg, jplan, 65535.0, taps=2,
-        plan_matches_frame=plan_matches_frame))
+    want = np.asarray(jax.jit(lambda blocks, jtiles, jmesh, ju: jps.sample_attachment_vertices_grad(
+        [blocks], jtiles, jmesh.uvs, jmesh, ju, jcfg, jplan, 65535.0, taps=2,
+        plan_matches_frame=plan_matches_frame))(jnp.asarray(blocks), jtiles, jmesh, ju))
     n = int(tiles.tile_count)
     assert got.shape == want.shape == (cfg.tile_capacity, 17, 17, 1)
     assert float(np.abs(got[:n] - want[:n]).max()) <= 1e-5

@@ -9,8 +9,9 @@ to quiescence by both packages at two culled cameras, with
 sample_attachments=(1,))`` lit, and with the bare ``albedo_material(1)``
 unlit.
 
-The port takes the fused spherical mesh kernel (K2; its plain version
-here), the packed sampler (K5b) at the kernel's morphed uvs and
+The port's view has ``pallas_sampling=True`` and takes the fused spherical
+mesh kernel (K2; its plain version here), the packed sampler (K5b) at the
+kernel's morphed uvs and
 ``render/material.shade`` with the kernel's sphere normals, never the
 in-kernel shade (planar only, as in the JAX pipeline). The JAX package on
 the CPU takes its staged mesh and XLA sampler. Per tile key: the same tile
@@ -65,7 +66,8 @@ def planets(tmp_path_factory):
         generate_spherical_dataset(TERRAIN["path"], 3, AttachmentConfig(**{**att, "format": fmt}),
                                    root=str(root))
     return _terrains(root, ("sphere", (np.zeros(3), R, 0.0, 9000.0)), ATTS, TERRAIN,
-                     dict(tile_capacity=2048), dict(queue_capacity=4096, culling=True))
+                     dict(tile_capacity=2048), dict(queue_capacity=4096, culling=True),
+                     dict(pallas_sampling=True))
 
 
 def test_spherical_dataset_writes_a_colour_attachment():

@@ -6,12 +6,16 @@ blocks: on ``small_frame`` (tests/test_torch_patch_sampling.py; planar, with
 and without the Taylor path, at grid sizes 16 and 8, ``blend_per_vertex``
 both ways) and on the small sphere frames of tests/test_torch_spherical_mesh.py
 (with and without the Taylor path). The JAX function takes its XLA branch on
-the CPU (``fetch_patches_xla`` + ``halfgrid_resample``), the same math as its
-Pallas kernel; the port takes ``kernels.fetch_resample_cached`` (its plain
-version here) at grid size 16 and the staged functions at grid size 8. Per
-tile key, within the tolerances of the fused tests: planar heights and
-positions 1e-3 m, uvs 1e-6 (test_torch_mesh_kernel.py); spherical
-:data:`JAX_TOL` of test_torch_spherical_mesh.py.
+the CPU (``fetch_patches_xla`` + ``halfgrid_resample``, ``pallas_sampling``
+off), the same math as its Pallas kernel, run once per frame under
+``jax.jit`` (as the JAX pipeline runs it) and shared by the file's tests.
+The port runs each frame twice against it: with ``pallas_sampling`` off
+(its default on the CPU: ``fetch_patches`` + ``halfgrid_resample``, the JAX
+branch's twin) and on (``kernels.fetch_resample_cached``, its plain version
+here, at grid size 16; the staged functions at grid size 8). Per tile key,
+within the tolerances of the fused tests: planar heights and positions 1e-3
+m, uvs 1e-6 (test_torch_mesh_kernel.py); spherical :data:`JAX_TOL` of
+test_torch_spherical_mesh.py.
 
 The staged sampler (``sample_attachment_vertices`` with
 ``plan_matches_frame=False``, the path of a border-1 albedo beside a
@@ -24,6 +28,7 @@ JAX functions on ``small_frame`` with a random 16-slot uint16 height slab.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,32 +78,66 @@ def _frame(name):
 
 
 @pytest.fixture(scope="module")
-def meshes():
-    """name -> ((port mesh, sorted tiles, uniforms), (JAX mesh, sorted
-    tiles)), each computed on first use."""
+def jax_meshes():
+    """name -> (JAX mesh, sorted tiles), each computed on first use."""
     cache = {}
 
     def get(name):
         if name not in cache:
-            blob, blocks, cfg, jcfg, plan, sides, lods = _frame(name)
-            u = unpack_frame_uniforms(torch.from_numpy(blob), sides, lods, 8)
-            before = kernels.fetch_resample_cached.launches
-            mesh, tiles = meshgen.generate_mesh_grid(
-                refinement.refine_tiles(u, cfg), torch.from_numpy(blocks), u, cfg, plan,
-                MAX_VALUE)
-            assert kernels.fetch_resample_cached.launches == before  # a CPU call
-            ju = junpack(jnp.array(blob), sides, lods, 8)
-            jmesh, jtiles = jmeshgen.generate_mesh_grid(
-                jrefinement.refine_tiles(ju, jcfg), jnp.array(blocks), ju, jcfg, plan,
-                MAX_VALUE)
-            cache[name] = (mesh, tiles, u, cfg), (jmesh, jtiles)
+            blob, blocks, _, jcfg, plan, sides, lods = _frame(name)
+            assert not jcfg.pallas_sampling  # the XLA branch
+
+            @jax.jit
+            def frame(blob, blocks):
+                ju = junpack(blob, sides, lods, 8)
+                return jmeshgen.generate_mesh_grid(jrefinement.refine_tiles(ju, jcfg), blocks,
+                                                   ju, jcfg, plan, MAX_VALUE)
+
+            cache[name] = frame(jnp.array(blob), jnp.array(blocks))
         return cache[name]
 
     return get
 
 
-def _per_key(meshes, name, tols):
-    (mesh, tiles, u, cfg), (jmesh, jtiles) = meshes(name)
+@pytest.fixture(scope="module")
+def meshes(jax_meshes):
+    """(name, pallas_sampling) -> ((port mesh, sorted tiles, uniforms,
+    cfg), (JAX mesh, sorted tiles)), each computed on first use."""
+    cache = {}
+
+    def get(name, switch=False):
+        if (name, switch) not in cache:
+            blob, blocks, cfg, _, plan, sides, lods = _frame(name)
+            cfg = dataclasses.replace(cfg, pallas_sampling=switch)
+            u = unpack_frame_uniforms(torch.from_numpy(blob), sides, lods, 8)
+            calls = []
+            k6 = kernels.fetch_resample_cached
+
+            def spy(*args):
+                calls.append(1)
+                return k6(*args)
+
+            before = k6.launches
+            kernels.fetch_resample_cached = spy
+            try:
+                mesh, tiles = meshgen.generate_mesh_grid(
+                    refinement.refine_tiles(u, cfg), torch.from_numpy(blocks), u, cfg, plan,
+                    MAX_VALUE)
+            finally:
+                kernels.fetch_resample_cached = k6
+            assert k6.launches == before  # a CPU call
+            assert len(calls) == (switch and cfg.grid_size == 16)  # K6 by the switch
+            cache[name, switch] = (mesh, tiles, u, cfg), jax_meshes(name)
+        return cache[name, switch]
+
+    return get
+
+
+PATHS = {"ops": False, "k6": True}  # the pallas_sampling switch
+
+
+def _per_key(meshes, name, tols, path="ops"):
+    (mesh, tiles, u, cfg), (jmesh, jtiles) = meshes(name, PATHS[path])
     n = int(tiles.tile_count)
     assert n == int(jtiles.tile_count) > 6
     assert int(tiles.overflow) == int(jtiles.overflow)
@@ -119,26 +158,30 @@ def _per_key(meshes, name, tols):
                                        err_msg=f"{name} {field} {key}")
             worst[field] = max(worst[field], float(np.abs(got[i] - want[rows_j[key]]).max()))
         assert not got[n:].any() or field == "positions"
-    print(f"{name}: max |port - JAX| " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    print(f"{name} ({path}): max |port - JAX| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     np.testing.assert_array_equal(mesh.tile_mask.numpy(), np.asarray(jmesh.tile_mask))
     assert not mesh.positions[n:].any() and not mesh.heights[n:].any()
     h = mesh.heights[:n]
     assert float(h.max() - h.min()) > 10.0
 
 
+@pytest.mark.parametrize("path", sorted(PATHS))
 @pytest.mark.parametrize("name", sorted(PLANAR))
-def test_planar_grid_mesh_matches_jax(meshes, name):
+def test_planar_grid_mesh_matches_jax(meshes, name, path):
     """Heights and positions within 1e-3 m, uvs within 1e-6, normals equal
     (the up vector)."""
-    _per_key(meshes, name, dict(heights=1e-3, positions=1e-3, uvs=1e-6, normals=0.0))
+    _per_key(meshes, name, dict(heights=1e-3, positions=1e-3, uvs=1e-6, normals=0.0), path)
 
 
+@pytest.mark.parametrize("path", sorted(PATHS))
 @pytest.mark.parametrize("name", sorted(SPHERES))
-def test_spherical_grid_mesh_matches_jax(meshes, name):
+def test_spherical_grid_mesh_matches_jax(meshes, name, path):
     """Within test_torch_spherical_mesh.py's :data:`JAX_TOL` of the frame;
     unit normals within 1e-5."""
     h_tol, p_tol, uv_tol = JAX_TOL[SPHERES[name][0]]
-    _per_key(meshes, name, dict(heights=h_tol, positions=p_tol, uvs=uv_tol, normals=1e-5))
+    _per_key(meshes, name, dict(heights=h_tol, positions=p_tol, uvs=uv_tol, normals=1e-5),
+             path)
 
 
 def test_per_vertex_blend_differs_from_tile_centre_blend(meshes):
@@ -180,9 +223,9 @@ def test_staged_sampler_matches_jax(meshes, form):
         **kw).numpy()
     assert before == (kernels.attach_sample_fused.launches,
                       kernels.attach_sample_fused_packed.launches)
-    want = np.asarray(jps.sample_attachment_vertices(
-        [jnp.array(blocks)], jtiles, jnp.array(mesh.uvs.numpy()), ju, jcfg, jplan,
-        plan_matches_frame=False, **kw))
+    want = np.asarray(jax.jit(lambda blocks, uvs: jps.sample_attachment_vertices(
+        [blocks], jtiles, uvs, ju, jcfg, jplan, plan_matches_frame=False, **kw))(
+            jnp.array(blocks), jnp.array(mesh.uvs.numpy())))
     n = int(tiles.tile_count)
     assert got.shape == want.shape == (cfg.tile_capacity, 17, 17, channels)
     np.testing.assert_allclose(got[:n], want[:n], rtol=0, atol=1e-5)
@@ -224,8 +267,8 @@ def test_per_vertex_mesh_matches_jax(blend):
     ju = junpack(jnp.array(blob), 1, LODS, 8)
     tiles = refinement.refine_tiles(u, cfg)
     mesh = meshgen.generate_mesh(tiles, torch.from_numpy(slab), u, cfg, scale, offset)
-    jmesh = jmeshgen.generate_mesh(jrefinement.refine_tiles(ju, jcfg), jnp.array(slab), ju,
-                                   jcfg, scale, offset)
+    jmesh = jax.jit(lambda ju, slab: jmeshgen.generate_mesh(
+        jrefinement.refine_tiles(ju, jcfg), slab, ju, jcfg, scale, offset))(ju, jnp.array(slab))
     n = int(tiles.tile_count)
     V = cfg.vertices_per_tile
     assert n > 6 and mesh.heights.shape == (cfg.tile_capacity, V)

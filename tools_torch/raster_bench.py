@@ -48,7 +48,7 @@ def main(argv=None) -> dict:
 
     def frame(block_array, u):
         # the fused mesh kernel: the path the JAX tool takes on its chip
-        # (cfg.pallas_sampling), and the port's at grid size 16
+        # (cfg.pallas_sampling), and the port's on the card
         tiles = refinement.refine_tiles(u, cfg)
         raw, tiles = meshgen.generate_mesh_fused(tiles, block_array, u, cfg, plan, 65535.0)
         return tiles, meshgen.fused_to_grid(raw, tiles, cfg)

@@ -10,9 +10,12 @@ phases build the same frame from :func:`bench_frame`. One difference: the
 random height blocks. :func:`build_scene` draws them from a fresh
 ``default_rng(0)``, as the JAX scene does; chip_smoke.py draws them from
 the generator :func:`bench_frame` returns, after the atlas entries, so its
-``digest:`` lines stay those of the earlier trees. The JAX scene's
-``pallas_sampling`` flag has no counterpart here: the port's pipeline
-reads it nowhere.
+``digest:`` lines stay those of the earlier trees. ``pallas_sampling`` is
+the JAX scene's: on where the scene lives on the card (the JAX scene: on
+the TPU), so the frame's staged mesh and samplers take the hand kernels
+there and torch ops on the CPU; :func:`bench_frame` keeps it on unless told
+otherwise (chip_smoke.py's kernel phases and census_frame, whose JAX tool
+sets it).
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ def bench_scene(view=VIEW, toward=TOWARD, capacity: int = 4096):
     return model, vc, view, view_proj
 
 
-def bench_frame(view=VIEW, toward=TOWARD, capacity: int = 4096, queue: int = 1024):
+def bench_frame(view=VIEW, toward=TOWARD, capacity: int = 4096, queue: int = 1024,
+                pallas_sampling: bool = True):
     """The bench frame's static config, packed uniforms and patch plan, with
     the generator (``default_rng(0)``) that drew its atlas entries."""
     model, vc, view, view_proj = bench_scene(view, toward, capacity)
@@ -52,7 +56,7 @@ def bench_frame(view=VIEW, toward=TOWARD, capacity: int = 4096, queue: int = 102
         spherical=False, side_count=1, lod_count=LOD_COUNT, tree_size=vc.tree_size,
         grid_size=vc.grid_size, refinement_count=vc.refinement_count,
         queue_capacity=queue, tile_capacity=vc.tile_capacity, origin_lod=vc.origin_lod,
-        culling=True,
+        culling=True, pallas_sampling=pallas_sampling,
     )
     origins, vt_int, vt_frac = tile_tree.compute_view_anchors(model, view, LOD_COUNT,
                                                               vc.tree_size)
@@ -73,7 +77,8 @@ def build_scene(capacity: int = 4096, queue: int = 1024, device="cuda"):
     patch plan, random (ATLAS_SLOTS x blocks per slot, 32, 128) int32 height
     blocks, and the frame uniforms of the bench camera (u1) and of a second
     camera (u2)."""
-    cfg, vc, blob1, plan, _ = bench_frame(capacity=capacity, queue=queue)
+    cfg, vc, blob1, plan, _ = bench_frame(
+        capacity=capacity, queue=queue, pallas_sampling=torch.device(device).type == "cuda")
     blob2 = bench_frame(VIEW2, TOWARD2, capacity, queue)[2]
     rng = np.random.default_rng(0)
     blocks = torch.from_numpy(rng.integers(
