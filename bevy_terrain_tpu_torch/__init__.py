@@ -23,8 +23,9 @@ same-frame overflow guard; the rasterizer (``render/raster.py``: binning,
 edge functions, depth race and per-pixel shading in torch ops) and
 ``Terrain.render_image``; preprocessing (``Preprocessor``: source imagery to
 a tile dataset, on the host or as torch ops over whole-lod stacks on the
-atlas's device); the presets (``models``) and the timing helpers
-(``utils/timing.py``); the twins of ``__graft_entry__.entry`` and
+atlas's device); the presets (``models``), the timing helpers
+(``utils/timing.py``) and the frame's tracing spans and counters
+(``utils/tracing.py``); the twins of ``__graft_entry__.entry`` and
 ``dryrun_multichip`` (``entry.py``); several views over one shared atlas,
 stepped on one card, and the block store in shards (``parallel/``). The
 examples and the frame bench tools are in examples_torch/ and tools_torch/

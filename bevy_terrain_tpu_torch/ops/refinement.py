@@ -31,6 +31,7 @@ import torch
 
 from bevy_terrain_tpu_torch.ops import coords
 from bevy_terrain_tpu_torch.ops.params import FrameUniforms, StaticTerrainConfig
+from bevy_terrain_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -112,6 +113,13 @@ def _stable_sort(key, *cols):
     ``lax.sort(num_keys=1, is_stable=True)``)."""
     s_key, perm = torch.sort(key, stable=True)
     return (s_key,) + tuple(c[perm] for c in cols)
+
+
+def _queue_left(q_count: torch.Tensor) -> bool:
+    """Whether the spill queue holds a tile: a synchronous read of the
+    device (the tracing counter ``refine_reads``)."""
+    tracing.count("refine_reads")
+    return int(q_count) > 0
 
 
 def refine_tiles(uniforms: FrameUniforms, cfg: StaticTerrainConfig) -> RefinementOutput:
@@ -212,7 +220,7 @@ def refine_tiles(uniforms: FrameUniforms, cfg: StaticTerrainConfig) -> Refinemen
     k = Ld + 1
 
     # the JAX while_loop's condition; int(q_count) is the one device read
-    while k < cfg.refinement_count and int(q_count) > 0:
+    while k < cfg.refinement_count and _queue_left(q_count):
         q_side, q_x, q_y = qcols[0], qcols[1], qcols[2]
         ch_side, ch_x, ch_y = _children(q_side, q_x, q_y)
         b_side = torch.cat([q_side, ch_side])

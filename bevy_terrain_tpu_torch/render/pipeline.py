@@ -84,6 +84,7 @@ from bevy_terrain_tpu_torch.ops.params import (
 from bevy_terrain_tpu_torch.render import material as mat
 from bevy_terrain_tpu_torch.terrain_data.tile_atlas import TileAtlas
 from bevy_terrain_tpu_torch.terrain_data.tile_tree import TileTree
+from bevy_terrain_tpu_torch.utils import tracing
 
 
 class FusedMaterial(NamedTuple):
@@ -506,17 +507,19 @@ class Terrain:
             uniform_blob, cfg.side_count, cfg.lod_count, cfg.tree_size
         )
         if tiles is None:
-            tiles = refinement.refine_tiles(uniforms, cfg)
-        if not Terrain.use_fused(cfg):
-            mesh, tiles = meshgen.generate_mesh_grid(tiles, block_array, uniforms, cfg, plan,
-                                                     max_value)
-            return tiles, mesh, (), uniforms
-        tiles, _, args = meshgen.fused_kernel_args(
-            tiles, block_array, uniforms, cfg, plan, max_value, albedo_blocks,
-            albedo_channels, albedo_bits, shade_spec,
-        )
-        kernel = meshgen.mesh_kernel(cfg, albedo_channels, shade_spec is not None)
-        return tiles, kernel(*args), args, uniforms
+            with tracing.span("stage::refine"):
+                tiles = refinement.refine_tiles(uniforms, cfg)
+        with tracing.span("stage::mesh"):
+            if not Terrain.use_fused(cfg):
+                mesh, tiles = meshgen.generate_mesh_grid(tiles, block_array, uniforms, cfg,
+                                                         plan, max_value)
+                return tiles, mesh, (), uniforms
+            tiles, _, args = meshgen.fused_kernel_args(
+                tiles, block_array, uniforms, cfg, plan, max_value, albedo_blocks,
+                albedo_channels, albedo_bits, shade_spec,
+            )
+            kernel = meshgen.mesh_kernel(cfg, albedo_channels, shade_spec is not None)
+            return tiles, kernel(*args), args, uniforms
 
     @staticmethod
     def frame_step_vertex(height_slab: torch.Tensor, uniform_blob: torch.Tensor,
@@ -528,9 +531,11 @@ class Terrain:
         uniforms = unpack_frame_uniforms(
             uniform_blob, cfg.side_count, cfg.lod_count, cfg.tree_size
         )
-        tiles = refinement.refine_tiles(uniforms, cfg)
-        return tiles, meshgen.generate_mesh(tiles, height_slab, uniforms, cfg,
-                                            attachment_scale, attachment_offset)
+        with tracing.span("stage::refine"):
+            tiles = refinement.refine_tiles(uniforms, cfg)
+        with tracing.span("stage::mesh"):
+            return tiles, meshgen.generate_mesh(tiles, height_slab, uniforms, cfg,
+                                                attachment_scale, attachment_offset)
 
     def _sample(self, idx: int, tiles, mesh, uniforms, cfg) -> torch.Tensor:
         """Attachment ``idx`` at the mesh's morphed vertex uvs, (F, G+1, G+1,
@@ -567,49 +572,60 @@ class Terrain:
         ``view_projections`` (optional): per-view 4x4 view-projection
         matrices (math/frustum.py helpers), needed for views whose static
         config enables ``culling``.
-        """
-        blobs, req_counts, heights = self._host_stage(view_positions, view_projections)
-        return self._device_views(view_positions, self._blobs_to_device(blobs), req_counts,
-                                  heights)
 
-    def _host_stage(self, view_positions: dict, view_projections: dict | None = None):
+        Opens the frame's tracing record (``utils/tracing.py``).
+        """
+        with tracing.span("terrain::update", frame=self.frame_index, device=self.device):
+            blobs, req_counts, heights = self._host_stage(view_positions, view_projections,
+                                                          to_device=True)
+            return self._device_views(view_positions, blobs, req_counts, heights)
+
+    def _host_stage(self, view_positions: dict, view_projections: dict | None = None,
+                    to_device: bool = False):
         """Steps 1-4 of a frame on the host: the request scans, residency and
         IO, then per view the entries, the height probe, the approximation
-        and the packed uniforms. Returns (the blobs in view order, each
-        view's request count, each view's approximate height), what the
-        device stage's guards read."""
+        and the packed uniforms. Returns (the blobs in view order, on the
+        device with ``to_device``, each view's request count, each view's
+        approximate height), what the device stage's guards read."""
         view_projections = view_projections or {}
         # 1. request scans (TileTree::compute_requests, plugin.rs:47)
-        released, requested = [], []
-        req_counts = {}
-        for view_id, pos in view_positions.items():
-            tree = self.tile_trees[view_id]
-            tree.compute_requests(pos)
-            released.extend(tree.released_tiles)
-            requested.extend(tree.requested_tiles)
-            req_counts[view_id] = len(tree.requested_tiles)
+        with tracing.span("update::requests"):
+            released, requested = [], []
+            req_counts = {}
+            for view_id, pos in view_positions.items():
+                tree = self.tile_trees[view_id]
+                tree.compute_requests(pos)
+                released.extend(tree.released_tiles)
+                requested.extend(tree.requested_tiles)
+                req_counts[view_id] = len(tree.requested_tiles)
+            tracing.count("tiles_requested", len(requested))
 
         # 2. atlas residency + IO (TileAtlas::update, plugin.rs:49)
-        self.atlas.update(released, requested)
-        self._flush_uploads()
+        with tracing.span("update::residency"):
+            self.atlas.update(released, requested)
+            self._flush_uploads()
 
         # 3.-4. per view: adjust entries, height probe, approximation, the
         # packed uniforms (plugin.rs:50-55)
-        blobs, heights = [], {}
-        for view_id, pos in view_positions.items():
-            tree = self.tile_trees[view_id]
-            tree.adjust_to_tile_atlas(self.atlas)
-            tree.update_approximate_height(self.atlas)
-            heights[view_id] = float(tree.approximate_height)
-            approx = TerrainModelApproximation.compute(
-                self.config.model, pos, tree.origin_lod, tree.approximate_height
-            )
-            blobs.append(pack_frame_uniforms(
-                self.config.model, pos, approx, tree.origins, tree.entries,
-                tree.view_tile_int, tree.view_tile_frac,
-                self.view_configs[view_id],
-                view_proj=view_projections.get(view_id),
-            ))
+        with tracing.span("update::uniforms"):
+            blobs, heights = [], {}
+            for view_id, pos in view_positions.items():
+                tree = self.tile_trees[view_id]
+                tree.adjust_to_tile_atlas(self.atlas)
+                tree.update_approximate_height(self.atlas)
+                heights[view_id] = float(tree.approximate_height)
+                approx = TerrainModelApproximation.compute(
+                    self.config.model, pos, tree.origin_lod, tree.approximate_height
+                )
+                blobs.append(pack_frame_uniforms(
+                    self.config.model, pos, approx, tree.origins, tree.entries,
+                    tree.view_tile_int, tree.view_tile_frac,
+                    self.view_configs[view_id],
+                    view_proj=view_projections.get(view_id),
+                ))
+            if to_device:
+                tracing.count("upload_bytes", sum(b.nbytes for b in blobs))
+                blobs = self._blobs_to_device(blobs)
         return blobs, req_counts, heights
 
     def _flush_uploads(self) -> None:
@@ -681,8 +697,9 @@ class Terrain:
         raw = product if isinstance(product, torch.Tensor) else None
         colors = None
         if fused is None and self._shade_opts is not None:
-            mesh = product if raw is None else meshgen.fused_to_grid(raw, tiles, cfg)
-            colors = self._maybe_shade(mesh, tiles, uniforms, cfg)
+            with tracing.span("stage::material"):
+                mesh = product if raw is None else meshgen.fused_to_grid(raw, tiles, cfg)
+                colors = self._maybe_shade(mesh, tiles, uniforms, cfg)
         return TerrainFrameOutput(
             tiles, raw, cfg, args, colors, fused.channels if fused else 0,
             mesh=product if raw is None else None)
@@ -713,31 +730,32 @@ class Terrain:
         """
         from bevy_terrain_tpu_torch.render import raster
 
-        raster._grid_mesh(out.mesh)
-        uniforms, cfg = self.frame_inputs(view_id)
-        material = self.shading_fn
-        lighting, debug_view = True, None
-        if self._shade_opts is not None:
-            lighting, debug_view = self._shade_opts[0], self._shade_opts[1]
-        needs = getattr(getattr(material, "base_color", None), "attachment_index", None)
-        if pixel_texturing is None and needs is not None and self._shade_opts is not None \
-                and self._shade_opts[4] == (needs,):
-            pixel_texturing = needs
-        if pixel_texturing not in (None, False):
-            att = self.atlas.attachments[pixel_texturing]
-            kw.setdefault("pixel_attachment", (
-                tuple(att.slabs), att.config.scale, att.config.offset,
-                att.config.format.max_value, att.config.texture_size))
-        kw.setdefault("material", material)
-        kw.setdefault("lighting", lighting)
-        kw.setdefault("debug_view", debug_view)
-        vertex_path = (kw["debug_view"] is not None or kw.get("shade_mode", "pixel") == "vertex"
-                       or "pixel_attachment" not in kw)
-        if needs is not None and vertex_path and "attachment_samples" not in kw:
-            kw["attachment_samples"] = {
-                needs: self.sample_attachment_grid(view_id, out, attachment_index=needs)}
-        return raster.render_view(out.mesh, out.tiles, uniforms, cfg, view_proj, width, height,
-                                  **kw)
+        with tracing.span("terrain::render", frame=tracing.LAST):
+            raster._grid_mesh(out.mesh)
+            uniforms, cfg = self.frame_inputs(view_id)
+            material = self.shading_fn
+            lighting, debug_view = True, None
+            if self._shade_opts is not None:
+                lighting, debug_view = self._shade_opts[0], self._shade_opts[1]
+            needs = getattr(getattr(material, "base_color", None), "attachment_index", None)
+            if pixel_texturing is None and needs is not None and self._shade_opts is not None \
+                    and self._shade_opts[4] == (needs,):
+                pixel_texturing = needs
+            if pixel_texturing not in (None, False):
+                att = self.atlas.attachments[pixel_texturing]
+                kw.setdefault("pixel_attachment", (
+                    tuple(att.slabs), att.config.scale, att.config.offset,
+                    att.config.format.max_value, att.config.texture_size))
+            kw.setdefault("material", material)
+            kw.setdefault("lighting", lighting)
+            kw.setdefault("debug_view", debug_view)
+            vertex_path = (kw["debug_view"] is not None or kw.get("shade_mode", "pixel") == "vertex"
+                           or "pixel_attachment" not in kw)
+            if needs is not None and vertex_path and "attachment_samples" not in kw:
+                kw["attachment_samples"] = {
+                    needs: self.sample_attachment_grid(view_id, out, attachment_index=needs)}
+            return raster.render_view(out.mesh, out.tiles, uniforms, cfg, view_proj, width, height,
+                                      **kw)
 
     def frame_inputs(self, view_id):
         """(FrameUniforms, StaticTerrainConfig) of the view's last frame:

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from bevy_terrain_tpu_torch.ops.meshgen import GridMeshOutput
+from bevy_terrain_tpu_torch.utils import tracing
 
 
 class RasterOutput(NamedTuple):
@@ -542,15 +543,15 @@ def rasterize_grid(
     (design_px / (W * H))`` triangles per level-0 bin on average; give
     hotspots ~4x headroom, and treat ``bin_overflow > 0`` as the signal.
 
-    The three phases run inside ``torch.profiler.record_function`` ranges
-    (``raster::bin_sort``, ``raster::scan``, ``raster::resolve``).
+    The three phases are tracing spans (``utils/tracing.py``):
+    ``raster::bin_sort``, ``raster::scan``, ``raster::resolve``.
     """
-    with torch.profiler.record_function("raster::bin_sort"):
+    with tracing.span("raster::bin_sort"):
         b = _bin(positions, tile_mask, view_proj, width, height, bin_px, bin_cap, chunk,
                  cull_backfaces, near_eps)
-    with torch.profiler.record_function("raster::scan"):
+    with tracing.span("raster::scan"):
         best_z, best_t = _scan(b, bin_px, chunk)
-    with torch.profiler.record_function("raster::resolve"):
+    with tracing.span("raster::resolve"):
         return _resolve(b, best_z, best_t, width, height, bin_px)
 
 
@@ -641,62 +642,62 @@ def render_view(
     texturing (:func:`sample_attachment_pixel`, the reference's
     textureSampleGrad filtering).
 
+    Everything after :func:`rasterize_grid` is the tracing span
+    ``raster::shade``.
+
     Returns ``(image, RasterOutput)``.
     """
     from bevy_terrain_tpu_torch.render import material as mat
 
     mesh = _grid_mesh(mesh)
-    if skirts:
-        pos_in = add_skirts(mesh.positions, spherical=cfg.spherical)
-        raster = rasterize_grid(pos_in, mesh.tile_mask, view_proj, width, height,
-                                **raster_knobs)
-        F, G1 = mesh.positions.shape[0], mesh.positions.shape[1]
-        vmap = _skirt_table(F, G1, mesh.positions.device)
-        raster = raster._replace(vert_idx=vmap[raster.vert_idx.long()].to(torch.int32))
-    else:
-        raster = rasterize_grid(mesh.positions, mesh.tile_mask, view_proj, width, height,
-                                **raster_knobs)
-    bg = _f32_on(np.asarray(background, np.float32), mesh.positions.device)
+    pos_in = add_skirts(mesh.positions, spherical=cfg.spherical) if skirts else mesh.positions
+    raster = rasterize_grid(pos_in, mesh.tile_mask, view_proj, width, height, **raster_knobs)
+    with tracing.span("raster::shade"):
+        if skirts:
+            F, G1 = mesh.positions.shape[0], mesh.positions.shape[1]
+            vmap = _skirt_table(F, G1, mesh.positions.device)
+            raster = raster._replace(vert_idx=vmap[raster.vert_idx.long()].to(torch.int32))
+        bg = _f32_on(np.asarray(background, np.float32), mesh.positions.device)
 
-    if debug_view is not None or shade_mode == "vertex":
-        colors_v = mat.shade(
-            mesh, tiles, uniforms, cfg, material=material, lighting=lighting,
-            debug_view=debug_view, texture_size=texture_size,
-            attachment_samples=attachment_samples,
-        )
-        img = interpolate(raster, colors_v, background=0.0)
+        if debug_view is not None or shade_mode == "vertex":
+            colors_v = mat.shade(
+                mesh, tiles, uniforms, cfg, material=material, lighting=lighting,
+                debug_view=debug_view, texture_size=texture_size,
+                attachment_samples=attachment_samples,
+            )
+            img = interpolate(raster, colors_v, background=0.0)
+            return torch.where(raster.covered[..., None], img, bg), raster
+
+        # per-pixel PBR: interpolate base colour, shading normal, position
+        normals_v = mat.surface_normals_from_heights(mesh, tiles, uniforms, cfg)
+        ctx = mat.ShadeContext(mesh=mesh, tiles=tiles, normals=normals_v, uniforms=uniforms,
+                               cfg=cfg, texture_size=texture_size,
+                               attachment_samples=attachment_samples)
+        if pixel_attachment is not None:
+            slabs, a_scale, a_offset, a_maxv, a_tex = pixel_attachment
+            base_p = sample_attachment_pixel(
+                raster, mesh, tiles, uniforms, cfg, slabs, a_scale, a_offset, a_maxv, a_tex,
+                view_proj=view_proj, width=width, height=height,
+            )
+            if base_p.shape[-1] < 4:
+                base_p = torch.cat([base_p] + [torch.ones_like(base_p[..., :1])]
+                                   * (4 - base_p.shape[-1]), dim=-1)
+        else:
+            base_p = interpolate(raster, (material or mat.default_color)(ctx))
+        n_p = interpolate(raster, normals_v)
+        n_p = n_p / torch.clamp(torch.linalg.vector_norm(n_p, dim=-1, keepdim=True), min=1e-8)
+        pos_p = interpolate(raster, mesh.positions)
+        if lighting:
+            params = {}
+            if isinstance(material, mat.StandardMaterial):
+                params = dict(perceptual_roughness=material.perceptual_roughness,
+                              metallic=material.metallic, reflectance=material.reflectance,
+                              emissive=material.emissive, lights=material.lights,
+                              ambient=material.ambient)
+            img = mat.pbr_lighting(base_p, n_p, pos_p, uniforms.view_world_position, **params)
+        else:
+            img = base_p
         return torch.where(raster.covered[..., None], img, bg), raster
-
-    # per-pixel PBR: interpolate base colour, shading normal, position
-    normals_v = mat.surface_normals_from_heights(mesh, tiles, uniforms, cfg)
-    ctx = mat.ShadeContext(mesh=mesh, tiles=tiles, normals=normals_v, uniforms=uniforms,
-                           cfg=cfg, texture_size=texture_size,
-                           attachment_samples=attachment_samples)
-    if pixel_attachment is not None:
-        slabs, a_scale, a_offset, a_maxv, a_tex = pixel_attachment
-        base_p = sample_attachment_pixel(
-            raster, mesh, tiles, uniforms, cfg, slabs, a_scale, a_offset, a_maxv, a_tex,
-            view_proj=view_proj, width=width, height=height,
-        )
-        if base_p.shape[-1] < 4:
-            base_p = torch.cat([base_p] + [torch.ones_like(base_p[..., :1])]
-                               * (4 - base_p.shape[-1]), dim=-1)
-    else:
-        base_p = interpolate(raster, (material or mat.default_color)(ctx))
-    n_p = interpolate(raster, normals_v)
-    n_p = n_p / torch.clamp(torch.linalg.vector_norm(n_p, dim=-1, keepdim=True), min=1e-8)
-    pos_p = interpolate(raster, mesh.positions)
-    if lighting:
-        params = {}
-        if isinstance(material, mat.StandardMaterial):
-            params = dict(perceptual_roughness=material.perceptual_roughness,
-                          metallic=material.metallic, reflectance=material.reflectance,
-                          emissive=material.emissive, lights=material.lights,
-                          ambient=material.ambient)
-        img = mat.pbr_lighting(base_p, n_p, pos_p, uniforms.view_world_position, **params)
-    else:
-        img = base_p
-    return torch.where(raster.covered[..., None], img, bg), raster
 
 
 def pixel_uv_and_grads(raster: RasterOutput, mesh, view_proj, width, height):

@@ -40,6 +40,7 @@ from bevy_terrain_tpu_torch.ops.patch_sampling import (
     blocks_from_tile, blocks_from_tile_packed, make_patch_plan,
 )
 from bevy_terrain_tpu_torch.terrain_data import attachment as attachment_io
+from bevy_terrain_tpu_torch.utils import tracing
 
 INVALID_ATLAS_INDEX = -1
 INVALID_LOD = -1
@@ -211,11 +212,13 @@ class AtlasAttachment:
         if not staged:
             return
         slots = torch.tensor([i for i, _ in staged], dtype=torch.int64).to(self.device)
+        tracing.count("upload_bytes", slots.numel() * 8)
         for m, slab in enumerate(self.slabs):
             vals = np.stack([mips[m] for _, mips in staged])
             if slab.dtype == torch.uint16:
                 # index_copy_ takes no uint16: write the same bits as int16
                 slab, vals = slab.view(torch.int16), vals.view(np.int16)
+            tracing.count("upload_bytes", vals.nbytes)
             slab.index_copy_(0, slots, torch.from_numpy(vals).to(self.device))
 
     def _staged_quads(self) -> tuple[np.ndarray, np.ndarray]:
@@ -241,6 +244,7 @@ class AtlasAttachment:
             slots, words = self._staged_quads()
             per_slot = self.patch_plan.total_blocks_per_slot
             block_idx = (slots[:, None] * per_slot + np.arange(per_slot)[None, :]).reshape(-1)
+            tracing.count("upload_bytes", block_idx.nbytes + words.nbytes)
             self.block_array.index_copy_(
                 0,
                 torch.from_numpy(block_idx).to(self.device),
@@ -581,7 +585,12 @@ class TileAtlas:
         state.retry_denied()
 
     def flush_uploads(self) -> int:
-        return sum(a.flush_uploads() for a in self.attachments)
+        """Upload every attachment's newly loaded tiles (per frame: the
+        tracing counters ``tiles_loaded``, one per attachment of a tile, and
+        ``upload_bytes``). Returns the tile attachments uploaded."""
+        n = sum(a.flush_uploads() for a in self.attachments)
+        tracing.count("tiles_loaded", n)
+        return n
 
     def sample_attachment_host(self, attachment_index, atlas_index, atlas_uv):
         return self.attachments[attachment_index].sample(atlas_index, atlas_uv)

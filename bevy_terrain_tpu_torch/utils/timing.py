@@ -15,7 +15,8 @@ measures its launches, not its work. The helpers:
 * :func:`cuda_ms`, :func:`device_ms`, :func:`cold_ms`: CUDA-event times of
   a call (stream span; back to back behind a sleep kernel; with the L2
   flushed before each launch).
-* :class:`Timer`: host-side section timer.
+
+The frame's own phases are tracing spans (``utils/tracing.py``).
 
 No helper here falls back to the host clock on a process without a card:
 the device helpers raise there.
@@ -26,7 +27,6 @@ from __future__ import annotations
 import collections
 import statistics
 import time
-from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -40,12 +40,13 @@ def _need_card(what: str) -> None:
 def device_events(prof):
     """The profiler's per-name averages of the kernels on the card. An aten
     op's entry carries its kernels' device time too, so a sum over every
-    entry counts each kernel twice; the record_function ranges of
-    rasterize_grid (``raster::``) are spans, not kernels."""
+    entry counts each kernel twice; user annotations (``record_function``
+    ranges, such as the tracing spans) are spans, not kernels."""
     from torch.autograd import DeviceType
 
+    spans = {e.name for e in prof.events() if e.is_user_annotation}
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0 and not e.key.startswith("raster::")]
+            and e.self_device_time_total > 0 and e.key not in spans]
 
 
 # device_time_ms brackets each call by a marker kernel (torch.cuda._sleep's
@@ -101,14 +102,14 @@ def _kernel_rows(calls, label: str) -> list:
 def _device_records(prof) -> list:
     """(start us, duration us, name) of a profiler trace's records on the
     card that started inside the trace: kernels, copies and fills, not the
-    user annotations or the ``raster::`` ranges."""
+    user annotations (the tracing spans' ranges)."""
     from torch.autograd import DeviceType
 
     result = prof.profiler.kineto_results
     t0 = result.trace_start_ns()
     return [(e.start_ns() / 1e3, e.duration_ns() / 1e3, e.name()) for e in result.events()
             if e.device_type() == DeviceType.CUDA and e.start_ns() >= t0
-            and not e.is_user_annotation() and not e.name().startswith("raster::")]
+            and not e.is_user_annotation()]
 
 
 def _traced_calls(fn, args, runs: int) -> list:
@@ -132,7 +133,7 @@ def device_time_ms(fn, *args, label: str = "bench", runs: int = 5) -> float:
     one profiler trace of ``runs + 1`` calls, the first ``runs`` read
     between marker kernels (:func:`_per_call_us`), the device records that
     :func:`device_events` counts (kernels, copies and fills; not the
-    ``raster::`` ranges).
+    tracing spans' ranges).
     ``label`` names the measurement in errors. Raises without a card, and
     when a call runs no kernel on it."""
     _need_card("device_time_ms")
@@ -244,27 +245,3 @@ def cold_ms(fn, n: int = 20) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
-@dataclass
-class Timer:
-    """Accumulating section timer for host-side frame phases."""
-
-    sections: dict = field(default_factory=dict)
-
-    def measure(self, name: str):
-        timer = self
-
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-
-            def __exit__(self, *exc):
-                timer.sections.setdefault(name, []).append(
-                    time.perf_counter() - self.t0
-                )
-
-        return _Ctx()
-
-    def summary(self) -> dict[str, float]:
-        return {k: float(np.median(v) * 1e3) for k, v in self.sections.items()}

@@ -10,12 +10,14 @@
 * ``dryrun_multichip(4, device="cpu")`` against the repo's
   ``__graft_entry__.dryrun_multichip(4)`` on 4 virtual CPU devices: the
   tile count of each view and the per-view mesh shape, exactly.
-* ``utils/timing``: ``benchmark`` and ``Timer`` on a CPU callable; every
-  helper that times the card raises in a process without one.
+* ``utils/timing``: ``benchmark`` on a CPU callable, beside the host
+  times of ``utils/tracing`` spans; every helper that times the card raises
+  in a process without one; ``device_events`` leaves out user annotations.
 """
 
 import sys
 import time
+import types
 from pathlib import Path
 
 import jax
@@ -24,7 +26,7 @@ import pytest
 import torch
 
 from bevy_terrain_tpu_torch.entry import dryrun_multichip, entry
-from bevy_terrain_tpu_torch.utils import timing
+from bevy_terrain_tpu_torch.utils import timing, tracing
 from tests.test_torch_patch_sampling import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_spherical_mesh import JAX_TOL
 
@@ -99,15 +101,18 @@ def test_benchmark_and_timer_on_a_cpu_callable():
     assert calls == [7] * 5
     assert set(stats) == {"min_ms", "median_ms", "mean_ms"}
     assert 2.0 <= stats["min_ms"] <= stats["median_ms"] and stats["mean_ms"] >= 2.0
-    t = timing.Timer()
-    for _ in range(3):
-        with t.measure("a"):
-            time.sleep(0.001)
-    with t.measure("b"):
-        pass
-    summary = t.summary()
-    assert set(summary) == {"a", "b"} and len(t.sections["a"]) == 3
-    assert summary["a"] >= 1.0 and summary["b"] < summary["a"]
+    # the host phases' timer: tracing spans of a frame record
+    with tracing.record(), tracing.span("terrain::update", frame=-1, device="cpu"):
+        for _ in range(3):
+            with tracing.span("t::a"):
+                time.sleep(0.001)
+        with tracing.span("t::b"):
+            pass
+    spans = tracing.frames()[-1]["spans"]
+    a = [s["host_ms"] for s in spans if s["name"] == "t::a"]
+    b = [s["host_ms"] for s in spans if s["name"] == "t::b"]
+    assert len(a) == 3 and len(b) == 1
+    assert min(a) >= 1.0 and b[0] < min(a)
 
 
 @pytest.mark.parametrize("helper", ["device_time_ms", "cuda_ms", "device_ms", "cold_ms",
@@ -119,6 +124,30 @@ def test_device_timing_raises_without_a_card(helper):
     with pytest.raises(RuntimeError, match="CUDA card"):
         getattr(timing, helper)(lambda: ran.append(1))
     assert not ran  # nothing was timed on the host instead
+
+
+def test_device_events_leaves_out_user_annotations():
+    """The kernels of a trace, not the ranges of ``record_function`` (the
+    tracing spans): on the card a range has a device-side twin of its name
+    with device time, which would otherwise count as a kernel."""
+    from torch.autograd import DeviceType
+
+    def avg(key, device_type, t):
+        return types.SimpleNamespace(key=key, device_type=device_type,
+                                     self_device_time_total=t)
+
+    def event(name, annotation):
+        return types.SimpleNamespace(name=name, is_user_annotation=annotation)
+
+    prof = types.SimpleNamespace(
+        events=lambda: [event("stage::refine", True), event("raster::scan", True),
+                        event("k_a", False)],
+        key_averages=lambda: [avg("stage::refine", DeviceType.CUDA, 9.0),
+                              avg("raster::scan", DeviceType.CUDA, 7.0),
+                              avg("k_a", DeviceType.CUDA, 3.0),
+                              avg("k_idle", DeviceType.CUDA, 0.0),
+                              avg("aten::add", DeviceType.CPU, 0.0)])
+    assert [e.key for e in timing.device_events(prof)] == ["k_a"]
 
 
 def test_device_time_reads_each_call_between_markers():

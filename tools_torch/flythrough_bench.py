@@ -11,8 +11,11 @@ grid_size=16).
 
 Prints one JSON object with streaming + frame statistics. Host timings are
 wall-clock with the frame's tile count read (one sync), so they hold the
-device's work; ``--device-time`` adds the settled frame's device time (the
-CUDA kernels' own time per ``update``, utils/timing.device_time_ms).
+device's work; ``host_scan_ms`` is the terrain's own request scan, its
+``update::requests`` tracing span (the flight runs under
+``utils/tracing.record()``); ``--device-time`` adds the settled frame's
+device time (the CUDA kernels' own time per ``update``,
+utils/timing.device_time_ms).
 ``backend`` is the card's name (``cpu`` with ``--cpu``).
 """
 
@@ -106,12 +109,7 @@ def main(argv=None) -> dict:
     if args.adaptive:
         terrain.enable_adaptive_capacity("cam", ladder=[2048, 4096, 8192])
 
-    # detached probe tree: times the per-frame host request scan without
-    # touching the streaming terrain's residency (compute_requests mutates
-    # tree state, so the live tree cannot be re-scanned out of band)
-    from bevy_terrain_tpu_torch.terrain_data.tile_tree import TileTree
-
-    probe = TileTree(terrain.atlas, streaming_flythrough_view(tile_capacity=8192))
+    from bevy_terrain_tpu_torch.utils import tracing
 
     n = args.frames
     path = flight_path(n)
@@ -130,21 +128,19 @@ def main(argv=None) -> dict:
             if s.loading_remaining == 0
         )
     t_start = time.perf_counter()
-    for i in range(n):
-        before = _loaded_total[0]
-        f0 = time.perf_counter()
-        out = terrain.update({"cam": path[i]}, {"cam": vp(i)})["cam"]
-        tiles.append(out.tile_count)  # reads the count: the frame's work is done
-        f1 = time.perf_counter()
-        # pure-host scan cost on the detached probe tree (no device work)
-        h0 = time.perf_counter()
-        probe.compute_requests(path[i])
-        h1 = time.perf_counter()
-        frame_ms.append((f1 - f0) * 1e3)
-        host_ms.append((h1 - h0) * 1e3)
-        _loaded_total[0] = _count_loaded()
-        loads.append(max(0, _loaded_total[0] - before))
-        overflows.append(out.overflow)
+    with tracing.record():
+        for i in range(n):
+            before = _loaded_total[0]
+            f0 = time.perf_counter()
+            out = terrain.update({"cam": path[i]}, {"cam": vp(i)})["cam"]
+            tiles.append(out.tile_count)  # reads the count: the frame's work is done
+            f1 = time.perf_counter()
+            frame_ms.append((f1 - f0) * 1e3)
+            host_ms.append(sum(s["host_ms"] for s in tracing.frames()[-1]["spans"]
+                               if s["name"] == "update::requests"))
+            _loaded_total[0] = _count_loaded()
+            loads.append(max(0, _loaded_total[0] - before))
+            overflows.append(out.overflow)
     wall_s = time.perf_counter() - t_start
 
     # settle the stream at the final (hardest) position
