@@ -5,8 +5,10 @@ here has three parts:
 
 * the wrapper (:func:`mesh_fused_planar`): on a CUDA tensor it launches the
   kernel from ``csrc/`` on the current stream, or raises; on a CPU tensor
-  it calls the plain version. It counts its kernel launches in a plain
-  integer attribute (``mesh_fused_planar.launches``);
+  it calls the plain version (:func:`raster_scan` alone raises there: its
+  plain version, ``render/raster.py::_scan``, reads the raster's bin grid,
+  and ``rasterize_grid`` takes it on the CPU). It counts its kernel
+  launches in a plain integer attribute (``mesh_fused_planar.launches``);
 * the plain PyTorch version (:func:`mesh_fused_planar_reference`), the same
   function batched over tiles, used by the CPU tests and as the yardstick
   on the card;
@@ -1356,6 +1358,82 @@ def fetch_resample_support(geom: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# Raster scan
+# ---------------------------------------------------------------------------
+
+# the bin sizes and pyramid depths csrc/raster_scan.cu takes
+RASTER_SCAN_MAX_PIXELS = 4 * 1024  # 4 pixels a thread of 1024: bins up to 64 x 64
+RASTER_SCAN_MAX_LEVELS = 32
+
+
+def raster_scan(table: torch.Tensor, coefs: torch.Tensor, top_left: torch.Tensor, caps,
+                nbx: int, bin_px: int, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The raster scan of ``render/raster.py`` on the card: per pixel of
+    every level-0 bin, the nearest covering candidate of the bin's row of
+    the candidate table, bit-equal to the torch scan ``raster._scan`` (the
+    plain version, which ``rasterize_grid`` runs on the CPU).
+
+    Args:
+      table: (NB, n_chunks * chunk) int64 candidates, -1 = none, each level
+        segment (``caps``, in order) a prefix of ids followed by -1
+        (``raster._bin_table``).
+      coefs: (T, 3, 4) f32 rows a, b, c of the planes e0, e1, e2, z.
+      top_left: (T, 3) bool fill-rule flags.
+      caps: the per-level capacities, host ints.
+      nbx: level-0 bins across; bin_px: bin side in pixels; chunk: the
+        torch scan's column group.
+
+    Returns (best_z (NB, bin_px^2) f32, -inf where nothing covers; best_t
+    (NB, bin_px^2) int64, -1). Launches ``csrc/raster_scan.cu`` on a CUDA
+    table and raises on any other, or on shapes the kernel does not take.
+    """
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"raster_scan runs on a CUDA table, not {dev}; the CPU's scan is "
+                         f"render/raster.py::_scan")
+    if table.dim() != 2 or coefs.dim() != 3:
+        raise ValueError("table must be (NB, width) and coefs (T, 3, 4)")
+    NB, width = table.shape
+    T = coefs.shape[0]
+    for x, dtype, shape, name in ((table, torch.int64, (NB, width), "table"),
+                                  (coefs, torch.float32, (T, 3, 4), "coefs"),
+                                  (top_left, torch.bool, (T, 3), "top_left")):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, table on {dev}")
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: want {dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    P = bin_px * bin_px
+    starts = np.concatenate([[0], np.cumsum(caps)]).astype(np.int64)
+    if not 1 <= P <= RASTER_SCAN_MAX_PIXELS:
+        raise ValueError(f"raster_scan takes bins of 1 to {RASTER_SCAN_MAX_PIXELS} pixels, "
+                         f"not {bin_px} x {bin_px}")
+    if not 1 <= len(caps) <= RASTER_SCAN_MAX_LEVELS or chunk < 1 or nbx < 1 or NB % nbx:
+        raise ValueError(f"raster_scan: {len(caps)} levels, chunk {chunk}, {NB} bins in rows "
+                         f"of {nbx}")
+    if width != -(-int(starts[-1]) // chunk) * chunk:
+        raise ValueError(f"table rows of {width} slots, want sum(caps) {int(starts[-1])} "
+                         f"in chunks of {chunk}")
+    if T >= 2**31 or width >= 2**31:
+        raise ValueError("raster_scan takes under 2^31 triangles and table columns")
+    if coefs.data_ptr() % 16:
+        raise ValueError("coefs must be 16-byte aligned")
+    best_z = torch.empty((NB, P), dtype=torch.float32, device=dev)
+    best_t = torch.empty((NB, P), dtype=torch.int64, device=dev)
+    if NB == 0:
+        return best_z, best_t
+    level_starts = (ctypes.c_int * len(starts))(*(int(s) for s in starts))
+    _launch(raster_scan, dev, "raster_scan_launch", table.data_ptr(), NB, width, nbx, bin_px,
+            chunk, level_starts, len(caps), coefs.data_ptr(), top_left.data_ptr(),
+            best_z.data_ptr(), best_t.data_ptr())
+    return best_z, best_t
+
+
+raster_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Build (nvcc -> shared library with a C interface -> ctypes)
 # ---------------------------------------------------------------------------
 
@@ -1521,6 +1599,11 @@ def _library() -> ctypes.CDLL:
         ]
         lib.fetch_resample_launch.restype = ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
+        lib.raster_scan_launch.argtypes = [
+            vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ip,
+            ctypes.c_int, vp, vp, vp, vp, vp,
+        ]
+        lib.raster_scan_launch.restype = ctypes.c_int
         lib.kernel_occupancy.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
                                          ip, ip, ip, ip, ip]
         lib.kernel_occupancy.restype = ctypes.c_int

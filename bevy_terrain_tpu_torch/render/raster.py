@@ -2,8 +2,9 @@
 
 Torch twin of the JAX package's ``render/raster.py``: the per-pixel half
 of the reference's fragment stage (fragment.wgsl:35-113), for captures,
-goldens, debug stills and offline tooling. Plain torch ops on the device of
-the positions it is given, f32 throughout; no hand-written kernel.
+goldens, debug stills and offline tooling. Torch ops on the device of the
+positions it is given, f32 throughout, and on the card one hand-written
+kernel for the scan (``csrc/raster_scan.cu``, bit-equal to :func:`_scan`).
 
 The design is the JAX package's:
 
@@ -44,6 +45,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from bevy_terrain_tpu_torch.ops import kernels
 from bevy_terrain_tpu_torch.ops.meshgen import GridMeshOutput
 from bevy_terrain_tpu_torch.utils import tracing
 
@@ -450,9 +452,20 @@ def _bin_table(p: _Pairs, s_key, s_tri, chunk: int) -> _Binned:
                    bin_overflow, g)
 
 
+def _run_scan(b: _Binned, bin_px: int, chunk: int):
+    """The scan of :func:`rasterize_grid`: ``kernels.raster_scan``
+    (``csrc/raster_scan.cu``) on a table on the card, which raises where it
+    cannot run, and :func:`_scan` on the CPU."""
+    if b.table.device.type == "cpu":
+        return _scan(b, bin_px, chunk)
+    return kernels.raster_scan(b.table, b.coefs, b.top_left, b.grid.caps, b.grid.nbx, bin_px,
+                               chunk)
+
+
 def _scan(b: _Binned, bin_px: int, chunk: int):
-    """The raster scan: a running (depth, triangle) max per pixel over the
-    candidate chunks. Returns (best z, best triangle) per bin pixel."""
+    """The raster scan in torch ops (the plain version of
+    ``kernels.raster_scan``): a running (depth, triangle) max per pixel over
+    the candidate chunks. Returns (best z, best triangle) per bin pixel."""
     g, table, coefs = b.grid, b.table, b.coefs
     NB, dev = table.shape[0], table.device
     n_chunks = table.shape[1] // chunk
@@ -544,13 +557,19 @@ def rasterize_grid(
     hotspots ~4x headroom, and treat ``bin_overflow > 0`` as the signal.
 
     The three phases are tracing spans (``utils/tracing.py``):
-    ``raster::bin_sort``, ``raster::scan``, ``raster::resolve``.
+    ``raster::bin_sort``, ``raster::scan``, ``raster::resolve``. The
+    counters ``scan_candidates`` (the table's live slots: the (bin,
+    candidate) pairs the scan tests, kept on the device) and ``scan_slots``
+    (the table's size) are counted with tracing on.
     """
     with tracing.span("raster::bin_sort"):
         b = _bin(positions, tile_mask, view_proj, width, height, bin_px, bin_cap, chunk,
                  cull_backfaces, near_eps)
+        if tracing.enabled():
+            tracing.count("scan_candidates", (b.table >= 0).sum())
+            tracing.count("scan_slots", b.table.numel())
     with tracing.span("raster::scan"):
-        best_z, best_t = _scan(b, bin_px, chunk)
+        best_z, best_t = _run_scan(b, bin_px, chunk)
     with tracing.span("raster::resolve"):
         return _resolve(b, best_z, best_t, width, height, bin_px)
 

@@ -138,22 +138,28 @@ def span(name: str, frame=None, device=None):
     return _Span(name, frame, device)
 
 
-def count(name: str, n: int = 1) -> None:
+def count(name: str, n=1) -> None:
     """Add ``n`` to counter ``name`` of the frame of the innermost open
-    span, when tracing is on."""
+    span, when tracing is on. ``n``: an int, or a 0-d integer tensor, which
+    stays unread (no host sync) until :func:`frames`."""
     if _open and enabled():
-        _open[-1].frame.counters[name] += int(n)
+        counters = _open[-1].frame.counters
+        counters[name] = counters[name] + (n if isinstance(n, torch.Tensor) else int(n))
 
 
 def frames() -> list:
     """The recorded frames, oldest first, after one synchronize of the
-    card: ``{"index", "counters": {name: n}, "spans": [{"name", "parent"
+    card: ``{"index", "counters": {name: int}, "spans": [{"name", "parent"
     (the enclosing span's name or None), "host_ms", "device_ms" (the CUDA
     event pair's, None off the card), "start_ns", "end_ns" (time.time_ns
     at entry and exit)}]}``, spans in the order they opened (those still
     open are left out)."""
     for dev in {f.device for f in _frames if f.device.type == "cuda"}:
         torch.cuda.synchronize(dev)
+    for f in _frames:  # the tensor counts, read once
+        for name, n in f.counters.items():
+            if isinstance(n, torch.Tensor):
+                f.counters[name] = int(n)
     return [{"index": f.index, "counters": dict(f.counters),
              "spans": [s.as_dict() for s in f.spans if s.end_ns is not None]}
             for f in _frames]

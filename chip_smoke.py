@@ -103,20 +103,25 @@
    teleports over the capacity ladder against the same path at the fixed
    capacity: no frame drops geometry, the teleport re-dispatches its frame,
    the settled frames are equal.
-10. Raster path (``render/raster.py``, torch ops, no kernel of its own), on
-   two main paths' terrains after one more counted frame: the material
-   frame (K4 in the frame) at 1920x1080 under the bench camera with
-   tools/raster_bench.py's knobs, through ``Terrain.render_image`` per-pixel
-   textured PBR (no kernel launch), with ``pixel_texturing=False`` and a
-   debug view (one packed sampler launch each, ``sample_attachment_grid``),
-   then its binning over bin caps 512 to 8192 up to the first that drops
-   nothing (tools_torch/raster_ablation.py) and the scan at that cap;
-   the spherical main path's planet (K2 in the frame) at 1024^2 with the
-   first bin cap that drops nothing, the disc without holes. Each render is
-   checked, timed (CUDA events; the profiler's device time, op count and
-   rasterize_grid's three phases; ``raster:`` lines with the card's name
-   and power limit) and held to the same ``render_view`` on the CPU fed the
-   card's frame products, at half the width and height.
+10. Raster path (``render/raster.py``: torch ops and the scan kernel
+   ``csrc/raster_scan.cu``), on two main paths' terrains after one more
+   counted frame: the material frame (K4 in the frame) at 1920x1080 under
+   the bench camera with tools/raster_bench.py's knobs, through
+   ``Terrain.render_image`` per-pixel textured PBR (one scan launch), with
+   ``pixel_texturing=False`` and a debug view (one packed sampler launch
+   each, ``sample_attachment_grid``), then its binning over bin caps 512 to
+   8192 up to the first that drops nothing (tools_torch/raster_ablation.py)
+   and the scan at that cap; the spherical main path's planet (K2 in the
+   frame) at 1024^2 with the first bin cap that drops nothing, the disc
+   without holes. Each render is checked, timed (CUDA events; the
+   profiler's device time, op count and rasterize_grid's three phases;
+   ``raster:`` lines with the card's name and power limit) and held to the
+   same ``render_view`` on the CPU fed the card's frame products, at half
+   the width and height. On each frame, at its knobs and at the bench
+   cells' (bin_px 16, bin_cap 512, chunk 16), the scan kernel against the
+   torch scan on the same table: ``digest:`` lines of both and their
+   equality, both times, the kernel's bound and the live share of the
+   table's slots (``scan:`` lines).
 11. Preprocess path (``preprocess/``, ``ops/preprocess*.py``: torch ops and
    numpy, no kernel of its own), after the main paths, every source made in
    numpy from a seed and handed over by ``loader=`` (no PIL): the
@@ -3347,11 +3352,17 @@ def multi_card_path(n_ranks: int, root: str | None = None) -> dict:
           f"the ranks' launches over their whole runs {totals}; {card}")
     return totals
 
-# the rasterizer (render/raster.py: torch ops, no csrc kernel) on the
-# material frame at 1920x1080 with tools/raster_bench.py:95's knobs, and on
-# the planet at 1024^2 with 16 px bins and the first cap that drops nothing
+# the rasterizer (render/raster.py: torch ops and csrc/raster_scan.cu) on
+# the material frame at 1920x1080 with tools/raster_bench.py:95's knobs, and
+# on the planet at 1024^2 with 16 px bins and the first cap that drops nothing
 RASTER_SIZE = (1920, 1080)
 RASTER_KNOBS = dict(bin_px=32, bin_cap=512, chunk=16)
+# the bench cells' knobs (terrain_bench/traffic/*.json)
+BENCH_RASTER_KNOBS = dict(bin_px=16, bin_cap=512, chunk=16)
+# the scan kernel's f32 operations per (live candidate, bin pixel) test: four
+# planes (a x + b y) + c (2 multiplies, 2 adds each), three edge tests, the
+# depth race
+SCAN_OPS_PER_TEST = 4 * 4 + 3 + 1
 # bin-cap sweep at 1920x1080 (tools_torch/raster_ablation.py): up to the first
 # cap that drops no candidate, or the drops at the last
 RASTER_CAP_SWEEP = (512, 1024, 2048, 4096, 8192)
@@ -3472,6 +3483,7 @@ def raster_path(terrain, view, stream_proj, view_proj, what, width, height, knob
     Returns the frame output."""
     import torch
 
+    from bevy_terrain_tpu_torch.ops import kernels
     from bevy_terrain_tpu_torch.render import raster
 
     reset_counts()
@@ -3486,11 +3498,14 @@ def raster_path(terrain, view, stream_proj, view_proj, what, width, height, knob
             return terrain.render_image("cam", out, view_proj, width, height, **kw, **knobs)
 
         reset_counts()
+        kernels.raster_scan.launches = 0
         img, r = render()
         torch.cuda.synchronize()
         counts = read_counts()
-        if any(counts[k] != (k5b if k == "attach_sample_fused_packed" else 0) for k in counts):
-            raise AssertionError(f"{what} {mode}: render_image launched {counts}")
+        if any(counts[k] != (k5b if k == "attach_sample_fused_packed" else 0) for k in counts) \
+                or kernels.raster_scan.launches != 1:
+            raise AssertionError(f"{what} {mode}: render_image launched {counts} and "
+                                 f"{kernels.raster_scan.launches} scans")
         cov = r.covered
         lo, hi = float(img.min()), float(img.max())
         ms = cuda_ms(render, n=10, warmup=1)
@@ -3516,9 +3531,9 @@ def raster_path(terrain, view, stream_proj, view_proj, what, width, height, knob
     args = (pos, out.mesh.tile_mask, vp, width, height, knobs["bin_px"], knobs["bin_cap"],
             knobs.get("chunk", 8), False, 1e-4)
     b = raster._bin(*args)
-    best = raster._scan(b, knobs["bin_px"], knobs.get("chunk", 8))
+    best = raster._run_scan(b, knobs["bin_px"], knobs.get("chunk", 8))
     phases = [cuda_ms(lambda: raster._bin(*args), n=10, warmup=1),
-              cuda_ms(lambda: raster._scan(b, knobs["bin_px"], knobs.get("chunk", 8)), n=10,
+              cuda_ms(lambda: raster._run_scan(b, knobs["bin_px"], knobs.get("chunk", 8)), n=10,
                       warmup=1),
               cuda_ms(lambda: raster._resolve(b, *best, width, height, knobs["bin_px"]), n=10,
                       warmup=1)]
@@ -3527,10 +3542,61 @@ def raster_path(terrain, view, stream_proj, view_proj, what, width, height, knob
           f"{phases[0]:.2f} ms, scan {phases[1]:.2f} ms ({b.table.shape[1]} candidate slots of "
           f"{b.table.shape[0]} bins), resolve {phases[2]:.2f} ms (CUDA events, median of 10); "
           f"{T} triangles, {4 * T} sort keys; {card}")
+    scan_check(f"{what} at {knobs}", b, knobs, card)
+    bench = raster._bin(pos, out.mesh.tile_mask, vp, width, height,
+                        BENCH_RASTER_KNOBS["bin_px"], BENCH_RASTER_KNOBS["bin_cap"],
+                        BENCH_RASTER_KNOBS["chunk"], False, 1e-4)
+    scan_check(f"{what} at the bench knobs {BENCH_RASTER_KNOBS}", bench, BENCH_RASTER_KNOBS,
+               card)
     for mode, (kw, view_kw, _, unlit) in modes.items():
         raster_compare(what, mode, view_kw(out), out, terrain, view_proj, width, height, knobs,
                        unlit)
     return out
+
+
+def scan_check(what, b, knobs, card) -> None:
+    """The scan kernel (``kernels.raster_scan``, as rasterize_grid runs it)
+    against the torch scan (``raster._scan``) on one binned frame: a
+    ``digest:`` line of each (the table, coefficients and flags in, best z
+    and best triangle out), equal bit for bit or raise; both timed (CUDA
+    events, median of 10; the torch scan of 3); the kernel's bound (each
+    live (bin, candidate) pair's id, the unique live candidates' 48 bytes of
+    coefficients and 3 flags read once, best z and best triangle written
+    once, against SCAN_OPS_PER_TEST f32 operations per live pair and bin
+    pixel); the table's live share (``scan_candidates / scan_slots``)."""
+    import torch
+
+    from bevy_terrain_tpu_torch.render import raster
+
+    bin_px, chunk = knobs["bin_px"], knobs["chunk"]
+    inputs = (b.table, b.coefs, b.top_left)
+    got = raster._run_scan(b, bin_px, chunk)
+    want = raster._scan(b, bin_px, chunk)
+    torch.cuda.synchronize()
+    held = set(_SHA_MEMO)
+    outs = {label: torch.cat([z.view(torch.int32).long(), t], 1)
+            for label, (z, t) in (("raster_scan kernel", got), ("raster_scan torch", want))}
+    for label, o in outs.items():
+        digest(f"{label} {what}", inputs, o)
+    for key in set(_SHA_MEMO) - held:  # the frame's tables and outputs go
+        del _SHA_MEMO[key]
+    equal = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)) and torch.equal(
+        got[1], want[1])
+    kernel_ms = cuda_ms(lambda: raster._run_scan(b, bin_px, chunk), n=10, warmup=1)
+    torch_ms = cuda_ms(lambda: raster._scan(b, bin_px, chunk), n=3, warmup=1)
+    live = int((b.table >= 0).sum())
+    unique = int(torch.unique(b.table[b.table >= 0]).numel())
+    NB, P = b.table.shape[0], bin_px * bin_px
+    print(f"scan: {what}: kernel and torch scan equal bit for bit: {equal}; kernel "
+          f"{kernel_ms:.4f} ms, torch scan {torch_ms:.2f} ms (CUDA events); scan_candidates / "
+          f"scan_slots {live} / {b.table.numel()} = {live / b.table.numel():.4f} "
+          f"({NB} bins of {P} pixels, {unique} unique candidates); {card}")
+    row = bound(live * 8 + unique * (48 + 3) + NB * P * (4 + 8),
+                live * P * SCAN_OPS_PER_TEST)
+    print(f"scan: {what}: bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+          f"{row['bound_ms'] / kernel_ms:.1%} of it")
+    if not equal:
+        raise AssertionError(f"{what}: the scan kernel differs from the torch scan")
 
 
 def material_raster_path(terrain, view, view_proj, card) -> None:
@@ -3581,7 +3647,8 @@ def material_raster_path(terrain, view, view_proj, card) -> None:
     vp = torch.as_tensor(view_proj, dtype=torch.float32, device="cuda")
     b = raster._bin(skirted.positions, skirted.tile_mask, vp, *RASTER_SIZE, knobs["bin_px"],
                     cap, knobs["chunk"], False, 1e-4)
-    scan_ms = cuda_ms(lambda: raster._scan(b, knobs["bin_px"], knobs["chunk"]), n=3, warmup=1)
+    scan_ms = cuda_ms(lambda: raster._run_scan(b, knobs["bin_px"], knobs["chunk"]), n=3,
+                      warmup=1)
     verdict = (f"bin_cap {cap} is the first that drops nothing" if drops == 0
                else f"{drops} candidates still dropped at bin_cap {cap}")
     print(f"raster: material frame at {RASTER_SIZE[0]}x{RASTER_SIZE[1]}: {verdict}; the scan "

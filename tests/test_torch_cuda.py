@@ -820,14 +820,14 @@ def test_sweep_kernel_on_any_tile_order(case):
     assert float(got.max()) > 10000.0 and float(got.min()) >= 0.0
 
 
-# -- the rasterizer (render/raster.py: torch ops, no csrc kernel) -------------
+# -- the rasterizer (render/raster.py: torch ops and the scan kernel) -------------
 
 
 def _launches():
     return {name: getattr(kernels, name).launches for name in (
         "mesh_fused_planar", "mesh_fused_spherical", "mesh_fused_albedo", "mesh_fused_shaded",
         "mesh_fused_spherical_albedo", "attach_sample_fused", "attach_sample_fused_packed",
-        "fetch_resample_cached", "fetch_resample")}
+        "fetch_resample_cached", "fetch_resample", "raster_scan")}
 
 
 @pytest.mark.cuda
@@ -836,7 +836,8 @@ def test_rasterizer_on_card_matches_cpu(name):
     """rasterize_grid on the card against the CPU on the CPU parity tests'
     scenes: both counters and every decisive pixel's triangle id exactly
     equal, depth and barycentrics within 1e-5 where the ids agree; no host
-    sync inside the call, and the same ids with TF32 allowed."""
+    sync inside the call, one scan kernel launch, and the same ids with
+    TF32 allowed."""
     from bevy_terrain_tpu_torch.render import raster
     # tests/ is on sys.path for its test modules (pytest's default import mode)
     from torch_raster_cases import decisive, oracle_raster, raster_cases
@@ -850,12 +851,14 @@ def test_rasterizer_on_card_matches_cpu(name):
     torch.cuda.synchronize()
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.cuda.set_sync_debug_mode("error")
+    before = kernels.raster_scan.launches
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
         card = raster.rasterize_grid(pos_d, mask_d, vp_d, W, H, **knobs)
     finally:
         torch.cuda.set_sync_debug_mode(0)
         torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert kernels.raster_scan.launches == before + 1
     assert all(t.device.type == "cuda" for t in card)
     assert int(card.near_culled) == int(cpu.near_culled)
     assert int(card.bin_overflow) == int(cpu.bin_overflow)
@@ -913,8 +916,8 @@ def test_render_image_on_card(card_material_terrain, mode):
     """Terrain.render_image on the card: the image is finite, on the card,
     in range, and the same as render_view on the CPU fed the card's frame
     products (ids on 99.9% of the pixels, colours within 1e-4 where they
-    agree). The per-pixel mode launches no csrc kernel; the vertex and
-    debug modes one packed sampler (K5b) through sample_attachment_grid."""
+    agree). Each mode launches one scan kernel; the vertex and debug modes
+    also one packed sampler (K5b) through sample_attachment_grid."""
     from bevy_terrain_tpu_torch.ops.params import unpack_frame_uniforms
     from bevy_terrain_tpu_torch.render import raster
 
@@ -928,7 +931,9 @@ def test_render_image_on_card(card_material_terrain, mode):
     after = _launches()
     k5b = 0 if mode == "pixel" else 1
     assert after["attach_sample_fused_packed"] == before["attach_sample_fused_packed"] + k5b
-    assert all(after[k] == before[k] for k in after if k != "attach_sample_fused_packed")
+    assert after["raster_scan"] == before["raster_scan"] + 1
+    assert all(after[k] == before[k] for k in after
+               if k not in ("attach_sample_fused_packed", "raster_scan"))
     assert img.device.type == "cuda" and img.shape == (160, 160, 4)
     assert bool(torch.isfinite(img).all()) and int(r.bin_overflow) == 0
     assert float(r.covered.float().mean()) > 0.9
@@ -958,6 +963,135 @@ def test_render_image_on_card(card_material_terrain, mode):
     assert same.mean() >= 0.999
     assert int(r.near_culled) == int(wr.near_culled) and int(r.bin_overflow) == int(wr.bin_overflow)
     np.testing.assert_allclose(img.cpu().numpy()[same], want.numpy()[same], rtol=0, atol=1e-4)
+
+
+# the bench cells' raster knobs (terrain_bench/traffic/*.json)
+BENCH_RASTER = dict(bin_px=16, bin_cap=512, chunk=16)
+
+
+@pytest.fixture(scope="module")
+def card_planet_frame(tmp_path_factory):
+    """A streamed cube-sphere Earth (r 6371 km, heights 0-9 km, 2 data lods
+    of 128^2) on the card under a camera 1000 km above the peaks looking
+    at the centre: (the frame output, its view-projection)."""
+    from bevy_terrain_tpu_torch import Terrain
+    from bevy_terrain_tpu_torch.config import AttachmentConfig, TerrainConfig
+    from bevy_terrain_tpu_torch.utils.synthetic import generate_spherical_dataset
+
+    dev = _card()
+    root = str(tmp_path_factory.mktemp("card_planet"))
+    att = AttachmentConfig(name="height", texture_size=128, border_size=2, mip_level_count=2)
+    generate_spherical_dataset("planet", 2, att, root=root)
+    model = TerrainModel.sphere(np.zeros(3), 6.371e6, 0.0, 9000.0)
+    config = TerrainConfig(lod_count=2, model=model, atlas_size=64, path="planet",
+                           attachments=(att,), assets_root=root)
+    terrain = Terrain(config, device=dev)
+    terrain.add_view("cam", TerrainViewConfig(tile_capacity=2048), queue_capacity=2048,
+                     culling=True)
+    view = np.array([0.3, 0.5, 0.8]) / np.linalg.norm([0.3, 0.5, 0.8]) * (6.371e6 + 1.009e6)
+    vp = frustum.view_projection(view, view * 0.5, np.radians(60.0), 1.0)
+    for _ in range(40):
+        out = terrain.update({"cam": view}, {"cam": vp})["cam"]
+        if not terrain.atlas.state.to_load and not any(a.loading for a in terrain.atlas.attachments):
+            break
+    out = terrain.update({"cam": view}, {"cam": vp})["cam"]
+    assert out.overflow == 0 and out.tile_count > 0
+    return out, vp
+
+
+def _scan_frame(name, request):
+    """(the binned frame, bin_px, chunk) on the card: a raster case of
+    tests/torch_raster_cases.py::binned_case (with its NaN case);
+    "planar_bench" / "earth_bench", the skirted frames of the planar and
+    planet terrains at the bench cells' knobs, shrunk to 480x272 / 256^2."""
+    from bevy_terrain_tpu_torch.render import raster
+    from torch_raster_cases import binned_case
+
+    dev = _card()
+    if name in ("planar_bench", "earth_bench"):
+        if name == "planar_bench":
+            _, out, vp = request.getfixturevalue("card_material_terrain")
+            W, H, spherical = 480, 272, False
+        else:
+            out, vp = request.getfixturevalue("card_planet_frame")
+            W, H, spherical = 256, 256, True
+        pos = raster.add_skirts(out.mesh.positions, spherical=spherical)
+        k = BENCH_RASTER
+        vp_d = torch.as_tensor(vp, dtype=torch.float32, device=dev)
+        b = raster._bin(pos, out.mesh.tile_mask, vp_d, W, H, k["bin_px"], k["bin_cap"],
+                        k["chunk"], False, 1e-4)
+        return b, k["bin_px"], k["chunk"]
+    b, _, k = binned_case(name, dev)
+    return b, k["bin_px"], k["chunk"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flat", "bumpy", "seam", "grazing", "near", "overflow", "nan",
+                                  "planar_bench", "earth_bench"])
+def test_scan_kernel_matches_torch_scan(name, request):
+    """The scan kernel (csrc/raster_scan.cu), as rasterize_grid runs it on
+    the card, against the torch scan on the same card and table: best z and
+    best triangle bit-equal, one launch; bins of 16 and 64 pixels, column
+    groups of 8 and 16, an overflowing cap, NaN coefficients, and shrunk
+    frames of both bench cells."""
+    from bevy_terrain_tpu_torch.render import raster
+
+    b, bin_px, chunk = _scan_frame(name, request)
+    before = kernels.raster_scan.launches
+    z, t = raster._run_scan(b, bin_px, chunk)
+    assert kernels.raster_scan.launches == before + 1
+    want_z, want_t = raster._scan(b, bin_px, chunk)
+    torch.cuda.synchronize()
+    assert z.shape == want_z.shape and t.dtype == torch.int64
+    assert torch.equal(z.view(torch.int32), want_z.view(torch.int32))
+    assert torch.equal(t, want_t)
+    assert bool((t >= 0).any())
+    assert bool((b.table < 0).any()) or name == "overflow"  # slots the kernel skips
+
+
+@pytest.mark.cuda
+def test_scan_kernel_raises_on_tables_it_does_not_take():
+    from bevy_terrain_tpu_torch.render import raster
+
+    b, bin_px, chunk = _scan_frame("bumpy", None)
+    g = b.grid
+
+    def scan(table=b.table, coefs=b.coefs, top_left=b.top_left, bin_px=bin_px, chunk=chunk):
+        return kernels.raster_scan(table, coefs, top_left, g.caps, g.nbx, bin_px, chunk)
+
+    before = kernels.raster_scan.launches
+    for bad in (dict(table=b.table.cpu()), dict(table=b.table.to(torch.int32)),
+                dict(table=torch.cat([b.table, b.table], 1)[:, ::2]),
+                dict(table=b.table[:, :-chunk].contiguous()),
+                dict(coefs=b.coefs.double()), dict(coefs=b.coefs.cpu()),
+                dict(top_left=b.top_left.to(torch.uint8)),
+                dict(bin_px=65), dict(chunk=0)):
+        with pytest.raises(ValueError):
+            scan(**bad)
+    assert kernels.raster_scan.launches == before
+    scan()
+    assert kernels.raster_scan.launches == before + 1
+    # rasterize_grid on a CUDA table launches the kernel or raises: no fallback
+    with pytest.raises(ValueError):
+        raster._run_scan(b, 65, chunk)
+
+
+@pytest.mark.cuda
+def test_scan_kernel_launches_once_per_rasterize_grid():
+    from bevy_terrain_tpu_torch.render import raster
+    from torch_raster_cases import raster_cases
+
+    dev = _card()
+    pos, mask, vp, W, H, knobs = raster_cases()["bumpy"]
+    args = (torch.from_numpy(pos).to(dev), torch.tensor(mask, device=dev),
+            torch.from_numpy(vp).to(dev), W, H)
+    before = dict(_launches())
+    for _ in range(3):
+        raster.rasterize_grid(*args, **knobs)
+    torch.cuda.synchronize()
+    after = _launches()
+    assert after["raster_scan"] == before["raster_scan"] + 3
+    assert all(after[k] == before[k] for k in after if k != "raster_scan")
 
 
 # -- preprocess on the card ------------------------------------------------------

@@ -37,6 +37,7 @@ from bevy_terrain_tpu_torch.render import material as mat
 from bevy_terrain_tpu_torch.render.pipeline import Terrain
 from bevy_terrain_tpu_torch.utils import tracing
 from bevy_terrain_tpu_torch.utils.synthetic import generate_planar_dataset
+from torch_raster_cases import binned_case
 
 # span -> its enclosing span, for every span of a frame of the scene
 NESTING = {
@@ -260,3 +261,111 @@ def test_the_ring_keeps_the_last_64_frames(monkeypatch):
     with tracing.record(), tracing.span("raster::scan"):
         tracing.count("refine_reads")
     assert tracing.frames()[-1] == frames[-1]
+
+
+def test_count_keeps_a_tensor_unread_until_frames(monkeypatch):
+    monkeypatch.setattr(tracing, "_frames", collections.deque(maxlen=tracing.RING))
+    with monkeypatch.context() as m:
+        for read in ("item", "tolist", "__int__", "__index__", "__bool__", "__float__"):
+            m.setattr(torch.Tensor, read, lambda *a, **k: pytest.fail("a host read"))
+        with tracing.record(), tracing.span("terrain::render", frame=3, device="cpu"):
+            tracing.count("scan_candidates", torch.tensor(5))
+            tracing.count("scan_candidates", 2)
+            tracing.count("scan_candidates", torch.tensor(3, dtype=torch.int64))
+            tracing.count("scan_slots", 40)
+        held = tracing._frames[-1].counters
+        assert isinstance(held["scan_candidates"], torch.Tensor)
+    assert tracing.frames()[-1]["counters"] == {"scan_candidates": 10, "scan_slots": 40}
+    assert type(tracing.frames()[-1]["counters"]["scan_candidates"]) is int
+
+
+# -- the raster scan's candidate table (csrc/raster_scan.cu's walk) -----------------
+
+
+RASTER_CASES = ["flat", "bumpy", "seam", "grazing", "near", "overflow"]
+
+
+@pytest.mark.parametrize("name", RASTER_CASES)
+def test_every_table_segment_is_a_dense_prefix(name):
+    """What the scan kernel walks: each level segment of a row of the
+    table is a prefix of triangle ids followed by -1, and the columns past
+    the last segment are -1."""
+    b, _, k = binned_case(name)
+    table, T = b.table.numpy(), b.coefs.shape[0]
+    starts = np.concatenate([[0], np.cumsum(b.grid.caps)])
+    assert table.shape[1] == -(-starts[-1] // k["chunk"]) * k["chunk"]
+    assert (table[:, starts[-1]:] == -1).all()
+    assert ((table == -1) | ((table >= 0) & (table < T))).all()
+    for s0, s1 in zip(starts[:-1], starts[1:]):
+        live = table[:, s0:s1] >= 0
+        assert not (live[:, 1:] & ~live[:, :-1]).any()
+    assert (table >= 0).any()
+
+
+def _walk(b, bin_px, chunk):
+    """The scan as csrc/raster_scan.cu walks the table, in numpy f32: each
+    row's segments in column order up to the first -1, a running winner of
+    each group of ``chunk`` columns (first maximum, a NaN depth wins and
+    sticks), folded into the best when the group changes if strictly
+    greater."""
+    table, coefs, tl = b.table.numpy(), b.coefs.numpy(), b.top_left.numpy()
+    starts = np.concatenate([[0], np.cumsum(b.grid.caps)])
+    NB, P = table.shape[0], bin_px * bin_px
+    best_z = np.full((NB, P), -np.inf, np.float32)
+    best_t = np.full((NB, P), -1, np.int64)
+    for n in range(NB):
+        x, y = b.grid.pix_x[n, :, 0].numpy(), b.grid.pix_y[n, :, 0].numpy()
+        bz, bt, gz, gt, group = best_z[n], best_t[n], best_z[n].copy(), best_t[n].copy(), -1
+
+        def fold():
+            better = gz > bz
+            bz[better], bt[better] = gz[better], gt[better]
+            gz[:] = -np.inf
+
+        for s0, s1 in zip(starts[:-1], starts[1:]):
+            for col in range(s0, s1):
+                cand = table[n, col]
+                if cand < 0:
+                    break
+                if col // chunk != group:
+                    fold()
+                    group = col // chunk
+                a, bb, c = coefs[cand]
+                planes = (a[None] * x[:, None] + bb[None] * y[:, None]) + c[None]
+                e = planes[:, :3]
+                inside = np.where(tl[cand][None], e >= 0, e > 0).all(-1)
+                z = planes[:, 3]
+                take = inside & ((z > gz) | np.isnan(z))
+                gz[take], gt[take] = z[take], cand
+        fold()
+    return best_z, best_t
+
+
+@pytest.mark.parametrize("name", RASTER_CASES + ["nan"])
+def test_the_kernels_walk_equals_the_torch_scan(name):
+    """Walking only the live prefixes, with the group rule, gives the torch
+    scan's bits; with NaN coefficients too (case "nan")."""
+    from bevy_terrain_tpu_torch.render import raster
+
+    b, _, k = binned_case(name)
+    want_z, want_t = raster._scan(b, k["bin_px"], k["chunk"])
+    with np.errstate(invalid="ignore"):
+        z, t = _walk(b, k["bin_px"], k["chunk"])
+    assert (t >= 0).any()
+    np.testing.assert_array_equal(z.view(np.int32), want_z.numpy().view(np.int32))
+    np.testing.assert_array_equal(t, want_t.numpy())
+
+
+@pytest.mark.parametrize("name", RASTER_CASES)
+def test_scan_counters_read_the_table(name, monkeypatch):
+    from bevy_terrain_tpu_torch.render import raster
+
+    monkeypatch.setattr(tracing, "_frames", collections.deque(maxlen=tracing.RING))
+    b, args, k = binned_case(name)
+    raster.rasterize_grid(*args, **k)  # tracing off: counts nothing
+    with tracing.record(), tracing.span("terrain::render", frame=0, device="cpu"):
+        raster.rasterize_grid(*args, **k)
+    counters = tracing.frames()[-1]["counters"]
+    assert counters == {"scan_candidates": int((b.table >= 0).sum()),
+                        "scan_slots": b.table.numel()}
+    assert 0 < counters["scan_candidates"] <= counters["scan_slots"]

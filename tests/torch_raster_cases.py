@@ -9,8 +9,10 @@ top-left fill rule, reverse-Z depth max) in float64.
 """
 
 import numpy as np
+import torch
 
 from bevy_terrain_tpu_torch.math.frustum import view_projection
+from bevy_terrain_tpu_torch.render import raster
 from bevy_terrain_tpu_torch.render.raster import _triangle_vertex_indices
 
 
@@ -128,6 +130,28 @@ def raster_cases():
         "overflow": (_bumpy(3, 9, 1.0), [True], VP_TOPDOWN, 64, 64,
                      dict(bin_px=64, bin_cap=8, chunk=8)),
     }
+
+
+def binned_case(name, device="cpu"):
+    """A raster case binned on ``device``: (``raster._bin``'s products,
+    ``rasterize_grid``'s positional arguments, its knobs with the defaults
+    filled in). Case "nan" is "seam" with NaN coefficients on live
+    candidates: the depth plane of every 7th (a NaN depth wins its column
+    group in torch.max, never the running best; in "seam" it shares a group
+    with a covering triangle on some pixels), an edge of every 11th from
+    the 4th (never inside)."""
+    pos, mask, vp, W, H, knobs = raster_cases()["seam" if name == "nan" else name]
+    k = dict(dict(bin_px=32, bin_cap=256, chunk=8), **knobs)
+    args = (torch.from_numpy(pos).to(device), torch.tensor(mask, device=device),
+            torch.from_numpy(vp).to(device), W, H)
+    b = raster._bin(*args, k["bin_px"], k["bin_cap"], k["chunk"], False, 1e-4)
+    if name == "nan":
+        live = torch.unique(b.table[b.table >= 0])
+        coefs = b.coefs.clone()
+        coefs[live[::7], 2, 3] = float("nan")
+        coefs[live[3::11], 0, 1] = float("nan")
+        b = b._replace(coefs=coefs)
+    return b, args, k
 
 
 def decisive(o_tri, o_margin):

@@ -12,7 +12,8 @@ alone on the products of the one before:
                what rasterize_grid takes)
   table        ranks, the per-level tables from one scatter, gathered onto
                the level-0 bins (``_bin_table``)
-  scan         the per-bin candidate scan (``_scan``)
+  scan         the per-bin candidate scan as rasterize_grid runs it
+               (``_run_scan``: the kernel on the card, ``_scan`` on the CPU)
   resolve      winner images and perspective-correct barycentrics
                (``_resolve``)
   full         rasterize_grid end to end
@@ -91,13 +92,13 @@ def stages(mesh, vp32, width: int, height: int, bin_px: int = 32, bin_cap: int =
           f"caps={g.caps} (total {sum(g.caps)}), chunk={chunk}, image {width}x{height}")
     s_key, s_tri = R._sort_pairs(p.key, p.znear_key, T, p.nkeys)
     b = R._bin_table(p, s_key, s_tri, chunk)
-    best_z, best_t = R._scan(b, bin_px, chunk)
+    best_z, best_t = R._run_scan(b, bin_px, chunk)
     calls = {
         "project": lambda: R._bin_pairs(*pair_args).key,
         "sort": lambda: R._sort_pairs_stable(p.key, p.znear_key, T)[0],
         "sort_packed": lambda: R._sort_pairs(p.key, p.znear_key, T, p.nkeys)[0],
         "table": lambda: R._bin_table(p, s_key, s_tri, chunk).table,
-        "scan": lambda: R._scan(b, bin_px, chunk)[0],
+        "scan": lambda: R._run_scan(b, bin_px, chunk)[0],
         "resolve": lambda: R._resolve(b, best_z, best_t, width, height, bin_px).depth,
         "full": lambda: R.rasterize_grid(positions, tile_mask, vp, width, height,
                                          bin_px=bin_px, bin_cap=bin_cap, chunk=chunk).depth,
